@@ -18,6 +18,13 @@
 //     computes the reduction and writes it to every row of the segment, rows
 //     outside any live segment write 0, so each output element is written
 //     exactly once.
+//   * argmax (the winner form, for the max backward; replaces
+//     segment_kernel.py::_winner_mask, which runs _fused_raw with
+//     want_pe=True): one thread per (segment, channel) walks its rows and
+//     returns the max together with the lowest row index holding it (the
+//     reference's atomicMin traceback).  A NaN makes the max NaN with no
+//     winner, as the reference's `x == max` test finds none; empty segments
+//     give 0 and no winner (-1).
 // Sums accumulate in f32 in row order; max propagates NaN like jnp.maximum.
 #include "common.cuh"
 
@@ -75,6 +82,38 @@ __global__ void segment_mapback_kernel(const float* __restrict__ data,
   for (int k = 0; k < count; ++k) o[(long long)k * C] = acc;
 }
 
+__global__ void segment_argmax_kernel(const float* __restrict__ data,
+                                      const int* __restrict__ starts,
+                                      const int* __restrict__ counts,
+                                      float* __restrict__ out,
+                                      int* __restrict__ winner, int V, int C) {
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)V * C) return;
+  int v = (int)(t / C);
+  int c = (int)(t - (long long)v * C);
+  int count = counts[v];
+  float acc = 0.0f;
+  int win = -1;
+  if (count > 0) {
+    int start = starts[v];
+    const float* p = data + (long long)start * C + c;
+    acc = p[0];
+    win = (acc == acc) ? start : -1;
+    for (int k = 1; k < count; ++k) {
+      float x = p[(long long)k * C];
+      if (x != x) {          // NaN: the max is NaN and has no winner
+        acc = x;
+        win = -1;
+      } else if (x > acc) {  // strict: ties keep the lower row
+        acc = x;
+        win = start + k;
+      }
+    }
+  }
+  out[t] = acc;
+  winner[t] = win;
+}
+
 constexpr int kThreads = 256;
 
 }  // namespace
@@ -103,5 +142,18 @@ KERNEL_API int segment_mapback_launch(int device, const float* data,
   if (work == 0) return 0;
   segment_mapback_kernel<<<blocks_for(work, kThreads), kThreads, 0, stream>>>(
       data, ids, starts, counts, out, N, V, C, is_max);
+  return end_launch();
+}
+
+KERNEL_API int segment_argmax_launch(int device, const float* data,
+                                     const int* starts, const int* counts,
+                                     float* out, int* winner, int V, int C,
+                                     cudaStream_t stream) {
+  int err = begin_launch(device);
+  if (err) return err;
+  long long work = (long long)V * C;
+  if (work == 0) return 0;
+  segment_argmax_kernel<<<blocks_for(work, kThreads), kThreads, 0, stream>>>(
+      data, starts, counts, out, winner, V, C);
   return end_launch();
 }

@@ -1,13 +1,15 @@
-"""PointPillars detector engine (predict path).
+"""PointPillars detector engine: train step and predict.
 
 Port of ``mmdet3d_gaussian_tpu/engine/detector.py``: the KITTI 3-class
-configuration, :class:`PointPillarsDetector` (construction, ``apply_eval``,
-``predict``) and :func:`synthetic_batch`.  The detector owns its weights
-(an ``nn.Module`` trunk on one device); load JAX weights with
-``det.trunk.load_state_dict(jax_variables_to_torch(variables))``.
+configuration, :class:`PointPillarsDetector` (construction, ``apply_train``,
+``loss``, ``apply_eval``, ``predict``, and the ``train_step`` entry around
+``parallel/train_state.py``) and :func:`synthetic_batch`.  The detector
+owns its weights (an ``nn.Module`` trunk on one device); load JAX weights
+with ``det.trunk.load_state_dict(jax_variables_to_torch(variables))``.
 
-Batch dict: points (B, N, C) f32, points_mask (B, N) bool (gt_* entries
-are carried for training and ignored by predict).
+Batch dict: points (B, N, C) f32, points_mask (B, N) bool, gt_bboxes
+(B, G, 7) f32, gt_labels (B, G) int, gt_valid (B, G) bool (the gt entries
+are read by the loss only).
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from ..device import resolve_device
 from ..models.dense_heads.anchor3d_head import PRIOR_PROB, GDAnchor3DHead
 from ..models.detectors.voxelnet import PointPillarsNet
 from ..models.voxel_encoders import MaskedBatchNorm
+from ..parallel.train_state import (TrainState, init_state,
+                                    make_optimizer, make_train_step)
 
 
 KITTI_3CLASS_MODEL = dict(
@@ -99,8 +103,8 @@ def init_weights(trunk: nn.Module, seed: int) -> None:
 
 class PointPillarsDetector:
     """PointPillars + GD anchor head (reference
-    ``hv_pointpillars_secfpn_kld5tau1_12x4_160e_kitti-3d-3class``), predict
-    path.  Only ``voxelize_mode='dynamic'`` is ported so far."""
+    ``hv_pointpillars_secfpn_kld5tau1_12x4_160e_kitti-3d-3class``).  Only
+    ``voxelize_mode='dynamic'`` is ported so far."""
 
     def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
                  head_cfg: Optional[Dict[str, Any]] = None,
@@ -122,9 +126,50 @@ class PointPillarsDetector:
         self.anchors = torch.from_numpy(
             self.head.anchors_for(self.featmap_size)).to(self.device)
 
+    def apply_train(self, batch: Dict[str, torch.Tensor]):
+        """-> NHWC (cls_score, bbox_pred, dir_pred, packed), differentiable
+        in the trunk's parameters.  The trunk runs in training mode: its
+        BatchNorms use batch statistics and update their running statistics
+        in place (the JAX package returns them as new ``batch_stats``)."""
+        self.trunk.train()
+        return self.trunk(batch['points'].to(self.device),
+                          batch['points_mask'].to(self.device))
+
+    def loss(self, outputs, batch: Dict[str, torch.Tensor]):
+        """Head outputs -> (total loss, {loss_cls, loss_bbox, loss_dir});
+        targets for the whole batch at once."""
+        cls, bbox, dirp, packed = outputs
+        targets = self.head.get_targets(
+            self.anchors, batch['gt_bboxes'].to(self.device),
+            batch['gt_labels'].to(self.device),
+            batch['gt_valid'].to(self.device))
+        losses = self.head.loss(cls, bbox, dirp, self.anchors, targets,
+                                packed=packed)
+        return sum(losses.values()), losses
+
+    def init_train(self, base_lr: float = 1e-3, total_steps: int = 1000,
+                   **optimizer_kw) -> TrainState:
+        """Build the optimizer (``make_optimizer``) and the train step for
+        :meth:`train_step`; returns the initial :class:`TrainState`."""
+        self.optimizer = make_optimizer(base_lr, total_steps, **optimizer_kw)
+        self._step_fn = make_train_step(self.apply_train, self.loss,
+                                        self.optimizer)
+        return init_state(self.trunk, self.optimizer)
+
+    def train_step(self, batch: Dict[str, torch.Tensor],
+                   state: Optional[TrainState] = None):
+        """One step: forward in training mode, loss, backward, AdamW
+        update of the trunk's parameters in place.  Without ``state`` the
+        optimizer and state are built first (:meth:`init_train` defaults).
+        -> (new state, metrics: each loss term, ``loss``, ``grad_norm``)."""
+        if state is None:
+            state = self.init_train()
+        return self._step_fn(state, batch)
+
     @torch.inference_mode()
     def apply_eval(self, batch: Dict[str, torch.Tensor]):
         """-> NHWC (cls_score, bbox_pred, dir_pred, packed)."""
+        self.trunk.eval()
         return self.trunk(batch['points'].to(self.device),
                           batch['points_mask'].to(self.device))
 

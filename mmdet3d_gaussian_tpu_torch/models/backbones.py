@@ -1,4 +1,4 @@
-"""SECOND backbone and SECONDFPN neck (eval) as plain PyTorch convolutions.
+"""SECOND backbone and SECONDFPN neck as plain PyTorch convolutions.
 
 Port of ``mmdet3d_gaussian_tpu/models/backbones.py`` (``ConvBNReLU``,
 ``SECOND``, ``SECONDFPN``) without its TPU layout rewrites (space-to-depth
@@ -6,6 +6,12 @@ and W-folded canvases, d2s deconvolution, H-chunk halos): each of those is
 an exact rewrite of the plain op written here.  Module names follow
 mmdet3d's state_dict (``backbone.blocks.{s}.{j}``,
 ``neck.deblocks.{i}.{0,1}``); BatchNorm eps 1e-3.
+
+:class:`BatchNorm2d` is the port of ``FastBatchNorm``
+(``ops/pallas/bn_kernel.py``): in training its statistics come from kernel
+K4 (:func:`~mmdet3d_gaussian_tpu_torch.ops.bn.bn_train`) and the running
+statistics move as the JAX module's, ``0.99 old + 0.01 batch`` with the
+biased batch variance.
 
 Public layout is the JAX package's NHWC; inside, tensors are NCHW views of
 channels-last memory, so the NHWC <-> NCHW permutes are free.
@@ -17,7 +23,27 @@ from typing import List, Sequence, Union
 import torch
 from torch import nn
 
+from ..ops.bn import bn_train
 from ..registry import MODELS
+
+MOMENTUM = 0.99   # flax convention: running = MOMENTUM * running + rest
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same parameters, buffers and state_dict keys)
+    whose training mode is the JAX package's ``FastBatchNorm``: batch
+    statistics from K4 (no cuDNN), biased variance in the running update.
+    Eval uses the running statistics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, var = bn_train(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
+            self.running_var.mul_(MOMENTUM).add_(var, alpha=1 - MOMENTUM)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -31,7 +57,7 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
 def conv_bn_relu(cin: int, cout: int, stride: int = 1) -> List[nn.Module]:
     """3x3 conv (pad 1, no bias) -> BatchNorm(eps 1e-3) -> ReLU."""
     return [nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False),
-            nn.BatchNorm2d(cout, eps=1e-3), nn.ReLU()]
+            BatchNorm2d(cout, eps=1e-3), nn.ReLU()]
 
 
 @MODELS.register_module()
@@ -91,7 +117,7 @@ class SECONDFPN(nn.Module):
             else:
                 raise NotImplementedError(
                     f'upsample stride {s} < 1 is not ported yet')
-            deblocks.append(nn.Sequential(up, nn.BatchNorm2d(ch, eps=1e-3),
+            deblocks.append(nn.Sequential(up, BatchNorm2d(ch, eps=1e-3),
                                           nn.ReLU()))
         self.deblocks = nn.ModuleList(deblocks)
 

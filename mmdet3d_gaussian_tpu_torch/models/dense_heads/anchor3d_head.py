@@ -1,27 +1,37 @@
-"""GD Anchor3D head (predict path): 1x1 head convs, decode and per-class
+"""GD Anchor3D head: 1x1 head convs, targets, losses, decode and per-class
 rotated NMS.
 
 Port of ``mmdet3d_gaussian_tpu/models/dense_heads/anchor3d_head.py``:
-``Anchor3DHeadConvs`` and the predict half of ``GDAnchor3DHead``
-(``anchors_for``, ``get_bboxes``).  ``get_bboxes`` runs a whole batch: the
-B x num_classes NMS problems go through one launch of the rotated-IoU kernel
-and one of the sweep kernel, with the JAX package's per-problem semantics
-(``lax.top_k`` order: descending, ties to the lower index).
+``Anchor3DHeadConvs`` and ``GDAnchor3DHead`` (``anchors_for``,
+``get_targets``, ``loss`` with its dense and sparse-positive forms,
+``get_bboxes``).  Targets are computed for the whole batch at once (the JAX
+package vmaps one sample at a time).  The dense decoded-box GD loss runs
+through kernel K3 (:func:`~mmdet3d_gaussian_tpu_torch.ops.gd_loss.
+anchor_gd_loss`), reading ``bbox_pred`` in the conv layout.  ``get_bboxes``
+runs a whole batch: the B x num_classes NMS problems go through one launch
+of the rotated-IoU kernel and one of the sweep kernel, with the JAX
+package's per-problem semantics (``lax.top_k`` order: descending, ties to
+the lower index).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import losses as _losses  # noqa: F401  (registers the losses)
 from ...core.anchor import Anchor3DRangeGenerator
-from ...core.bbox.coders import DeltaXYZWLHRBBoxCoder
+from ...core.bbox.assigners import (MaxIoUAssigner,
+                                    assign_per_class_vectorized)
+from ...core.bbox.coders import DeltaXYZWLHRBBoxCoder, get_direction_target
 from ...core.bbox.structures import limit_period
+from ...ops.gd_loss import anchor_gd_loss
 from ...ops.nms import nms_bev
-from ...registry import MODELS
+from ...ops.scan import compact_indices
+from ...registry import LOSSES, MODELS
 
 PRIOR_PROB = 0.01   # focal-loss prior of the cls bias (mmdet
                     # bias_init_with_prob)
@@ -75,21 +85,63 @@ class Anchor3DHeadConvs(nn.Module):
         return cls_score, bbox_pred, dir_pred, packed
 
 
-class GDAnchor3DHead:
-    """Config holder + predict-time functions of the GD anchor head.
+class AnchorTargets(NamedTuple):
+    """Per-anchor targets with a leading batch dim B; A = H*W*S*R anchors
+    in (H, W, S, R) order.  Dense mode fills the (B, A) fields; sparse mode
+    (``pos_cap`` > 0) carries regression / direction targets on K gathered
+    positive slots per sample instead."""
+    labels: torch.Tensor           # (B, A) int32 in [0, C]; C = background
+    label_weights: torch.Tensor    # (B, A) f32
+    bbox_targets: Optional[torch.Tensor]  # (B, A, 7) encoded deltas
+    bbox_weights: torch.Tensor     # (B, A) f32
+    dir_targets: Optional[torch.Tensor]   # (B, A) int32
+    num_pos: torch.Tensor          # (B,) int32
+    matched_gt: Optional[torch.Tensor] = None       # (B, A, 7) raw gt rows
+    pos_idx: Optional[torch.Tensor] = None          # (B, K) anchor index
+    pos_mask: Optional[torch.Tensor] = None         # (B, K) 1.0 = live
+    pos_bbox_targets: Optional[torch.Tensor] = None  # (B, K, 7)
+    pos_matched_gt: Optional[torch.Tensor] = None   # (B, K, 7)
+    pos_dir: Optional[torch.Tensor] = None          # (B, K) int32
+    pos_anchors: Optional[torch.Tensor] = None      # (B, K, 7)
 
-    Training entries of the shared config (assigners, losses, code /
-    decode weights, pos_cap, train_cfg) are accepted and ignored: this port
-    covers prediction only so far."""
+
+class GDAnchor3DHead:
+    """Config holder + target, loss and predict functions of the GD anchor
+    head (the conv parameters live in :class:`Anchor3DHeadConvs`)."""
 
     def __init__(self, num_classes: int, anchor_generator: Dict[str, Any],
+                 assigners: Sequence[Dict[str, Any]] = (),
+                 loss_cls: Optional[Dict[str, Any]] = None,
+                 loss_bbox: Optional[Dict[str, Any]] = None,
+                 loss_decoded_bbox: Optional[Dict[str, Any]] = None,
+                 loss_dir: Optional[Dict[str, Any]] = None,
                  dir_offset: float = -math.pi / 2,
-                 test_cfg: Optional[Dict[str, Any]] = None,
-                 **_train_only: Any):
+                 diff_rad_by_sin: bool = True, assign_per_class: bool = True,
+                 code_weight: Optional[Sequence[float]] = None,
+                 decode_weight: Optional[float] = None,
+                 pos_cap: int = 1024,
+                 train_cfg: Optional[Dict[str, Any]] = None,
+                 test_cfg: Optional[Dict[str, Any]] = None):
         self.num_classes = num_classes
         self.anchor_generator = Anchor3DRangeGenerator(**anchor_generator)
+        self.assigners = [MaxIoUAssigner(**{k: v for k, v in a.items()
+                                            if k != 'type'})
+                          for a in assigners]
         self.coder = DeltaXYZWLHRBBoxCoder()
+        build = lambda cfg: LOSSES.build(cfg) if cfg else None  # noqa: E731
+        self.loss_cls = build(loss_cls)
+        self.loss_bbox = build(loss_bbox)
+        self.loss_decoded_bbox = build(loss_decoded_bbox)
+        self.loss_dir = build(loss_dir)
         self.dir_offset = dir_offset
+        self.diff_rad_by_sin = diff_rad_by_sin
+        self.assign_per_class = assign_per_class
+        self.code_weight = code_weight
+        self.decode_weight = decode_weight
+        # gathered-positive slots per sample (0 = dense targets / losses);
+        # positives beyond pos_cap are dropped, highest anchor index first
+        self.pos_cap = int(pos_cap)
+        self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
         if not self.test_cfg.get('use_rotate_nms', True):
             raise NotImplementedError('axis-aligned NMS is not ported yet')
@@ -98,6 +150,190 @@ class GDAnchor3DHead:
         """(H, W) -> numpy anchors (H, W, S, R, 7)."""
         return self.anchor_generator.single_level_grid_anchors(
             tuple(featmap_size))
+
+    def get_targets(self, anchors: torch.Tensor, gt_bboxes: torch.Tensor,
+                    gt_labels: torch.Tensor, gt_valid: torch.Tensor
+                    ) -> AnchorTargets:
+        """anchors (H, W, S, R, 7); gt_bboxes (B, G, 7) padded, gt_labels
+        (B, G) int, gt_valid (B, G) bool -> batched :class:`AnchorTargets`."""
+        h, w, s, r, _ = anchors.shape
+        flat = anchors.reshape(-1, 7)
+        if self.assign_per_class and len(self.assigners) == s:
+            res = assign_per_class_vectorized(
+                anchors.reshape(h * w, s, r, 7), gt_bboxes, gt_labels,
+                gt_valid, self.assigners)
+        else:
+            res = self.assigners[0].assign(flat, gt_bboxes, gt_labels,
+                                           gt_valid)
+        assigned = res.assigned_gt                              # (B, A)
+        pos, neg = assigned > 0, assigned == 0
+        safe_gt = (assigned - 1).clamp(min=0).long()
+        labels = torch.where(pos, res.labels, self.num_classes).to(
+            torch.int32)
+        label_weights = (pos | neg).float()
+        bbox_weights = pos.float()
+        num_pos = pos.sum(-1).to(torch.int32)
+
+        def gt_rows(gt_idx):                         # (B, K) -> (B, K, 7)
+            return torch.gather(gt_bboxes, 1,
+                                gt_idx[..., None].expand(-1, -1, 7))
+
+        if self.pos_cap:
+            k = min(self.pos_cap, flat.shape[0])
+            idx, valid = compact_indices(pos, k)                # (B, K)
+            anc_rows = flat[idx]
+            mg_rows = gt_rows(torch.gather(safe_gt, 1, idx))
+            enc_rows = self.coder.encode(anc_rows, mg_rows)
+            dir_rows = get_direction_target(anc_rows, enc_rows,
+                                            dir_offset=self.dir_offset)
+            mrow = valid[..., None]
+            return AnchorTargets(
+                labels=labels, label_weights=label_weights,
+                bbox_targets=None, bbox_weights=bbox_weights,
+                dir_targets=None, num_pos=num_pos,
+                pos_idx=idx, pos_mask=valid.float(),
+                pos_bbox_targets=torch.where(mrow, enc_rows, 0.0),
+                pos_matched_gt=torch.where(mrow, mg_rows, 0.0),
+                pos_dir=torch.where(valid, dir_rows, 0).to(torch.int32),
+                pos_anchors=anc_rows)
+
+        matched = gt_rows(safe_gt)                              # (B, A, 7)
+        bbox_targets = torch.where(pos[..., None],
+                                   self.coder.encode(flat, matched), 0.0)
+        dir_targets = torch.where(
+            pos, get_direction_target(flat, bbox_targets,
+                                      dir_offset=self.dir_offset), 0)
+        return AnchorTargets(labels=labels, label_weights=label_weights,
+                             bbox_targets=bbox_targets,
+                             bbox_weights=bbox_weights,
+                             dir_targets=dir_targets.to(torch.int32),
+                             num_pos=num_pos,
+                             matched_gt=torch.where(pos[..., None], matched,
+                                                    0.0))
+
+    def _code_weights(self):
+        """Per-component SmoothL1 weights, or None when the sin-difference
+        term is off."""
+        if self.code_weight is not None:
+            return ([float(v) for v in self.code_weight]
+                    if any(self.code_weight) else None)
+        return [1.0] * 7 if self.loss_decoded_bbox is None else None
+
+    def _smooth_l1(self, pred_parts, tgt_parts, weight, avg):
+        cw = self._code_weights()
+        if cw is None:
+            return 0.0
+        p_parts, t_parts = tuple(pred_parts), tuple(tgt_parts)
+        if self.diff_rad_by_sin:
+            rp, rt = p_parts[6], t_parts[6]
+            p_parts = p_parts[:6] + (torch.sin(rp) * torch.cos(rt),)
+            t_parts = t_parts[:6] + (torch.cos(rp) * torch.sin(rt),)
+        total = 0.0
+        for i in range(7):
+            if cw[i]:
+                total = total + self.loss_bbox(p_parts[i], t_parts[i],
+                                               weight=weight * cw[i],
+                                               avg_factor=avg)
+        return total
+
+    def loss(self, cls_score, bbox_pred, dir_pred, anchors: torch.Tensor,
+             targets: AnchorTargets, packed=None) -> Dict[str, torch.Tensor]:
+        """Batched loss terms {loss_cls, loss_bbox, loss_dir}.
+
+        cls_score (B, H, W, A*C), bbox_pred (B, H, W, A*7), dir_pred
+        (B, H, W, A*2) NHWC maps; anchors (H, W, S, R, 7); targets from
+        :meth:`get_targets`; packed: the fused head conv output, gathered
+        from by the sparse form."""
+        b, hh, ww = cls_score.shape[:3]
+        a = anchors.shape[2] * anchors.shape[3]
+        c = self.num_classes
+        avg = targets.num_pos.sum().float().clamp(min=1.0)
+        losses = {'loss_cls': self.loss_cls(
+            cls_score.reshape(b, hh, ww, a, c),
+            targets.labels.reshape(b, hh, ww, a),
+            targets.label_weights.reshape(b, hh, ww, a), avg_factor=avg)}
+        if targets.pos_idx is not None:
+            return self._loss_sparse(bbox_pred, dir_pred, targets, avg,
+                                     losses, packed)
+
+        m = b * hh * ww
+        bbox_weights = targets.bbox_weights
+        loss_bbox = 0.0
+        gd = self.loss_decoded_bbox
+        if gd is not None and self.decode_weight:
+            w = bbox_weights * self.decode_weight
+            if not gd.kwargs and gd.reduction == 'mean':
+                # K3: decode + distance + weighted sum over (M, A*7) rows in
+                # the conv layout, target deltas decoded as the JAX kernel
+                cfg = (gd.loss_type, gd.center_offset, gd.fun,
+                       float(gd.tau), float(gd.alpha))
+                raw = anchor_gd_loss(
+                    bbox_pred.reshape(m, a * 7),
+                    targets.bbox_targets.reshape(m, a * 7),
+                    w.reshape(m, a), anchors.reshape(hh * ww, a * 7),
+                    hh * ww, cfg)
+                loss_bbox = loss_bbox + gd.loss_weight * raw / avg
+            else:
+                flat_anc = anchors.reshape(-1, 7).expand(b, -1, -1)
+                pred = bbox_pred.reshape(b, -1, 7).float()
+                dec_p = self.coder.decode_parts(flat_anc.unbind(-1),
+                                                pred.unbind(-1))
+                loss_bbox = loss_bbox + gd(
+                    dec_p, targets.matched_gt.unbind(-1), weight=w,
+                    avg_factor=avg)
+        loss_bbox = loss_bbox + self._smooth_l1(
+            bbox_pred.reshape(b, -1, 7).float().unbind(-1),
+            targets.bbox_targets.unbind(-1), bbox_weights, avg)
+        losses['loss_bbox'] = loss_bbox
+        if self.loss_dir is not None and dir_pred is not None:
+            losses['loss_dir'] = self.loss_dir(
+                dir_pred.reshape(b, hh, ww, a, 2).float(),
+                targets.dir_targets.reshape(b, hh, ww, a),
+                bbox_weights.reshape(b, hh, ww, a), avg_factor=avg)
+        return losses
+
+    def _loss_sparse(self, bbox_pred, dir_pred, tb: AnchorTargets, avg,
+                     losses, packed=None):
+        """Regression / direction losses on the K gathered positive slots
+        of each sample (identical to the dense form while num_pos <= K).
+        Component j of anchor t of cell q sits at channel t*width + j of
+        its map, or at ``offset + t*width + j`` of the packed conv output;
+        both gather the same values."""
+        b = bbox_pred.shape[0]
+        idx = tb.pos_idx                                     # (B, K)
+        k = idx.shape[1]
+        a = bbox_pred.shape[3] // 7
+        cell, t_in_cell = idx // a, idx % a
+
+        def rows_of(x, offset, width):
+            lanes = x.shape[-1]
+            ch = (cell * lanes + offset + t_in_cell * width)[..., None] \
+                + torch.arange(width, device=idx.device)
+            return torch.gather(x.reshape(b, -1), 1,
+                                ch.reshape(b, -1)).reshape(b, k, width)
+
+        nc, nb = a * self.num_classes, a * 7
+        src_bbox = (packed, nc) if packed is not None else (bbox_pred, 0)
+        pred_parts = rows_of(*src_bbox, 7).float().unbind(-1)
+        w_pos = tb.pos_mask
+        loss_bbox = 0.0
+        gd = self.loss_decoded_bbox
+        if gd is not None and self.decode_weight:
+            dec_p = self.coder.decode_parts(tb.pos_anchors.unbind(-1),
+                                            pred_parts)
+            loss_bbox = loss_bbox + gd(
+                dec_p, tb.pos_matched_gt.unbind(-1),
+                weight=w_pos * self.decode_weight, avg_factor=avg)
+        loss_bbox = loss_bbox + self._smooth_l1(
+            pred_parts, tb.pos_bbox_targets.unbind(-1), w_pos, avg)
+        losses['loss_bbox'] = loss_bbox
+        if self.loss_dir is not None and dir_pred is not None:
+            src_dir = (packed, nc + nb) if packed is not None \
+                else (dir_pred, 0)
+            losses['loss_dir'] = self.loss_dir(
+                rows_of(*src_dir, 2).float(), tb.pos_dir, w_pos,
+                avg_factor=avg)
+        return losses
 
     def select_candidates(self, cls_score, bbox_pred, dir_pred, anchors):
         """Decode and pick the NMS candidates of every (sample, class).

@@ -1,7 +1,7 @@
-"""Dynamic pillar feature net (eval), point rows sorted by voxel.
+"""Dynamic pillar feature net, point rows sorted by voxel.
 
 Port of ``mmdet3d_gaussian_tpu/models/voxel_encoders.py``:
-:class:`MaskedBatchNorm` (running statistics), the kernel-path branch of
+:class:`MaskedBatchNorm`, the kernel-path branch of
 :class:`PointVoxelStatsCalculator` and :class:`DynamicPillarFeatureNet`.
 Every per-voxel reduction goes through kernel K1 via :class:`Scatter`.
 """
@@ -14,10 +14,15 @@ from torch import nn
 
 from ..ops.scatter import Scatter
 from ..registry import MODELS
+from .backbones import MOMENTUM
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the last dim with running statistics (eval only).
+    """BatchNorm over the last dim; in training the statistics come from
+    the rows where ``mask`` is set (``cnt = max(sum mask, 1)``, biased
+    variance ``max(E[x^2] - mean^2, 0)``) and the running statistics move
+    as ``0.99 old + 0.01 batch``.  Plain PyTorch, as the JAX module
+    computes it outside Pallas.
 
     Parameter names follow ``nn.BatchNorm1d`` (weight, bias, running_mean,
     running_var); eps 1e-3 as the reference norm_cfg."""
@@ -30,13 +35,29 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError('MaskedBatchNorm is ported for eval '
-                                      'only')
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * inv
-                + self.bias).to(x.dtype)
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        xf = x.float()
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            flat = xf.reshape(-1, xf.shape[-1])
+            if mask is not None:
+                m = mask.reshape(-1, 1).to(flat.dtype)
+                cnt = m.sum().clamp(min=1.0)
+                s1 = (flat * m).sum(0)
+                s2 = (flat * flat * m).sum(0)
+            else:
+                cnt = float(flat.shape[0])
+                s1 = flat.sum(0)
+                s2 = (flat * flat).sum(0)
+            mean = s1 / cnt
+            var = torch.clamp_min(s2 / cnt - mean * mean, 0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(MOMENTUM).add_(mean,
+                                                      alpha=1 - MOMENTUM)
+                self.running_var.mul_(MOMENTUM).add_(var, alpha=1 - MOMENTUM)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * inv + self.bias).to(x.dtype)
 
 
 class PointVoxelStatsCalculator(nn.Module):
@@ -110,8 +131,8 @@ class DynamicPFNLayer(nn.Module):
         self.linear = nn.Linear(in_channels, out_channels, bias=False)
         self.norm = MaskedBatchNorm(out_channels)
 
-    def forward(self, x):
-        return torch.relu(self.norm(self.linear(x)))
+    def forward(self, x, mask=None):
+        return torch.relu(self.norm(self.linear(x), mask))
 
 
 @MODELS.register_module()
@@ -158,7 +179,7 @@ class DynamicPillarFeatureNet(nn.Module):
         x = x * valid.to(x.dtype)
         last = len(self.pfn_layers) - 1
         for i, layer in enumerate(self.pfn_layers):
-            y = layer(x)
+            y = layer(x, valid)
             x = (torch.cat([y, scatter.reduce_mapback(y, 'max')], dim=-1)
                  if i < last else y)
         return scatter.reduce(x, self.reduce_op)

@@ -33,11 +33,16 @@ BUILD_DIR = (Path(__file__).resolve().parents[2] / 'build'
 ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
 NVCC_FLAGS = ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                      '-Xptxas', '-v']
-# rotated IoU mirrors the plain version's rounding: no fused multiply-add
-SOURCE_FLAGS = {'rotated_iou.cu': ['--fmad=false']}
+# rotated IoU and the GD loss mirror the plain version's rounding, so no
+# fused multiply-add: the shoelace terms of the IoU and the KL terms of the
+# loss (sums near 1.5, then sqrt near 0) cancel, and a contracted product
+# shifts the result well past the tolerances.
+SOURCE_FLAGS = {'rotated_iou.cu': ['--fmad=false'],
+                'gd_loss.cu': ['--fmad=false']}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+_GD_CFG = [_I, _I, _F, _F, _F, _F, _F]   # loss type, fun, tau, alpha, offset
 # kernel name -> (C launcher, argtypes after the leading device index; the
 # stream is appended by launch())
 KERNELS = {
@@ -45,9 +50,22 @@ KERNELS = {
                        [_P, _P, _P, _P, _I, _I, _I]),
     'segment_reduce_mapback': ('segment_mapback_launch',
                                [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
+    'segment_argmax': ('segment_argmax_launch',
+                       [_P, _P, _P, _P, _P, _I, _I]),
     'bev_splat': ('bev_splat_launch', [_P, _P, _P, _I, _I, _LL]),
     'rotated_iou': ('rotated_iou_launch', [_P, _P, _I, _I]),
     'nms_sweep': ('nms_sweep_launch', [_P, _P, _P, _I, _I, _F]),
+    'bn_moments': ('bn_moments_launch',
+                   [_P, _LL, _I, _LL, _LL, _LL, _LL, _P, _I, _P]),
+    'bn_grad_moments': ('bn_grad_moments_launch',
+                        [_P, _P, _P, _P, _LL, _I] + [_LL] * 8
+                        + [_P, _I, _P]),
+    'gd_loss_fwd': ('gd_loss_fwd_launch',
+                    [_P, _LL, _P, _P, _P, _LL, _I, _I] + _GD_CFG
+                    + [_P, _I, _P]),
+    'gd_loss_bwd': ('gd_loss_bwd_launch',
+                    [_P, _P, _LL, _P, _P, _P, _LL, _I, _I] + _GD_CFG
+                    + [_P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

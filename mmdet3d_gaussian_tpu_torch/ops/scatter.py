@@ -1,10 +1,16 @@
-"""Dynamic point -> voxel scatter (forward), sort-based and deterministic.
+"""Dynamic point -> voxel scatter, sort-based and deterministic.
 
 Port of ``mmdet3d_gaussian_tpu/ops/scatter.py``: voxel coords are
 linearized to int32 keys, stably sorted, deduplicated into compact voxel ids
 ``0 .. L-1`` (in key order), and every reduction runs over rows sorted by
 voxel id through kernel K1 (:mod:`.segment`).  Invalid points and voxels
 beyond ``max_voxels`` map to the trash id ``max_voxels``.
+
+Gradients (``segment_kernel.py::sorted_reduce`` / ``sorted_reduce_mapback``
+VJPs): a sum / mean copies each voxel's gradient back to its rows; a max
+routes it to the one row per (voxel, channel) that K1's winner form picked,
+the lowest row index holding the max (the reference's atomicMin traceback).
+Every backward is a gather per row, never a scatter.
 """
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from .scan import cummax_i32, cumsum_i32
-from .segment import segment_reduce, segment_reduce_mapback
+from .segment import segment_argmax, segment_reduce, segment_reduce_mapback
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -39,6 +45,76 @@ def batch_coords(coords_3d: torch.Tensor, batch_idx: torch.Tensor):
     invalid = (coords_3d < 0).any(dim=-1)
     b = torch.where(invalid, -1, batch_idx.to(torch.int32))
     return torch.cat([b[:, None], coords_3d], dim=-1)
+
+
+def _needs_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _row_gather(table: torch.Tensor, ids: torch.Tensor, fill) -> torch.Tensor:
+    """``table[ids]`` per row; ids outside ``[0, V)`` read ``fill``."""
+    v = table.shape[0]
+    padded = torch.cat([table, table.new_full((1,) + table.shape[1:], fill)])
+    return padded[torch.where((ids >= 0) & (ids < v), ids.long(), v)]
+
+
+def _winner_rows(winner: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(N, C) bool: row r is the winner of its (segment, channel)."""
+    rows = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device)
+    return _row_gather(winner, ids, -1) == rows[:, None]
+
+
+class _SortedReduce(torch.autograd.Function):
+    """Per-segment sum / max of sorted rows with the gradient rules of
+    ``sorted_reduce`` (``segment_kernel.py:298-314``)."""
+
+    @staticmethod
+    def forward(ctx, rows, ids, starts, counts, op: str):
+        ctx.op = op
+        if op == 'max':
+            out, winner = segment_argmax(rows, starts, counts)
+            ctx.save_for_backward(ids, winner)
+        else:
+            out = segment_reduce(rows, starts, counts, 'sum')
+            ctx.save_for_backward(ids)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ids = ctx.saved_tensors[0]
+        g_pt = _row_gather(g, ids, 0.0)
+        if ctx.op == 'max':
+            g_pt = torch.where(_winner_rows(ctx.saved_tensors[1], ids), g_pt,
+                               0.0)
+        return g_pt, None, None, None, None
+
+
+class _SortedReduceMapback(torch.autograd.Function):
+    """Per-row full-segment sum / max of sorted rows (invalid rows 0) with
+    the gradient rules of ``sorted_reduce_mapback``
+    (``segment_kernel.py:327-343``): the sum's gradient is K1's mapback
+    form applied to the masked incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, rows, ids, starts, counts, op: str):
+        ctx.op = op
+        if op == 'max':
+            per_seg, winner = segment_argmax(rows, starts, counts)
+            ctx.save_for_backward(ids, starts, counts, winner)
+            return _row_gather(per_seg, ids, 0.0)
+        ctx.save_for_backward(ids, starts, counts)
+        return segment_reduce_mapback(rows, ids, starts, counts, 'sum')
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, starts, counts = ctx.saved_tensors[:3]
+        valid = ((ids >= 0) & (ids < counts.shape[0]))[:, None]
+        gm = torch.where(valid, g.float(), 0.0).contiguous()
+        gsum = segment_reduce_mapback(gm, ids, starts, counts, 'sum')
+        if ctx.op == 'max':
+            gsum = torch.where(_winner_rows(ctx.saved_tensors[3], ids), gsum,
+                               0.0)
+        return gsum, None, None, None, None
 
 
 class Scatter(NamedTuple):
@@ -91,9 +167,14 @@ class Scatter(NamedTuple):
         if op not in ('sum', 'mean', 'max'):
             raise ValueError(f'unknown reduce op {op!r}')
         kop = 'max' if op == 'max' else 'sum'
-        out = segment_reduce(self._sorted_rows(point_feats).float()
-                             .contiguous(), self.sorted_starts,
-                             self.voxel_counts, kop)
+        rows = self._sorted_rows(point_feats).float().contiguous()
+        if _needs_grad(rows):
+            out = _SortedReduce.apply(rows, self.sorted_ids,
+                                      self.sorted_starts, self.voxel_counts,
+                                      kop)
+        else:
+            out = segment_reduce(rows, self.sorted_starts, self.voxel_counts,
+                                 kop)
         if op == 'mean':
             out = out / self.voxel_counts.clamp(min=1).to(out.dtype)[:, None]
         return out.to(point_feats.dtype)
@@ -109,19 +190,18 @@ class Scatter(NamedTuple):
         """Per-point full-segment reduction, one K1 pass (mean = sum with a
         ones column, as the JAX kernel path)."""
         rows = self._sorted_rows(point_feats).float()
-        if op == 'mean':
-            ones = rows.new_ones((rows.shape[0], 1))
-            fused = segment_reduce_mapback(
-                torch.cat([rows, ones], dim=-1).contiguous(),
-                self.sorted_ids, self.sorted_starts, self.voxel_counts,
-                'sum')
-            out = fused[:, :-1] / fused[:, -1:].clamp(min=1.0)
-        elif op in ('sum', 'max'):
-            out = segment_reduce_mapback(rows.contiguous(), self.sorted_ids,
-                                         self.sorted_starts,
-                                         self.voxel_counts, op)
-        else:
+        if op not in ('sum', 'mean', 'max'):
             raise ValueError(f'unknown reduce op {op!r}')
+        if op == 'mean':
+            rows = torch.cat([rows, rows.new_ones((rows.shape[0], 1))], -1)
+        args = (rows.contiguous(), self.sorted_ids, self.sorted_starts,
+                self.voxel_counts, 'max' if op == 'max' else 'sum')
+        if _needs_grad(rows):
+            out = _SortedReduceMapback.apply(*args)
+        else:
+            out = segment_reduce_mapback(*args)
+        if op == 'mean':
+            out = out[:, :-1] / out[:, -1:].clamp(min=1.0)
         if not self.ids_sorted:
             out = out[torch.argsort(self.sort_order)]
         return out.to(point_feats.dtype)

@@ -10,6 +10,10 @@ reductions accumulate in f32.
 * :func:`segment_reduce_mapback` -> ``(N, C)``, every row of a live segment
   receives its segment's value; rows whose id is outside ``[0, V)`` (invalid
   points, the trash segment) receive 0.
+* :func:`segment_argmax` (the winner form, ``_winner_mask``) -> the
+  per-segment max ``(V, C)`` and, per (segment, channel), the lowest row
+  index holding it (``-1`` for empty segments and NaN maxima, which take no
+  gradient), for the max backward.
 
 Each wrapper computes its plain PyTorch version for CPU tensors and launches
 the CUDA kernel for CUDA tensors; there is no fallback between the two.
@@ -34,12 +38,7 @@ def segment_reduce_plain(data, starts, counts, op: str):
     _check_op(op)
     v, c = counts.shape[0], data.shape[1]
     dev = data.device
-    cnt = counts.long()
-    # (segment, row) of every member row, segment-major, rows ascending
-    seg = torch.repeat_interleave(torch.arange(v, device=dev), cnt)
-    offs = torch.cumsum(cnt, 0) - cnt
-    row = starts.long()[seg] + torch.arange(seg.shape[0], device=dev) \
-        - offs[seg]
+    seg, row = _segments_of_rows(starts, counts)
     rows = data.float()[row]
     out = torch.zeros((v, c), dtype=torch.float32, device=dev)
     if op == 'sum':
@@ -57,6 +56,36 @@ def segment_reduce_mapback_plain(data, ids, starts, counts, op: str):
     padded = torch.cat([per_seg, per_seg.new_zeros((1, per_seg.shape[1]))])
     valid = (ids >= 0) & (ids < v)
     return padded[torch.where(valid, ids.long(), v)]
+
+
+def _segments_of_rows(starts, counts):
+    """(segment, row) of every member row, segment-major, rows
+    ascending."""
+    dev = counts.device
+    cnt = counts.long()
+    seg = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev),
+                                  cnt)
+    offs = torch.cumsum(cnt, 0) - cnt
+    row = starts.long()[seg] + torch.arange(seg.shape[0], device=dev) \
+        - offs[seg]
+    return seg, row
+
+
+def segment_argmax_plain(data, starts, counts):
+    """Plain version of :func:`segment_argmax` (same rules)."""
+    v, c = counts.shape[0], data.shape[1]
+    dev = data.device
+    seg, row = _segments_of_rows(starts, counts)
+    rows = data.float()[row]
+    out = segment_reduce_plain(data, starts, counts, 'max')
+    nan = torch.zeros((v, c), dtype=torch.float32, device=dev)
+    nan.index_add_(0, seg, rows.isnan().float())
+    out = torch.where(nan > 0, float('nan'), out)
+    big = torch.iinfo(torch.int32).max
+    cand = torch.where(rows == out[seg], row[:, None].to(torch.int32), big)
+    win = torch.full((v, c), big, dtype=torch.int32, device=dev)
+    win.scatter_reduce_(0, seg[:, None].expand(-1, c), cand, 'amin')
+    return out, torch.where(win == big, -1, win)
 
 
 def _check_common(data, starts, counts):
@@ -106,3 +135,23 @@ def segment_reduce_mapback(data: torch.Tensor, ids: torch.Tensor,
                      ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
                      out.data_ptr(), n, counts.shape[0], c, is_max)
     return out
+
+
+def segment_argmax(data: torch.Tensor, starts: torch.Tensor,
+                   counts: torch.Tensor):
+    """Per-segment max ``(V, C)`` f32 (empty segments 0, NaN propagates)
+    and winner ``(V, C)`` int32: the lowest row index holding the max, -1
+    for empty segments and NaN maxima.  Arguments as :func:`segment_reduce`.
+    """
+    _check_common(data, starts, counts)
+    dev = _cuda.same_device(data, starts, counts)
+    if dev.type == 'cpu':
+        return segment_argmax_plain(data, starts, counts)
+    v, c = counts.shape[0], data.shape[1]
+    out = torch.empty((v, c), dtype=torch.float32, device=dev)
+    winner = torch.empty((v, c), dtype=torch.int32, device=dev)
+    if out.numel():
+        _cuda.launch('segment_argmax', dev, data.data_ptr(),
+                     starts.data_ptr(), counts.data_ptr(), out.data_ptr(),
+                     winner.data_ptr(), v, c)
+    return out, winner

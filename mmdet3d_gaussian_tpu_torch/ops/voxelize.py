@@ -4,6 +4,11 @@ Port of ``mmdet3d_gaussian_tpu/ops/voxelize.py::bev_scatter`` on the plain
 canvas: pillar rows compacted in canvas raster order (``build_scatter`` with
 ``key_order=CANVAS_KEY_ORDER``) have ascending, unique cell ids, so the splat
 is an exact row copy into a zeroed canvas.
+
+Its gradient (``ops/voxelize.py::_splat_bwd`` of the JAX package) is a
+fill-gather of the canvas gradient at each row's cell, rows with
+``lin >= ncell`` reading 0: plain indexing, as JAX computes it outside
+Pallas.
 """
 from __future__ import annotations
 
@@ -48,6 +53,21 @@ def bev_splat(feats: torch.Tensor, lin: torch.Tensor, ncell: int):
     return out
 
 
+class _Splat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, lin, ncell: int):
+        ctx.save_for_backward(lin)
+        return bev_splat(feats, lin, ncell)
+
+    @staticmethod
+    def backward(ctx, g):
+        (lin,) = ctx.saved_tensors
+        ncell = g.shape[0]
+        live = (lin < ncell)[:, None]
+        rows = g[lin.long().clamp(max=max(ncell - 1, 0))]
+        return torch.where(live, rows, 0.0), None, None
+
+
 def bev_scatter(voxel_feats: torch.Tensor, coords: torch.Tensor,
                 batch_size: int, nx: int, ny: int):
     """Scatter per-voxel features onto a dense NHWC canvas
@@ -63,5 +83,5 @@ def bev_scatter(voxel_feats: torch.Tensor, coords: torch.Tensor,
              & (iy >= 0) & (iy < ny))
     ncell = batch_size * ny * nx
     lin = torch.where(valid, (b * ny + iy) * nx + ix, ncell).to(torch.int32)
-    canvas = bev_splat(voxel_feats.float().contiguous(), lin, ncell)
+    canvas = _Splat.apply(voxel_feats.float().contiguous(), lin, ncell)
     return canvas.view(batch_size, ny, nx, voxel_feats.shape[-1])

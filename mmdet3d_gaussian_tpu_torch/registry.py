@@ -68,3 +68,4 @@ def build_from_cfg(cfg: Dict[str, Any], registry: Registry,
 MODELS = Registry('models')            # encoders, backbones, necks, heads
 ANCHOR_GENERATORS = Registry('anchor_generators')
 BBOX_CODERS = Registry('bbox_coders')
+LOSSES = Registry('losses')

@@ -4,7 +4,8 @@
 'batch_stats'}`` tree of a ``PointPillarsNet`` (dynamic encoder) as nested
 dicts of numpy arrays and returns a ``state_dict`` for
 :class:`~mmdet3d_gaussian_tpu_torch.models.detectors.voxelnet.PointPillarsNet`
-with mmdet3d-style names:
+with mmdet3d-style names; ``jax_grads_to_torch`` maps a gradient tree (the
+shape of ``params``) the same way, to one tensor per parameter name:
 
 * ``voxel_encoder/linear_{i}``, ``norm_{i}`` ->
   ``voxel_encoder.pfn_layers.{i}.linear`` / ``.norm``;
@@ -37,15 +38,34 @@ def _t(a) -> torch.Tensor:
 def _bn(sd, prefix, p, s, tracked: bool):
     sd[prefix + '.weight'] = _t(p['scale'])
     sd[prefix + '.bias'] = _t(p['bias'])
+    if s is None:   # a gradient tree: parameters only
+        return
     sd[prefix + '.running_mean'] = _t(s['mean'])
     sd[prefix + '.running_var'] = _t(s['var'])
-    if tracked:     # nn.BatchNorm2d's counter (unused in eval)
+    if tracked:     # nn.BatchNorm2d's counter (unused by the port)
         sd[prefix + '.num_batches_tracked'] = torch.tensor(0)
 
 
 def jax_variables_to_torch(variables: Dict[str, Any]
                            ) -> Dict[str, torch.Tensor]:
-    params, stats = variables['params'], variables['batch_stats']
+    return _convert(variables['params'], variables['batch_stats'])
+
+
+def jax_grads_to_torch(grads: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Gradient tree of ``params`` -> {parameter name: gradient}, laid out
+    as the port's parameters (every map above is linear)."""
+    return _convert(grads, None)
+
+
+def _convert(params, stats) -> Dict[str, torch.Tensor]:
+    def sub_stats(*keys):           # stats of one BN, None without stats
+        if stats is None:
+            return None
+        tree = stats
+        for k in keys:
+            tree = tree[k]
+        return tree
+
     sd: Dict[str, torch.Tensor] = {}
 
     enc = params.get('voxel_encoder', {})
@@ -57,7 +77,7 @@ def jax_variables_to_torch(variables: Dict[str, Any]
         sd[f'voxel_encoder.pfn_layers.{i}.linear.weight'] = \
             _t(np.asarray(sub['kernel']).T)
         _bn(sd, f'voxel_encoder.pfn_layers.{i}.norm', enc[f'norm_{i}'],
-            stats['voxel_encoder'][f'norm_{i}'], tracked=False)
+            sub_stats('voxel_encoder', f'norm_{i}'), tracked=False)
 
     for name, sub in params.get('backbone', {}).items():
         m = re.fullmatch(r'stage(\d+)_(down|block(\d+))', name)
@@ -68,7 +88,7 @@ def jax_variables_to_torch(variables: Dict[str, Any]
         sd[f'backbone.blocks.{s}.{j}.weight'] = \
             _t(np.transpose(np.asarray(sub['conv']['kernel']), (3, 2, 0, 1)))
         _bn(sd, f'backbone.blocks.{s}.{j + 1}', sub['bn'],
-            stats['backbone'][name]['bn'], tracked=True)
+            sub_stats('backbone', name, 'bn'), tracked=True)
 
     neck = params.get('neck', {})
     for name, sub in neck.items():
@@ -83,7 +103,7 @@ def jax_variables_to_torch(variables: Dict[str, Any]
             w = np.transpose(k, (3, 2, 0, 1))
         sd[f'neck.deblocks.{i}.0.weight'] = _t(w)
         _bn(sd, f'neck.deblocks.{i}.1', neck[f'deblock{i}_bn'],
-            stats['neck'][f'deblock{i}_bn'], tracked=True)
+            sub_stats('neck', f'deblock{i}_bn'), tracked=True)
 
     for conv, sub in params.get('bbox_head', {}).items():
         sd[f'bbox_head.{conv}.weight'] = \

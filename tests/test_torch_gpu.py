@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from mmdet3d_gaussian_tpu_torch.ops import _cuda
+from mmdet3d_gaussian_tpu_torch.engine import detector
+from mmdet3d_gaussian_tpu_torch.ops import _cuda, bn, gd_loss
 from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, segment
 from mmdet3d_gaussian_tpu_torch.ops import voxelize
 
@@ -105,3 +106,148 @@ def test_wrapper_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError, match='different devices'):
         voxelize.bev_splat(torch.zeros(4, 4, device=cuda),
                            torch.zeros(4, dtype=torch.int32), 8)
+
+
+def test_segment_argmax_kernel(cuda):
+    """K1 winner form: max and lowest tied row equal to the plain version,
+    on small integer data (many ties), a NaN, empty segments, a trash
+    tail."""
+    data, _ids, starts, counts = _segments(4, 2000, 64, 30, 50)
+    data = torch.round(data)
+    data[5, 3] = float('nan')
+    want, want_w = segment.segment_argmax_plain(data, starts, counts)
+    before = _cuda.LAUNCHES['segment_argmax']
+    got, got_w = segment.segment_argmax(data.to(cuda), starts.to(cuda),
+                                        counts.to(cuda))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['segment_argmax'] == before + 1
+    assert torch.equal(got.cpu().nan_to_num(7.5), want.nan_to_num(7.5))
+    assert torch.equal(got_w.cpu(), want_w)
+    assert int((want_w == -1).sum()) > 64     # empty segments and the NaN
+
+
+def _bn_layouts(cuda, b=3, c=64, h=37, w=50):
+    x = torch.randn(b, h, w, c, generator=torch.Generator().manual_seed(5))
+    x = (x * 2 + 0.5).to(cuda)
+    cl = x.permute(0, 3, 1, 2)
+    return {'channels_last': cl, 'nchw': cl.contiguous(),
+            'rows': x.reshape(-1, c), 'slice': torch.cat(
+                [x.reshape(-1, c), x.reshape(-1, c)], 1)[:, 7:7 + c]}
+
+
+@pytest.mark.parametrize('layout', ['channels_last', 'nchw', 'rows', 'slice'])
+def test_bn_moment_kernels(cuda, layout):
+    """K4 forward and backward moments in each layout the kernel reads,
+    against the plain version; f32 sums in another order, held to 1e-5 of
+    the sum of magnitudes; repeated launches are bitwise equal."""
+    x = _bn_layouts(cuda)[layout]
+    g = torch.randn_like(x)
+    mean, inv = x.new_full((64,), 0.4), x.new_full((64,), 0.7)
+    for got, want, mag in (
+            (bn.moments(x), bn.moments_plain(x),
+             (bn._channels_last_2d(x).abs().sum(0),
+              (bn._channels_last_2d(x) ** 2).sum(0))),
+            (bn.grad_moments(g, x, mean, inv),
+             bn.grad_moments_plain(g, x, mean, inv),
+             (bn._channels_last_2d(g).abs().sum(0),
+              bn._channels_last_2d(g * (x - 0.4) * 0.7).abs().sum(0)))):
+        for a, b_, m in zip(got, want, mag):
+            assert bool(((a - b_).abs() <= 1e-5 * m).all())
+    again = bn.moments(x)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, bn.moments(x)))
+
+
+@pytest.mark.parametrize('loss_type,fun,tau', [
+    ('gwd3d', 'log1p', 1.0), ('kld3d', 'log1p', 1.0), ('kld3d', 'none', 0.0),
+    ('jd3d', 'log1p', 1.0), ('kld3d_symmax', 'log1p', 1.0),
+    ('kld3d_symmin', 'log1p', 1.0), ('bd3d', 'log1p', 1.0),
+    ('kfiou3d', 'expm1', 0.0), ('kfiou3d', 'nlog', 0.0)])
+def test_gd_loss_kernels(cuda, loss_type, fun, tau):
+    """K3 forward (weighted sum) and backward (d pred) against the plain
+    version on the card, for every loss type, pred read as a channel slice
+    of a wider conv output."""
+    rng = np.random.RandomState(6)
+    hw, a, b = 2000, 6, 2
+    anc = np.zeros((hw, a, 7), np.float32)
+    anc[..., :2] = rng.uniform(-30, 60, (hw, a, 2))
+    anc[..., 2] = -1.78
+    anc[..., 3:6] = np.array([1.6, 3.9, 1.56]) * rng.uniform(0.8, 1.2,
+                                                             (hw, a, 3))
+    anc[..., 6] = rng.choice([0.0, np.pi / 2], (hw, a))
+    t = lambda arr: torch.from_numpy(arr).to(cuda)  # noqa: E731
+    wide = t(rng.randn(b * hw, 128).astype(np.float32) * 0.2)
+    pred = wide[:, 18:60]
+    tgt = t((rng.randn(b * hw, a * 7) * 0.2).astype(np.float32))
+    # weights: 0 on most anchors, positive on ~20 %, negative on ~5 %
+    # (pred replaced by the target there: a loss term but no gradient)
+    u = rng.rand(b * hw, a)
+    w = t((((u < 0.2).astype(np.float32) - (u > 0.95))
+           * rng.uniform(0.5, 2, (b * hw, a)))
+          .astype(np.float32))
+    anc2 = t(anc.reshape(hw, a * 7))
+    cfg = (loss_type, (0.0, 0.0, 0.5), fun, tau, 1.0)
+    args = (tgt, w, anc2, hw, cfg)
+    got = gd_loss.gd_loss_fwd(pred, *args)
+    want = gd_loss.anchor_gd_loss_plain(pred, *args)
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    gout = torch.tensor(1.7, device=cuda)
+    dgot = gd_loss.gd_loss_bwd(gout, pred, *args)
+    dwant = gd_loss.gd_loss_bwd_plain(gout, pred, *args)
+    torch.testing.assert_close(dgot, dwant, rtol=1e-4, atol=5e-6)
+    assert float(dwant.abs().max()) > 0
+
+
+def test_train_step_card_vs_cpu(cuda):
+    """One TINY train step (sparse targets) on the card against the CPU:
+    loss terms, every gradient, running statistics, Adam's moments, and the
+    updated weights where |mu| is large enough for card and CPU to agree on
+    the gradient's sign (Adam moves a weight by about lr whatever |g|)."""
+    model = dict(voxel_size=(0.4, 0.4, 4.0),
+                 point_cloud_range=(0., -12.8, -3., 25.6, 12.8, 1.),
+                 max_voxels_per_sample=1024, voxelize_mode='dynamic',
+                 encoder_cfg=dict(in_channels=4, feat_channels=(16,)),
+                 backbone_cfg=dict(in_channels=16, out_channels=(16, 32, 64),
+                                   layer_nums=(1, 1, 1),
+                                   layer_strides=(2, 2, 2)),
+                 neck_cfg=dict(in_channels=(16, 32, 64),
+                               out_channels=(16, 16, 16),
+                               upsample_strides=(1, 2, 4)),
+                 head_cfg=dict(num_classes=3, num_anchors=6,
+                               feat_channels=48))
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        det = detector.PointPillarsDetector(model, device=dev, seed=2)
+        batch = detector.synthetic_batch(2, 1024, 8, seed=0,
+                                         pc_range=model['point_cloud_range'],
+                                         device=dev)
+        total, losses = det.loss(det.apply_train(batch), batch)
+        params = dict(det.trunk.named_parameters())
+        grads = torch.autograd.grad(total, list(params.values()))
+        state = det.init_train(1e-3, total_steps=100)
+        state, _ = det.train_step(batch, state)
+        out[dev] = ({k: float(v.detach()) for k, v in losses.items()},
+                    {k: g.cpu() for k, g in zip(params, grads)},
+                    {k: v.detach().cpu()
+                     for k, v in det.trunk.state_dict().items()},
+                    {k: (state.opt_state.mu[k].cpu(),
+                         state.opt_state.nu[k].cpu()) for k in params})
+    (lc, gc, sc, mc), (lp, gp, sp, mp) = out['cuda'], out['cpu']
+    assert min(lp.values()) > 0, lp
+    for k in lp:
+        assert abs(lc[k] - lp[k]) <= 1e-4 * abs(lp[k]), k
+    for k in gp:
+        torch.testing.assert_close(gc[k], gp[k], rtol=0,
+                                   atol=1e-4 * float(gp[k].abs().max()))
+    for k in sp:
+        atol = 2.5e-3 if 'running' not in k else 1e-4
+        torch.testing.assert_close(sc[k].float(), sp[k].float(), rtol=1e-4,
+                                   atol=atol)
+    for k, (mu, nu) in mp.items():
+        torch.testing.assert_close(mc[k][0], mu, rtol=0,
+                                   atol=1e-4 * float(mu.abs().max()))
+        torch.testing.assert_close(mc[k][1], nu, rtol=0,
+                                   atol=2e-4 * float(nu.abs().max()))
+        # lr = 1e-3: a sign flip or a dropped update is ~1e-3 off
+        sel = (mu.abs() >= 1e-2 * mu.abs().max()) & (mu.abs() > 1e-6)
+        assert bool(sel.any()), k
+        torch.testing.assert_close(sc[k][sel], sp[k][sel], rtol=0, atol=1e-5)

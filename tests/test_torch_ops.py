@@ -1,8 +1,9 @@
 """PyTorch port ops vs the JAX package on the CPU: scatter construction,
-and the plain versions of kernels K1 (segment reduce), K2 (BEV splat), K5
-(rotated IoU) and K6 (NMS sweep), each held to its Pallas kernel in
-interpret mode and to the JAX XLA path.  Inputs are made with numpy from a
-seed and handed to both.
+and the plain versions of kernels K1 (segment reduce, its winner form and
+the reduce backward), K2 (BEV splat and its gradient), K4 (BatchNorm
+moments, ``bn_train`` and the BN modules in training), K5 (rotated IoU) and
+K6 (NMS sweep), each held to its Pallas kernel in interpret mode and to the
+JAX XLA path.  Inputs are made with numpy from a seed and handed to both.
 """
 import numpy as np
 import pytest
@@ -12,15 +13,21 @@ import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
+from mmdet3d_gaussian_tpu.models import voxel_encoders as jve
+
 from mmdet3d_gaussian_tpu.ops import nms as jnms
 from mmdet3d_gaussian_tpu.ops import rotated_iou as jiou
 from mmdet3d_gaussian_tpu.ops import scatter as jsc
 from mmdet3d_gaussian_tpu.ops import voxelize as jvx
+from mmdet3d_gaussian_tpu.ops.pallas import bn_kernel as bk
 from mmdet3d_gaussian_tpu.ops.pallas import segment_kernel as sk
 from mmdet3d_gaussian_tpu.ops.pallas.bev_splat_kernel import bev_splat_pallas
 from mmdet3d_gaussian_tpu.ops.pallas.nms_kernel import nms_sweep_pallas
 from mmdet3d_gaussian_tpu.ops.pallas.rotated_iou_kernel import iou_bev_pallas
 
+from mmdet3d_gaussian_tpu_torch.models import backbones as tbb
+from mmdet3d_gaussian_tpu_torch.models import voxel_encoders as tve
+from mmdet3d_gaussian_tpu_torch.ops import bn as tbn
 from mmdet3d_gaussian_tpu_torch.ops import nms as tnms
 from mmdet3d_gaussian_tpu_torch.ops import rotated_iou as tiou
 from mmdet3d_gaussian_tpu_torch.ops import scatter as tsc
@@ -316,3 +323,276 @@ def test_wrappers_reject_bad_shapes():
                             torch.ones(2, 3, dtype=torch.bool), 0.1)
     with pytest.raises(TypeError):
         tvx.bev_splat(torch.zeros(4, 2), torch.zeros(4), 8)
+
+
+# ------------------------------------------------ K1 winner form, backward
+def test_k1_argmax_direct():
+    """Winner form on hand-made segments: the max and the lowest row index
+    holding it, ties included; empty segments give 0 and -1, a NaN gives a
+    NaN max and no winner."""
+    counts = np.array([4, 0, 3, 1, 5], np.int32)
+    starts = np.array([0, 4, 4, 7, 8], np.int32)
+    data = np.array([[1, 2], [3, 2], [3, 0], [0, 2],          # segment 0
+                     [5, -1], [5, -1], [4, -2],               # segment 2
+                     [-7, 8],                                 # segment 3
+                     [0, 1], [2, np.nan], [2, 1], [1, 1], [0, 0],
+                     [9, 9]],                                 # trash row
+                    np.float32)
+    out, win = tseg.segment_argmax(_t(data), _t(starts), _t(counts))
+    want_out = np.array([[3, 2], [0, 0], [5, -1], [-7, 8], [2, np.nan]],
+                        np.float32)
+    want_win = np.array([[1, 0], [-1, -1], [4, 4], [7, 7], [9, -1]],
+                        np.int32)
+    np.testing.assert_array_equal(out.numpy(), want_out)
+    np.testing.assert_array_equal(win.numpy(), want_win)
+
+
+@pytest.mark.parametrize('impl', ['pallas', 'xla'])
+@pytest.mark.parametrize('op', ['sum', 'mean', 'max'])
+@pytest.mark.parametrize('form', ['reduce', 'reduce_mapback'])
+def test_k1_backward_matches_jax(pallas_segments, impl, op, form):
+    """Gradients of Scatter.reduce / reduce_mapback (max through the winner
+    form) vs the VJP of segment_kernel's sorted_reduce(_mapback) in
+    interpret mode and of the XLA path, on small integer features so many
+    segments hold tied maxima: the gradient goes to the lowest tied row."""
+    pts, js, ts, _ = _both_scatters(seed=8)
+    jv, tv = js.sorted_view(), ts.sorted_view()
+    rng = np.random.RandomState(9)
+    feats = rng.randint(0, 3, (pts.shape[0], 6)).astype(np.float32)
+    out_rows = js.max_voxels if form == 'reduce' else pts.shape[0]
+    g = rng.randn(out_rows, 6).astype(np.float32)
+    sk.IMPL = impl
+    _, vjp = jax.vjp(lambda x: getattr(jv, form)(x, op), jnp.asarray(feats))
+    (want,) = vjp(jnp.asarray(g))
+    x = _t(feats).requires_grad_(True)
+    (got,) = torch.autograd.grad(getattr(tv, form)(x, op), x, _t(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    if op == 'max':
+        # ties: rows equal to their segment max that take no gradient
+        seg_max = tv.reduce(_t(feats), 'max')
+        ids = tv.point_voxel_ids.long()
+        live = ids < js.max_voxels
+        tied = (_t(feats)[live] == seg_max[ids[live]]) \
+            & (got[live] == 0) & (_t(g).abs().sum() > 0)
+        assert int(tied.sum()) > 50
+
+
+# ------------------------------------------------------- K2 gradient
+def test_bev_scatter_grad_matches_jax():
+    """The canvas gradient gathered back at each pillar's cell (rows off the
+    canvas read 0) vs the VJP of the JAX bev_scatter."""
+    pts, js, ts, _ = _both_scatters(seed=10)
+    rng = np.random.RandomState(11)
+    feats = rng.randn(js.max_voxels, 4).astype(np.float32)
+    g = rng.randn(2, 432, 496, 4).astype(np.float32)    # (B, ny, nx, C)
+    _, vjp = jax.vjp(lambda f: jvx.bev_scatter(f, js.voxel_coords, 2, 496,
+                                                432, indices_sorted=True),
+                     jnp.asarray(feats))
+    (want,) = vjp(jnp.asarray(g))
+    x = _t(feats).requires_grad_(True)
+    (got,) = torch.autograd.grad(
+        tvx.bev_scatter(x, ts.voxel_coords, 2, 496, 432), x, _t(g))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy()[int(ts.num_voxels):] == 0).all()
+
+
+# ------------------------------------------------------------------ K4
+@pytest.fixture
+def pallas_bn():
+    old = bk.INTERPRET, bk.IMPL
+    bk.INTERPRET, bk.IMPL = True, 'pallas'
+    yield
+    bk.INTERPRET, bk.IMPL = old
+
+
+def _bn_input(seed, shape):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(*shape) * 2 + 0.5).astype(np.float32)
+
+
+def test_k4_moments_match_pallas(pallas_bn):
+    """moments / grad_moments plain versions vs the Pallas kernels
+    (interpret) on 2,500 rows, not a multiple of the kernel's 1,024-row
+    tile; f32 sums of 2,500 terms in another order."""
+    x = _bn_input(0, (2500, 24))
+    g = _bn_input(1, (2500, 24))
+    mean = _bn_input(2, (24,))
+    inv = np.abs(_bn_input(3, (24,))) + 0.1
+    for got, want in zip(tbn.moments(_t(x)), bk.moments(jnp.asarray(x))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-3)
+    got = tbn.grad_moments(_t(g), _t(x), _t(mean), _t(inv))
+    want = bk.grad_moments(*map(jnp.asarray, (g, x, mean, inv)))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-3)
+
+
+def _nchw(x_nhwc, layout):
+    """An NHWC numpy array as the port's (B, C, H, W) tensor in a memory
+    format: channels-last (the conv outputs) or NCHW-contiguous."""
+    t = _t(x_nhwc).permute(0, 3, 1, 2)
+    return t.contiguous() if layout == 'nchw' else t
+
+
+@pytest.mark.parametrize('layout', ['rows', 'channels_last', 'nchw'])
+def test_k4_bn_train_matches_jax(pallas_bn, layout):
+    """bn_train: y, batch mean / biased var, and the gradients of x, scale
+    and bias vs the JAX bn_train custom VJP (Pallas moments, interpret)."""
+    x = _bn_input(4, (2, 9, 11, 16))
+    gy = _bn_input(5, x.shape)
+    scale = np.random.RandomState(6).uniform(0.5, 1.5, 16).astype(np.float32)
+    bias = np.random.RandomState(7).randn(16).astype(np.float32)
+
+    def jf(x2, s, b):
+        y, mean, var = bk.bn_train(x2, s, b, 1e-3, None)
+        return jnp.sum(y * jnp.asarray(gy.reshape(-1, 16))), (y, mean, var)
+
+    (_, (y, mean, var)), grads = jax.value_and_grad(
+        jf, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(x.reshape(-1, 16)), jnp.asarray(scale), jnp.asarray(bias))
+    if layout == 'rows':
+        xt, gt = _t(x.reshape(-1, 16)), _t(gy.reshape(-1, 16))
+    else:
+        xt, gt = _nchw(x, layout), _nchw(gy, layout)
+    xt.requires_grad_(True)
+    st, bt = _t(scale).requires_grad_(True), _t(bias).requires_grad_(True)
+    yt, mt, vt = tbn.bn_train(xt, st, bt, 1e-3)
+    dx, ds, db = torch.autograd.grad((yt * gt).sum(), (xt, st, bt))
+    rows = lambda t: tbn._channels_last_2d(t.detach()).numpy()  # noqa: E731
+    np.testing.assert_allclose(rows(yt), np.asarray(y), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(mt.numpy(), np.asarray(mean), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(vt.numpy(), np.asarray(var), rtol=1e-5)
+    np.testing.assert_allclose(rows(dx), np.asarray(grads[0]), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(grads[1]), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(db.numpy(), np.asarray(grads[2]), rtol=1e-4,
+                               atol=1e-4)
+    assert not mt.requires_grad and not vt.requires_grad
+
+
+def test_k4_layout_strides():
+    """_layout's (rows, C, S, batch stride, spatial stride, channel stride)
+    address every element of the activation in the formats the kernel
+    reads; a layout three strides cannot describe raises."""
+    b, c, h, w = 2, 5, 3, 4
+    base = torch.arange(b * c * h * w, dtype=torch.float32)
+    wide = torch.arange(24 * 2 * c, dtype=torch.float32).view(24, 2 * c)
+    cases = [base.view(b, h, w, c).permute(0, 3, 1, 2),       # channels-last
+             base.view(b, c, h, w),                            # NCHW
+             base.view(b * h * w, c),                          # (M, C)
+             wide[:, 3:3 + c],                                 # column slice
+             base[:b * c * w].view(b, c, 1, w),                # H = 1
+             base[:b * c * h].view(b, 1, h, c).permute(0, 3, 2, 1)]  # W = 1
+    for x in cases:
+        m, cc, s, sb, ss, sc = tbn._layout(x)
+        rows = tbn._channels_last_2d(x)
+        assert (m, cc) == tuple(rows.shape)
+        r = torch.arange(m)[:, None]
+        off = (r // s) * sb + (r % s) * ss + torch.arange(cc) * sc
+        size = x.untyped_storage().nbytes() // 4 - x.storage_offset()
+        flat = torch.as_strided(x, (size,), (1,), x.storage_offset())
+        assert torch.equal(flat[off], rows), x.stride()
+    with pytest.raises(ValueError):
+        tbn._layout(base.view(b, c, w, h).transpose(2, 3))
+    with pytest.raises(TypeError):
+        tbn._layout(base.double().view(b * h * w, c))
+
+
+@pytest.mark.parametrize('layout', ['channels_last', 'nchw'])
+def test_batchnorm2d_train_matches_fast_batchnorm(pallas_bn, layout):
+    """The port's BatchNorm2d in training vs FastBatchNorm (Pallas moments,
+    interpret): output, gradients and the running statistics (0.99 old +
+    0.01 batch, biased variance); eval reads the new running statistics."""
+    x = _bn_input(8, (2, 10, 12, 8))
+    gy = _bn_input(9, x.shape)
+    rng = np.random.RandomState(10)
+    params = {'scale': rng.uniform(0.5, 1.5, 8).astype(np.float32),
+              'bias': rng.randn(8).astype(np.float32)}
+    stats = {'mean': rng.randn(8).astype(np.float32),
+             'var': rng.uniform(0.5, 2, 8).astype(np.float32)}
+    fast = bk.FastBatchNorm(use_running_average=False)
+
+    def jf(p, xx):
+        y, aux = fast.apply({'params': p, 'batch_stats': stats}, xx,
+                            mutable=['batch_stats'])
+        return jnp.sum(y * jnp.asarray(gy)), (y, aux['batch_stats'])
+
+    (_, (y, new_stats)), (gp, gx) = jax.value_and_grad(
+        jf, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+    bn = tbb.BatchNorm2d(8, eps=1e-3).train()
+    with torch.no_grad():
+        bn.weight.copy_(_t(params['scale']))
+        bn.bias.copy_(_t(params['bias']))
+        bn.running_mean.copy_(_t(stats['mean']))
+        bn.running_var.copy_(_t(stats['var']))
+    xt = _nchw(x, layout).requires_grad_(True)
+    yt = bn(xt)
+    dx, dw, db = torch.autograd.grad((yt * _nchw(gy, layout)).sum(),
+                                     (xt, bn.weight, bn.bias))
+    nhwc = lambda t: t.detach().permute(0, 2, 3, 1).numpy()  # noqa: E731
+    np.testing.assert_allclose(nhwc(yt), np.asarray(y), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(nhwc(dx), np.asarray(gx), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(gp['scale']),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(db.numpy(), np.asarray(gp['bias']), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(new_stats['mean']), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(new_stats['var']), rtol=1e-6)
+    bn.eval()
+    want = fast.clone(use_running_average=True).apply(
+        {'params': params, 'batch_stats': new_stats}, jnp.asarray(x))
+    with torch.no_grad():
+        np.testing.assert_allclose(nhwc(bn(_nchw(x, layout))),
+                                   np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_masked_batchnorm_train_matches_jax():
+    """MaskedBatchNorm in training: statistics over the masked rows only,
+    the same running update, gradients of x, scale and bias."""
+    rng = np.random.RandomState(12)
+    x = (rng.randn(400, 16) * 3 + 1).astype(np.float32)
+    mask = rng.rand(400) > 0.3
+    gy = rng.randn(400, 16).astype(np.float32)
+    params = {'scale': rng.uniform(0.5, 1.5, 16).astype(np.float32),
+              'bias': rng.randn(16).astype(np.float32)}
+    stats = {'mean': rng.randn(16).astype(np.float32),
+             'var': rng.uniform(0.5, 2, 16).astype(np.float32)}
+    jbn = jve.MaskedBatchNorm()
+
+    def jf(p, xx):
+        y, aux = jbn.apply({'params': p, 'batch_stats': stats}, xx,
+                           mask=jnp.asarray(mask), use_running_average=False,
+                           mutable=['batch_stats'])
+        return jnp.sum(y * jnp.asarray(gy)), (y, aux['batch_stats'])
+
+    (_, (y, new_stats)), (gp, gx) = jax.value_and_grad(
+        jf, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+    bn = tve.MaskedBatchNorm(16).train()
+    with torch.no_grad():
+        bn.weight.copy_(_t(params['scale']))
+        bn.bias.copy_(_t(params['bias']))
+        bn.running_mean.copy_(_t(stats['mean']))
+        bn.running_var.copy_(_t(stats['var']))
+    xt = _t(x).requires_grad_(True)
+    yt = bn(xt, _t(mask)[:, None])
+    dx, dw, db = torch.autograd.grad((yt * _t(gy)).sum(),
+                                     (xt, bn.weight, bn.bias))
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(y), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(gx), rtol=1e-4,
+                               atol=1e-5)
+    for got, key in ((dw, 'scale'), (db, 'bias')):
+        np.testing.assert_allclose(got.numpy(), np.asarray(gp[key]),
+                                   rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(new_stats['mean']), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(new_stats['var']), rtol=1e-6)
