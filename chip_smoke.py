@@ -8,33 +8,47 @@ Phases, each printing its own lines (any failure exits non-zero):
       nvcc time and ptxas registers / spills per kernel;
   (b) each kernel against its plain PyTorch version on the card, on the
       exact inputs the full-width main paths hand it (captured from one
-      warm-up predict, and from one warm full-width train step with dense
-      targets): max error; device time (torch.profiler: the summed
-      durations of what each call ran on the card, host time left out) of
-      the kernel, the plain version and a one-call library yardstick where
-      PyTorch has one; the kernel's time per call on the host's clock
-      (CUDA events over back-to-back calls, its wrapper's host work
-      included); and the bound;
+      warm-up predict, from one warm full-width train step with dense
+      targets, and from one bf16 predict and one bf16 dense-target train
+      step): max error; device time (torch.profiler: the summed durations
+      of what each call ran on the card, host time left out) of the
+      kernel, the plain version and a one-call library yardstick where
+      PyTorch has one; the kernel's time per call on the host's clock (CUDA
+      events over back-to-back calls, its wrapper's host work included);
+      and the bound.  K7 must equal its plain version; every kernel of the
+      bf16 paths (K1, K3, K4, K5, K6, K7, and K2 on bf16 rows) is also
+      checked, and timed, on the bf16 paths' inputs;
   (c) TINY predict and one TINY train step on the card against the same
-      port on the CPU;
-  (d) the predict path: PointPillars KITTI 3-class at full width (dynamic
-      voxelize, batch 4 x 16384 points, random weights from a seed with a
-      zero cls bias so scores clear the threshold) answering 6 requests
-      (3 batches x 2 rounds); launch counts are zeroed just before and read
-      just after, and every predict kernel must have run; then NMS
-      candidate and suppression counts, and a torch.profiler run of 5 more
-      predicts for the device-busy share and the kernels with the most
-      device time;
-  (t) the train path: the same model trained by ``train_step`` on one
-      repeated batch (sparse targets, ``pos_cap=1024``), 3 warm-up and 10
-      timed steps, launch counts zeroed before the timed steps; step time,
-      peak memory, loss terms per step (finite, descending); then 3 steps
-      with dense targets (``pos_cap=0``), where K3 runs; then a
-      torch.profiler run of 3 more steps;
+      port on the CPU, in f32 and in bf16 (card bf16 held to CPU bf16 at
+      under half of CPU bf16's distance from CPU f32; the same rule run on
+      the card's f32 must fail);
+  (d) the f32 predict path: PointPillars KITTI 3-class at full width
+      (dynamic voxelize on the plain canvas, ``s2d_canvas='off'``, batch
+      4 x 16384 points, random weights from a seed with a zero cls bias so
+      scores clear the threshold) answering 6 requests (3 batches x 2
+      rounds); launch counts are zeroed just before and read just after,
+      and every predict kernel must have run; then NMS candidate and
+      suppression counts, and a torch.profiler run of 5 more predicts for
+      the device-busy share and the kernels with the most device time;
+  (d16) the bf16 predict path (``compute_dtype='bfloat16'``, the s2d canvas
+      on through ``'auto'``, K7 in place of K2) the same way; then the f32
+      predict with the s2d canvas on (the f32 default, ``'auto'``: K7 on
+      f32 rows, checked equal to its plain version at full width) against
+      off, in turns, both with a zero cls bias, with launch counts;
+  (t) the f32 train path (plain canvas): the same model trained by
+      ``train_step`` on one repeated batch (sparse targets,
+      ``pos_cap=1024``), 3 warm-up and 10 timed steps, launch counts zeroed
+      before the timed steps; step time, peak memory, loss terms per step
+      (finite, descending); then 3 steps with dense targets
+      (``pos_cap=0``), where K3 runs; then a torch.profiler run of 3 more
+      steps;
+  (t16) the bf16 train path (s2d canvas, K7) the same way: sparse targets,
+      then dense targets (K3 on the f32 cast of the bf16 box map);
   (e) one JSON line listing the kernels, the card's name and power limit
       from nvidia-smi, and the result line.
 
-All phases run in f32 with TF32 off for matmuls and cuDNN convolutions.
+f32 runs with TF32 off for matmuls and cuDNN convolutions; the bf16 paths
+compute in bf16 on f32 parameters, as the JAX package's mixed precision.
 The script exits non-zero, printing no result, without a CUDA device or
 outside a checkout of the repository.
 """
@@ -103,6 +117,8 @@ KERNELS = {
                                TPU + 'segment_kernel.py:171', 'predict'),
     'bev_splat': (SRC + 'bev_splat.cu', TPU + 'bev_splat_kernel.py:218',
                   'predict'),
+    'bev_splat_pairs': (SRC + 'bev_splat.cu',
+                        TPU + 'bev_splat_kernel.py:162', 'predict_bf16'),
     'rotated_iou': (SRC + 'rotated_iou.cu', TPU + 'rotated_iou_kernel.py:166',
                     'predict'),
     'nms_sweep': (SRC + 'nms_sweep.cu', TPU + 'nms_kernel.py:37', 'predict'),
@@ -122,6 +138,18 @@ KERNELS = {
 TRAIN_LAUNCHES = {'bn_moments': 19, 'bn_grad_moments': 19,
                   'segment_argmax': 1}
 DENSE_LAUNCHES = {'gd_loss_fwd': 1, 'gd_loss_bwd': 1}
+# launches per request or step on each path (the f32 paths splat with K2
+# on the plain canvas, the bf16 paths, and the f32 predict with the s2d
+# canvas on, with K7 on the s2d canvas)
+PREDICT_LAUNCHES = {'segment_reduce': 1, 'segment_reduce_mapback': 1,
+                    'bev_splat': 1, 'rotated_iou': 1, 'nms_sweep': 1}
+PREDICT_S2D_LAUNCHES = dict(PREDICT_LAUNCHES, bev_splat=0,
+                            bev_splat_pairs=1)
+TRAIN_BF16_LAUNCHES = dict(TRAIN_LAUNCHES, bev_splat_pairs=1)
+DENSE_BF16_LAUNCHES = {**TRAIN_BF16_LAUNCHES, **DENSE_LAUNCHES}
+# the f32 paths' model, and the bf16 one
+F32_MODEL = dict(voxelize_mode='dynamic', s2d_canvas='off')
+BF16_MODEL = dict(voxelize_mode='dynamic', compute_dtype='bfloat16')
 
 TINY_MODEL = dict(
     voxel_size=(0.4, 0.4, 4.0),
@@ -138,6 +166,17 @@ TINY_MODEL = dict(
 )
 TINY_HEAD = dict(test_cfg=dict(use_rotate_nms=True, nms_thr=0.01,
                                score_thr=0.05, nms_pre=128, max_num=32))
+TINY_F32 = dict(TINY_MODEL, s2d_canvas='off')
+TINY_BF16 = dict(TINY_MODEL, compute_dtype='bfloat16')
+# Phase (c) in bf16: the card's bf16 run is held to the CPU's bf16 run.
+# Each head map, loss term and parameter gradient must be nearer to CPU
+# bf16 than GAP_SHARE of CPU bf16's own distance from CPU f32 (the rule of
+# tests/test_torch_bf16.py against JAX): a missing or misplaced cast moves
+# a value about that whole distance, so the same comparison made with the
+# card's f32 run must fail it; and within BF16_MAP_TOL of CPU bf16 (maps:
+# of the largest value; loss terms: relative).
+GAP_SHARE = 0.5
+BF16_MAP_TOL = 2e-2
 BATCH, POINTS, SEEDS, ROUNDS = 4, 16384, (0, 1, 2), 2
 WARM_STEPS, TIMED_STEPS, DENSE_STEPS, LR = 3, 10, 3, 1e-3
 
@@ -200,34 +239,47 @@ def device_ms(fn, iters, warmup=2):
     return sum(end - start for start, end, _ in spans) / 1e3 / iters
 
 
-def capture_inputs(det, batch):
-    """Run one predict with every kernel wrapper wrapped to record the
-    arguments the main path gives it."""
-    from mmdet3d_gaussian_tpu_torch.ops import nms, scatter, voxelize
-    seen = {}
-    patches = [(scatter, 'segment_reduce', 'segment_reduce'),
-               (scatter, 'segment_reduce_mapback', 'segment_reduce_mapback'),
-               (voxelize, 'bev_splat', 'bev_splat'),
-               (nms, 'iou_bev_pairwise', 'rotated_iou'),
-               (nms, 'suppress_sweep', 'nms_sweep')]
-    originals = []
+def record_calls(run, patches):
+    """Run ``run()`` with the kernel wrappers ``patches`` ((module,
+    attribute, kernel name), ...) wrapped to record the arguments of every
+    call; -> {kernel name: [args, ...]}."""
+    seen, originals = {}, []
     for mod, attr, name in patches:
         fn = getattr(mod, attr)
         originals.append((mod, attr, fn))
 
         def rec(*args, _fn=fn, _name=name):
-            seen.setdefault(_name, args)
+            seen.setdefault(_name, []).append(args)
             return _fn(*args)
         setattr(mod, attr, rec)
     try:
-        det.predict(batch)
+        run()
         torch.cuda.synchronize()
     finally:
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
-    want = {k for k, v in KERNELS.items() if v[2] == 'predict'}
-    check(set(seen) == want, f'captured only {sorted(seen)}')
     return seen
+
+
+def predict_patches():
+    from mmdet3d_gaussian_tpu_torch.ops import nms, scatter, voxelize
+    return [(scatter, 'segment_reduce', 'segment_reduce'),
+            (scatter, 'segment_reduce_mapback', 'segment_reduce_mapback'),
+            (voxelize, 'bev_splat', 'bev_splat'),
+            (voxelize, 'bev_splat_pairs', 'bev_splat_pairs'),
+            (nms, 'iou_bev_pairwise', 'rotated_iou'),
+            (nms, 'suppress_sweep', 'nms_sweep')]
+
+
+def capture_inputs(det, batch, per_request):
+    """Run one predict and record the arguments of each kernel's first
+    call; every kernel of ``per_request`` (launches per request) must be
+    called as often as it says."""
+    seen = record_calls(lambda: det.predict(batch), predict_patches())
+    got = {k: len(v) for k, v in seen.items()}
+    want = {k: n for k, n in per_request.items() if n}
+    check(got == want, f'predict called {got}, want {want}')
+    return {k: v[0] for k, v in seen.items()}
 
 
 def bound(bytes_, ops):
@@ -259,16 +311,16 @@ def report(results, name, card, err, tol, ok, kernel, plain, library,
           f'bound={bound_ms:.4f} ms ({bound_by}) [{card}]')
 
 
-def kernel_checks(inputs, card):
+def kernel_checks(inputs, card, note=''):
     """Phase (b), predict kernels: each vs its plain version on the
-    captured inputs."""
+    captured inputs (K2 where the predict ran it)."""
     from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, segment
     from mmdet3d_gaussian_tpu_torch.ops import voxelize
     results = {}
 
     def record(name, kernel, plain, library, err, tol, bytes_, ops, iters,
                plain_iters, exact=None):
-        eq = '' if exact is None else f' exact_equal={exact}'
+        eq = ('' if exact is None else f' exact_equal={exact}') + note
         report(results, name, card, err, f'{tol:g}',
                err <= tol and exact is not False, kernel, plain, library,
                iters, plain_iters, bytes_, ops, eq)
@@ -305,22 +357,23 @@ def kernel_checks(inputs, card):
            n * c * 8 + n * 4 + counts.shape[0] * 8, n * c, 200, 10)
 
     # K2 BEV splat
-    feats, lin, ncell = inputs['bev_splat']
-    out = voxelize.bev_splat(feats, lin, ncell)
-    ref = voxelize.bev_splat_plain(feats, lin, ncell)
-    live = lin < ncell
-    lin_live, feats_live = lin[live].long(), feats[live]
-    canvas = torch.zeros_like(ref)
-    record('bev_splat', lambda: voxelize.bev_splat(feats, lin, ncell),
-           lambda: voxelize.bev_splat_plain(feats, lin, ncell),
-           lambda: canvas.zero_().index_copy_(0, lin_live, feats_live),
-           float((out - ref).abs().max()), 0.0,
-           feats.numel() * 4 + lin.numel() * 4 + ncell * feats.shape[1] * 4,
-           0, 50, 10)
-    check(torch.equal(canvas, ref), 'index_copy_ yardstick disagrees')
-    print(f'(b) bev_splat: zero fill of the canvas alone '
-          f'{cuda_ms(canvas.zero_, 50):.4f} ms ({ncell * feats.shape[1] * 4} '
-          f'bytes) [{card}]')
+    if 'bev_splat' in inputs:
+        feats, lin, ncell = inputs['bev_splat']
+        out = voxelize.bev_splat(feats, lin, ncell)
+        ref = voxelize.bev_splat_plain(feats, lin, ncell)
+        live = lin < ncell
+        lin_live, feats_live = lin[live].long(), feats[live]
+        canvas = torch.zeros_like(ref)
+        record('bev_splat', lambda: voxelize.bev_splat(feats, lin, ncell),
+               lambda: voxelize.bev_splat_plain(feats, lin, ncell),
+               lambda: canvas.zero_().index_copy_(0, lin_live, feats_live),
+               float((out - ref).abs().max()), 0.0,
+               feats.numel() * 4 + lin.numel() * 4
+               + ncell * feats.shape[1] * 4, 0, 50, 10)
+        check(torch.equal(canvas, ref), 'index_copy_ yardstick disagrees')
+        print(f'(b) bev_splat: zero fill of the canvas alone '
+              f'{cuda_ms(canvas.zero_, 50):.4f} ms '
+              f'({ncell * feats.shape[1] * 4} bytes) [{card}]')
 
     # K5 rotated IoU
     (boxes,) = inputs['rotated_iou']
@@ -329,8 +382,8 @@ def kernel_checks(inputs, card):
     ref = rotated_iou.iou_bev_pairwise_plain(boxes)
     thr = 0.01
     overlap = float((ref > thr).float().mean())
-    print(f'(b) rotated_iou inputs: {p} problems x {k} boxes, share of '
-          f'pairs with IoU > {thr}: {overlap:.4f}')
+    print(f'(b) rotated_iou inputs{note}: {p} problems x {k} boxes, share '
+          f'of pairs with IoU > {thr}: {overlap:.4f}')
     check(overlap > 0, 'rotated IoU inputs do not overlap')
     record('rotated_iou', lambda: rotated_iou.iou_bev_pairwise(boxes),
            lambda: rotated_iou.iou_bev_pairwise_plain(boxes), None,
@@ -357,13 +410,117 @@ def kernel_checks(inputs, card):
     return results
 
 
+def splat_pairs_check(results, args, card, note):
+    """K7 on one predict's arguments: equal to its plain version; timed,
+    with ``zero_`` + ``index_copy_`` on the half-row view as its
+    yardstick."""
+    from mmdet3d_gaussian_tpu_torch.ops import voxelize
+    feats, lin2, par, ncell2 = args
+    out = voxelize.bev_splat_pairs(feats, lin2, par, ncell2)
+    ref = voxelize.bev_splat_pairs_plain(feats, lin2, par, ncell2)
+    err = float((out.float() - ref.float()).abs().max())
+    exact = bool(torch.equal(out, ref))
+    c, esize = feats.shape[1], feats.element_size()
+    live = lin2 < ncell2
+    both = int((live[1:] & (lin2[1:] == lin2[:-1])).sum())
+    print(f'(b) bev_splat_pairs inputs{note}: {feats.shape[0]} rows x {c} '
+          f'{feats.dtype} ({int(live.sum())} live; {both} paired cells '
+          f'with both parities) onto {ncell2} x {2 * c}')
+    ids, rows_live = voxelize.pair_rows(lin2, par, ncell2)[live], feats[live]
+    canvas = torch.zeros_like(ref)
+    half_rows = canvas.view(2 * ncell2, c)
+    report(results, 'bev_splat_pairs', card, err, '0, equal',
+           exact and err == 0,
+           lambda: voxelize.bev_splat_pairs(feats, lin2, par, ncell2),
+           lambda: voxelize.bev_splat_pairs_plain(feats, lin2, par, ncell2),
+           lambda: half_rows.zero_().index_copy_(0, ids, rows_live),
+           50, 10, feats.numel() * esize + 2 * lin2.numel() * 4
+           + ncell2 * 2 * c * esize, 0, f' exact_equal={exact}{note}')
+    check(torch.equal(canvas, ref), 'index_copy_ yardstick disagrees')
+
+
+def bf16_kernel_checks(pred_inputs, train_inputs, k2_inputs, card):
+    """Phase (b) on the bf16 paths: K7 on the inputs of one full-width
+    bf16 predict (timed) and of one bf16 dense-target train step; K1, K5
+    and K6 on the bf16 predict's inputs; K1 winner, K3 and K4 on the bf16
+    step's; K2 on the f32 predict's rows cast to bf16 (what the plain
+    canvas gets in bf16).  -> (K7's numbers, {kernel: its numbers on the
+    bf16 paths})."""
+    from mmdet3d_gaussian_tpu_torch.ops import voxelize
+    results, bf16 = {}, {}
+    check(all(args[0].dtype == torch.bfloat16
+              for args in train_inputs['bn_moments']),
+          'K4 did not read bf16 activations in the bf16 train step')
+    ((feats, lin2, par, ncell2),) = train_inputs['bev_splat_pairs']
+    out = voxelize.bev_splat_pairs(feats, lin2, par, ncell2)
+    exact = bool(torch.equal(
+        out, voxelize.bev_splat_pairs_plain(feats, lin2, par, ncell2)))
+    print(f'(b) bev_splat_pairs on the bf16 train step: {feats.shape[0]} '
+          f'rows x {feats.shape[1]} {feats.dtype} onto {ncell2} x '
+          f'{2 * feats.shape[1]}; exact_equal={exact}')
+    check(exact, 'K7 disagrees with its plain version on the train step')
+    check(pred_inputs['bev_splat_pairs'][0].dtype == torch.bfloat16,
+          'the bf16 predict splat f32 rows')
+    splat_pairs_check(results, pred_inputs['bev_splat_pairs'], card,
+                      ' (bf16 predict)')
+
+    # K2 in bf16 on the plain canvas
+    feats, lin, ncell = k2_inputs
+    f16 = feats.bfloat16()
+    out = voxelize.bev_splat(f16, lin, ncell)
+    ref = voxelize.bev_splat_plain(f16, lin, ncell)
+    exact = bool(torch.equal(out, ref))
+    live = lin < ncell
+    lin_live, f16_live = lin[live].long(), f16[live]
+    canvas16 = torch.zeros_like(ref)
+    report(bf16, 'bev_splat', card, float((out.float() - ref.float()).abs()
+                                            .max()), '0, equal', exact,
+           lambda: voxelize.bev_splat(f16, lin, ncell),
+           lambda: voxelize.bev_splat_plain(f16, lin, ncell),
+           lambda: canvas16.zero_().index_copy_(0, lin_live, f16_live),
+           50, 10, f16.numel() * 2 + lin.numel() * 4
+           + ncell * f16.shape[1] * 2, 0, f' exact_equal={exact} (bf16)')
+    bf16.update(kernel_checks(pred_inputs, card, ' (bf16 predict)'))
+    bf16.update(train_kernel_checks(train_inputs, card,
+                                    ' (bf16 dense step)'))
+    bf16_bn_eval(train_inputs['bn_moments'][0][0], card)
+    return results, bf16
+
+
+def bf16_bn_eval(x, card):
+    """The port's bf16 eval BatchNorm (FastBatchNorm's formula, written
+    out) against cuDNN's bf16 inference BatchNorm, on one bf16 activation
+    of the train step with random statistics: how many outputs round
+    differently.  Recorded, not checked."""
+    from mmdet3d_gaussian_tpu_torch.models.backbones import BatchNorm2d
+    c = x.shape[1]
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    bn = BatchNorm2d(c, eps=1e-3).to(x.device).eval()
+    with torch.no_grad():
+        for t, lo, hi in ((bn.running_mean, -1.0, 1.0),
+                          (bn.running_var, 0.5, 2.0), (bn.weight, 0.5, 1.5),
+                          (bn.bias, -0.5, 0.5)):
+            t.copy_(torch.rand(c, device=x.device, generator=gen)
+                    * (hi - lo) + lo)
+        ours = bn(x)
+        cudnn = torch.nn.functional.batch_norm(
+            x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False,
+            0.0, bn.eps)
+    differ = float((ours != cudnn).float().mean())
+    err = float(((ours.float() - cudnn.float()).abs()
+                 / ours.float().abs().clamp(min=1e-30)).max())
+    print(f'(b) bf16 eval BatchNorm, {tuple(x.shape)}: the written-out '
+          f'formula and cuDNN round {differ:.4%} of the outputs differently '
+          f'(largest relative difference {err:.3g}) [{card}]')
+
+
 def tiny_card_vs_cpu(card):
     """Phase (c): the same seeded TINY detector on the card and the CPU."""
     from mmdet3d_gaussian_tpu_torch.engine.detector import (
         PointPillarsDetector, synthetic_batch)
     outs = {}
     for dev in ('cuda', 'cpu'):
-        det = PointPillarsDetector(TINY_MODEL, TINY_HEAD, device=dev, seed=1)
+        det = PointPillarsDetector(TINY_F32, TINY_HEAD, device=dev, seed=1)
         with torch.no_grad():
             det.trunk.bbox_head.conv_cls.bias.zero_()
         batch = synthetic_batch(2, 1024, 8, seed=3,
@@ -405,69 +562,213 @@ def tiny_card_vs_cpu(card):
     check(score_err <= 1e-5, 'TINY scores differ')
 
 
-def capture_train_inputs(det, batch, state):
+def tiny_predict(cfg, dev):
+    """Head maps and detections of the TINY detector (seed 1, zero cls
+    bias) on ``dev``."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import (
+        PointPillarsDetector, synthetic_batch)
+    det = PointPillarsDetector(cfg, TINY_HEAD, device=dev, seed=1)
+    with torch.no_grad():
+        det.trunk.bbox_head.conv_cls.bias.zero_()
+    batch = synthetic_batch(2, 1024, 8, seed=3,
+                            pc_range=TINY_MODEL['point_cloud_range'],
+                            device=dev)
+    return dict(maps=[m.cpu() for m in det.apply_eval(batch)],
+                dets=[d.cpu() for d in det.predict(batch)])
+
+
+def tiny_step(cfg, dev, sums=None):
+    """One TINY train step (seed 2) on ``dev``: loss terms, parameter
+    gradients and the output of every leaf module in its forward (in call
+    order).  ``sums``: an empty list, which the forward BatchNorm sums of
+    the step (K4's ``moments`` on the card, in call order) are appended to;
+    or such a list, filled, whose sums then stand in for the step's own."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import (
+        PointPillarsDetector, synthetic_batch)
+    from mmdet3d_gaussian_tpu_torch.ops import bn
+    det = PointPillarsDetector(cfg, TINY_HEAD, device=dev, seed=2)
+    batch = synthetic_batch(2, 1024, 8, seed=0,
+                            pc_range=TINY_MODEL['point_cloud_range'],
+                            device=dev)
+    acts, originals = {}, {}
+    replay = iter(list(sums)) if sums else None
+
+    def keep(name):
+        def hook(_mod, _inp, out):
+            if isinstance(out, torch.Tensor):
+                acts[name] = out.detach().cpu()
+        return hook
+
+    def moments(x):
+        if replay is None:
+            out = originals['moments'](x)
+            sums.append(tuple(o.cpu() for o in out))
+            return out
+        out = next(replay)
+        check(out[0].shape == x.shape[1:2], 'replayed BatchNorm sums out of '
+              'step')
+        return out
+    hooks = [m.register_forward_hook(keep(n))
+             for n, m in det.trunk.named_modules()
+             if n and not list(m.children())]
+    if sums is not None:
+        originals['moments'] = bn.moments
+        bn.moments = moments
+    try:
+        total, losses = det.loss(det.apply_train(batch), batch)
+        params = dict(det.trunk.named_parameters())
+        grads = torch.autograd.grad(total, list(params.values()))
+    finally:
+        for h in hooks:
+            h.remove()
+        for name, fn in originals.items():
+            setattr(bn, name, fn)
+    check(replay is None or next(replay, None) is None,
+          'replayed BatchNorm sums left over')
+    return dict(acts=acts,
+                losses={k: float(v.detach()) for k, v in losses.items()},
+                grads={k: g.cpu() for k, g in zip(params, grads)})
+
+
+def rel(a, b):
+    """max |a - b| / max |b| (losses: |a - b| / |b|)."""
+    if isinstance(b, float):
+        return abs(a - b) / abs(b)
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def against(got, ref, f32):
+    """[(what, error, gap)]: each head map, loss term and parameter
+    gradient of the run ``got`` against the bf16 run ``ref``, and ``ref``'s
+    own distance from the f32 run ``f32``, measured the same way (runs:
+    (predict, step) pairs)."""
+    rows = [(f'map {i}', rel(a, b), rel(f, b)) for i, (a, b, f) in
+            enumerate(zip(got[0]['maps'], ref[0]['maps'], f32[0]['maps']))]
+    for kind in ('losses', 'grads'):
+        rows += [(k, rel(got[1][kind][k], b), rel(f32[1][kind][k], b))
+                 for k, b in ref[1][kind].items()]
+    return rows
+
+
+def ratios(rows):
+    return [e / max(g, 1e-30) for _, e, g in rows]
+
+
+def tiny_bf16_card_vs_cpu(card):
+    """Phase (c) in bf16: the TINY detector in bf16 (s2d canvas, through
+    ``'auto'``) on the card against bf16 on the CPU.
+
+    In a bf16 train step every BatchNorm rounds its output to bf16 from f32
+    batch statistics.  K4 sums in another order than the CPU, so a few
+    outputs of the first BatchNorm round the other way, and the statistics
+    of each later BatchNorm carry that on, until card and CPU differ about
+    as much as bf16 from f32 (printed).  (The backward's sums do not carry
+    on so: nothing there is normalized again.)  So the CPU's bf16 step is
+    run with the card's forward BatchNorm sums (K4 is held to its plain
+    version in (b)), and
+    every head map (predict), loss term and gradient of the card must be
+    nearer to it than GAP_SHARE of its distance from the CPU's f32 step, and
+    within BF16_MAP_TOL.  The same procedure from the card's f32 run must
+    fail that rule: it is what a path that skipped its casts would give."""
+    runs, sums16, sums32 = {}, [], []
+    for name, cfg, dev, sums in (
+            ('card', TINY_BF16, 'cuda', sums16),
+            ('card_f32', TINY_MODEL, 'cuda', sums32),
+            ('cpu', TINY_BF16, 'cpu', None),
+            ('cpu_f32', TINY_MODEL, 'cpu', None),
+            ('cpu_card_sums', TINY_BF16, 'cpu', sums16),
+            ('cpu_card_f32_sums', TINY_BF16, 'cpu', sums32)):
+        runs[name] = (runs['cpu'][0] if name.startswith('cpu_card')
+                      else tiny_predict(cfg, dev), tiny_step(cfg, dev, sums))
+    g16, c16 = runs['card'], runs['cpu']
+    check(all(m.dtype == torch.bfloat16 for m in g16[0]['maps']
+              + c16[0]['maps']), 'maps not bf16')
+    gd = g16[0]['dets']
+    check(int(gd[3].sum()) > 0 and bool(torch.isfinite(gd[0]).all()),
+          'TINY bf16 predict kept no finite detection')
+    print(f'(c) TINY bf16 detections: {int(gd[3].sum())} valid on the card, '
+          f'{int(c16[0]["dets"][3].sum())} on the CPU')
+    for ref, what in (('cpu', 'its own sums'),
+                      ('cpu_card_sums', "the card's BatchNorm sums")):
+        acts = runs[ref][1]['acts']
+        differ = [(n, rel(a, acts[n]), float((a != acts[n]).float().mean()))
+                  for n, a in g16[1]['acts'].items()]
+        shown = [d for d in differ if d[1] > 0]
+        shown = shown[:3] + shown[-1:] if len(shown) > 4 else shown
+        print(f'(c) TINY bf16 train forward, card vs CPU with {what}: '
+              f'{sum(d[1] == 0 for d in differ)} of {len(differ)} leaf '
+              f'outputs equal; of the others, first and last (max error / '
+              f'largest value, share of elements that differ): '
+              + '; '.join(f'{n} {e:.3g} {sh:.3g}' for n, e, sh in shown))
+    plain = against(g16, c16, runs['cpu_f32'])
+    top = max(plain, key=lambda r: r[1])
+    print(f'(c) TINY bf16 card vs CPU with its own BatchNorm sums (recorded, '
+          f'not checked): error / (CPU bf16 vs CPU f32 gap) up to '
+          f'{max(ratios(plain)):.3g}, median '
+          f'{statistics.median(ratios(plain)):.3g} over {len(plain)} values; '
+          f'largest error {top[1]:.3g} at {top[0]} (gap {top[2]:.3g})')
+    rows = against(g16, runs['cpu_card_sums'], runs['cpu_f32'])
+    for kind, sel in (('head maps', lambda r: r[0].startswith('map')),
+                      ('loss terms', lambda r: r[0] in c16[1]['losses']),
+                      ('gradients', lambda r: r[0] in c16[1]['grads'])):
+        part = sorted((r for r in rows if sel(r)),
+                      key=lambda r: -r[1] / max(r[2], 1e-30))
+        print(f'(c) TINY bf16 {kind}, card vs CPU bf16 with the card\'s '
+              f'BatchNorm sums (error, CPU bf16 vs f32 gap, ratio; limit '
+              f'{GAP_SHARE:g}), largest ratios: '
+              + '; '.join(f'{n} {e:.3g} {g:.3g} {e / max(g, 1e-30):.3g}'
+                          for n, e, g in part[:3]) + f' [{card}]')
+    mutant = ratios(against(runs['card_f32'], runs['cpu_card_f32_sums'],
+                            runs['cpu_f32']))
+    print(f'(c) TINY f32 on the card by the same procedure: ratios from '
+          f'{min(mutant):.3g} to {max(mutant):.3g} over {len(mutant)} values '
+          f'(each must reach {GAP_SHARE:g})')
+    bad = [r for r in rows if not r[1] < GAP_SHARE * r[2]
+           or (not r[0] in c16[1]['grads'] and r[1] > BF16_MAP_TOL)]
+    check(not bad, f'TINY bf16 card and CPU differ: {bad[:5]}')
+    check(min(mutant) >= GAP_SHARE,
+          'the bf16 rule passes the card f32 run: it cannot see a missing '
+          'cast')
+
+
+def capture_train_inputs(det, batch, state, per_step):
     """Run one train step with the train-path kernel wrappers wrapped to
     record every call's arguments (K4: all 19 BatchNorms, forward and
-    backward; K1 winner; K3 forward and backward)."""
-    from mmdet3d_gaussian_tpu_torch.ops import bn, gd_loss, scatter
-    seen = {}
+    backward; K1 winner; K3 forward and backward; K7); each kernel must be
+    called as often as ``per_step`` says."""
+    from mmdet3d_gaussian_tpu_torch.ops import bn, gd_loss, scatter, voxelize
     patches = [(bn, 'moments', 'bn_moments'),
                (bn, 'grad_moments', 'bn_grad_moments'),
                (scatter, 'segment_argmax', 'segment_argmax'),
                (gd_loss, 'gd_loss_fwd', 'gd_loss_fwd'),
-               (gd_loss, 'gd_loss_bwd', 'gd_loss_bwd')]
-    originals = []
-    for mod, attr, name in patches:
-        fn = getattr(mod, attr)
-        originals.append((mod, attr, fn))
-
-        def rec(*args, _fn=fn, _name=name):
-            seen.setdefault(_name, []).append(args)
-            return _fn(*args)
-        setattr(mod, attr, rec)
-    try:
-        state, _ = det.train_step(batch, state)
-        torch.cuda.synchronize()
-    finally:
-        for mod, attr, fn in originals:
-            setattr(mod, attr, fn)
-    want = {**TRAIN_LAUNCHES, **DENSE_LAUNCHES}
-    check({k: len(v) for k, v in seen.items()} == want,
-          f'captured {({k: len(v) for k, v in seen.items()})}, want {want}')
-    return seen, state
+               (gd_loss, 'gd_loss_bwd', 'gd_loss_bwd'),
+               (voxelize, 'bev_splat_pairs', 'bev_splat_pairs')]
+    out = []
+    seen = record_calls(
+        lambda: out.append(det.train_step(batch, state)[0]), patches)
+    got = {k: len(v) for k, v in seen.items()}
+    want = {k: n for k, n in per_step.items() if n}
+    check(got == want, f'train step called {got}, want {want}')
+    return seen, out[0]
 
 
-def train_kernel_checks(inputs, card):
-    """Phase (b), train kernels, on the inputs of one full-width dense
-    train step.  K4's numbers are sums over the step's 19 calls."""
-    from mmdet3d_gaussian_tpu_torch.ops import bn, gd_loss, segment
-    results = {}
+def check_k4(results, inputs, card, note=''):
+    """K4 on every BatchNorm of one train step (the calls recorded in
+    ``inputs``), f32 or bf16 activations: f32 sums in another order, each
+    held to 1e-5 of the per-channel sum of magnitudes; times, bytes and
+    bound summed over the step's calls."""
+    from mmdet3d_gaussian_tpu_torch.ops import bn
 
-    # K1 winner form: the encoder's final per-voxel max (64 channels)
-    ((data, starts, counts),) = inputs['segment_argmax']
-    out, win = segment.segment_argmax(data, starts, counts)
-    ref, ref_w = segment.segment_argmax_plain(data, starts, counts)
-    exact = bool(torch.equal(out, ref) and torch.equal(win, ref_w))
-    v, c = counts.shape[0], data.shape[1]
-    rows = int(counts.sum())
-    report(results, 'segment_argmax', card, float((out - ref).abs().max()),
-           '0, winners equal', exact,
-           lambda: segment.segment_argmax(data, starts, counts),
-           lambda: segment.segment_argmax_plain(data, starts, counts), None,
-           200, 5, data.numel() * 4 + v * 8 + v * c * 8, rows * c,
-           f' exact_equal={exact}')
-
-    # K4: every BatchNorm of the step; f32 sums in another order, each
-    # held to 1e-5 of the per-channel sum of magnitudes
     def rows_of(t):
-        return bn._channels_last_2d(t)
+        return bn._channels_last_2d(t).float()
 
     def lib_bwd(g, x, mean, inv):
         return torch.batch_norm_backward_reduce(g, x, mean, inv, None, True,
                                                 False, False)
 
-    for name, calls in (('bn_moments', inputs['bn_moments']),
-                        ('bn_grad_moments', inputs['bn_grad_moments'])):
+    for name in ('bn_moments', 'bn_grad_moments'):
+        calls = inputs[name]
         fwd = name == 'bn_moments'
         kern = bn.moments if fwd else bn.grad_moments
         plain = bn.moments_plain if fwd else bn.grad_moments_plain
@@ -486,15 +787,18 @@ def train_kernel_checks(inputs, card):
                 xhat = (rows_of(x) - mean) * inv
                 mags = (rows_of(g).abs().sum(0),
                         (rows_of(g) * xhat).abs().sum(0))
+            check(all(a.dtype == torch.float32 for a in got),
+                  f'{name} sums not f32')
             for a, b, mag in zip(got, want, mags):
                 err = max(err, float((a - b).abs().max()))
                 rel = max(rel, float(((a - b).abs() / mag.clamp(
                     min=1e-30)).max()))
-            bytes_ += (1 if fwd else 2) * m * cc * 4 + (2 if fwd else 4) \
-                * cc * 4
+            bytes_ += (1 if fwd else 2) * m * cc * x.element_size() \
+                + (2 if fwd else 4) * cc * 4
             ops += (2 if fwd else 4) * m * cc
-        print(f'(b) {name}: {len(calls)} calls of one step, rows x '
-              f'channels {shapes}; max error / per-channel sum of '
+        dtype = str(calls[0][0].dtype).replace('torch.', '')
+        print(f'(b) {name}{note}: {len(calls)} calls of one step, {dtype} '
+              f'rows x channels {shapes}; max error / per-channel sum of '
               f'magnitudes {rel:.3g}')
 
         def lib(fwd=fwd, calls=calls):
@@ -508,8 +812,31 @@ def train_kernel_checks(inputs, card):
         report(results, name, card, err, '1e-5 of the sum of magnitudes',
                rel <= 1e-5, lambda k=kern, c=calls: [k(*a) for a in c],
                lambda p=plain, c=calls: [p(*a) for a in c], lib, 20, 3,
-               bytes_, ops, ' (times, bytes and bound summed over the '
-               'step)')
+               bytes_, ops, f' ({dtype}; times, bytes and bound summed over '
+               f'the step){note}')
+
+
+def train_kernel_checks(inputs, card, note=''):
+    """Phase (b), train kernels, on the inputs of one full-width dense
+    train step.  K4's numbers are sums over the step's 19 calls."""
+    from mmdet3d_gaussian_tpu_torch.ops import gd_loss, segment
+    results = {}
+
+    # K1 winner form: the encoder's final per-voxel max (64 channels)
+    ((data, starts, counts),) = inputs['segment_argmax']
+    out, win = segment.segment_argmax(data, starts, counts)
+    ref, ref_w = segment.segment_argmax_plain(data, starts, counts)
+    exact = bool(torch.equal(out, ref) and torch.equal(win, ref_w))
+    v, c = counts.shape[0], data.shape[1]
+    rows = int(counts.sum())
+    report(results, 'segment_argmax', card, float((out - ref).abs().max()),
+           '0, winners equal', exact,
+           lambda: segment.segment_argmax(data, starts, counts),
+           lambda: segment.segment_argmax_plain(data, starts, counts), None,
+           200, 5, data.numel() * 4 + v * 8 + v * c * 8, rows * c,
+           f' exact_equal={exact}{note}')
+
+    check_k4(results, inputs, card, note)
 
     # K3: the dense decoded-box GD loss and its d(pred)
     ((pred2, tgt2, w_a, anc2, hw, cfg),) = inputs['gd_loss_fwd']
@@ -522,9 +849,11 @@ def train_kernel_checks(inputs, card):
     anchors = m * k7 // 7
     n_pos = int((w_a > 0).sum())
     n_neg = int(((w_a != 0) & ~(w_a > 0)).sum())
-    print(f'(b) gd_loss inputs: {m} rows x {k7 // 7} anchors, config {cfg}, '
-          f'{n_pos} anchors with weight > 0, {n_neg} with weight < 0')
+    print(f'(b) gd_loss inputs{note}: {m} rows x {k7 // 7} anchors, config '
+          f'{cfg}, {n_pos} anchors with weight > 0, {n_neg} with weight < 0, '
+          f'box map {pred2.dtype}')
     check(n_pos > 0, 'no positive anchor in the dense step')
+    check(pred2.dtype == torch.float32, 'K3 was given a non-f32 box map')
     args = (tgt2, w_a, anc2, hw, cfg)
     got = gd_loss.gd_loss_fwd(pred2, *args)
     want = gd_loss.anchor_gd_loss_plain(pred2, *args)
@@ -535,7 +864,7 @@ def train_kernel_checks(inputs, card):
            lambda: gd_loss.gd_loss_fwd(pred2, *args),
            lambda: gd_loss.anchor_gd_loss_plain(pred2, *args), None, 50, 5,
            in_bytes + 4,
-           anchors + (n_pos + n_neg) * GD_OPS_PER_ANCHOR)
+           anchors + (n_pos + n_neg) * GD_OPS_PER_ANCHOR, note)
     dgot = gd_loss.gd_loss_bwd(gout, pred2, *args)
     dwant = gd_loss.gd_loss_bwd_plain(gout, pred2, *args)
     diff = (dgot - dwant).abs()
@@ -545,7 +874,7 @@ def train_kernel_checks(inputs, card):
            lambda: gd_loss.gd_loss_bwd(gout, pred2, *args),
            lambda: gd_loss.gd_loss_bwd_plain(gout, pred2, *args), None, 50,
            5, (anchors + 21 * n_pos + 7 * anchors + 1) * 4,
-           anchors + n_pos * 3 * GD_OPS_PER_ANCHOR)
+           anchors + n_pos * 3 * GD_OPS_PER_ANCHOR, note)
     return results
 
 
@@ -566,7 +895,7 @@ def tiny_train_card_vs_cpu(card):
         PointPillarsDetector, synthetic_batch)
     out = {}
     for dev in ('cuda', 'cpu'):
-        det = PointPillarsDetector(TINY_MODEL, TINY_HEAD, device=dev, seed=2)
+        det = PointPillarsDetector(TINY_F32, TINY_HEAD, device=dev, seed=2)
         batch = synthetic_batch(2, 1024, 8, seed=0,
                                 pc_range=TINY_MODEL['point_cloud_range'],
                                 device=dev)
@@ -617,90 +946,108 @@ def tiny_train_card_vs_cpu(card):
     check(w_all <= 2.5 * LR, 'a TINY weight moved more than one Adam step')
 
 
-def train_path(det, dense_det, batch, state, dense_state, card):
-    """Phase (t): the full-width train path on one repeated batch."""
+def timed_steps(det, batch, state, per_step, tag, card):
+    """WARM_STEPS then TIMED_STEPS train steps on one repeated batch; the
+    launch counts are zeroed before the timed steps and every kernel of
+    ``per_step`` must run that often per step; the loss must be finite and
+    go down.  -> (launches, state, summary)."""
     from mmdet3d_gaussian_tpu_torch.ops import _cuda
     rows, times = [], []
-
-    def step(d, st):
+    for i in range(WARM_STEPS + TIMED_STEPS):
+        if i == WARM_STEPS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _cuda.reset_launches()
+            rows.clear()
+            times.clear()
         t0 = time.perf_counter()
-        st, metrics = d.train_step(batch, st)
+        state, metrics = det.train_step(batch, state)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         rows.append({k: float(v) for k, v in metrics.items()})
-        return st
-
-    for _ in range(WARM_STEPS):
-        state = step(det, state)
-    times.clear()
-    torch.cuda.reset_peak_memory_stats()
-    _cuda.reset_launches()
-    for _ in range(TIMED_STEPS):
-        state = step(det, state)
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     for i, r in enumerate(rows):
-        print(f'(t) step {i} {json.dumps(r)}')
+        print(f'{tag} step {i} {json.dumps(r)}')
         check(all(map(math.isfinite, r.values())), 'non-finite loss')
     check(rows[-1]['loss'] < rows[0]['loss'],
           'the loss on a repeated batch did not go down')
-    print(f'(t) main path: {TIMED_STEPS} timed train steps, launches '
+    print(f'{tag} main path: {TIMED_STEPS} timed train steps, launches '
           f'{launches}')
-    for name, per in TRAIN_LAUNCHES.items():
+    for name, per in per_step.items():
         check(launches[name] == per * TIMED_STEPS,
               f'{name} launched {launches[name]} times in {TIMED_STEPS} '
               f'steps, want {per} per step')
     med = statistics.median(times)
-    print(f'(t) train step median {med * 1e3:.3f} ms (min '
+    print(f'{tag} train step median {med * 1e3:.3f} ms (min '
           f'{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) over '
           f'{TIMED_STEPS} steps of {BATCH}x{POINTS} points; '
           f'{BATCH * POINTS / med:.0f} points/s; max_memory_allocated '
           f'{peak / 2**20:.1f} MiB; loss {rows[0]["loss"]:.4f} -> '
           f'{rows[-1]["loss"]:.4f} [{card}]')
-    summary = dict(step_ms=med * 1e3, step_min_ms=min(times) * 1e3,
-                   step_max_ms=max(times) * 1e3, points_per_s=BATCH * POINTS
-                   / med, peak_mib=peak / 2**20)
+    return launches, state, dict(
+        step_ms=med * 1e3, step_min_ms=min(times) * 1e3,
+        step_max_ms=max(times) * 1e3, points_per_s=BATCH * POINTS / med,
+        peak_mib=peak / 2**20, loss_first=rows[0]['loss'],
+        loss_last=rows[-1]['loss'])
 
-    rows.clear()
+
+def dense_steps(det, batch, state, per_step, tag, card):
+    """Phase (t) or (t16), dense targets: DENSE_STEPS steps, where K3
+    runs; every kernel of ``per_step`` must run that often per step."""
+    from mmdet3d_gaussian_tpu_torch.ops import _cuda
+    rows, times = [], []
     _cuda.reset_launches()
     for _ in range(DENSE_STEPS):
-        dense_state = step(dense_det, dense_state)
-    dense_launches = dict(_cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        state, metrics = det.train_step(batch, state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rows.append({k: float(v) for k, v in metrics.items()})
+    launches = dict(_cuda.LAUNCHES)
     for i, r in enumerate(rows):
-        print(f'(t) dense step {i} {json.dumps(r)}')
+        print(f'{tag} dense step {i} {json.dumps(r)}')
         check(all(map(math.isfinite, r.values())), 'non-finite dense loss')
-    print(f'(t) dense targets: {DENSE_STEPS} steps, launches '
-          f'{dense_launches}, median {statistics.median(times[-DENSE_STEPS:]) * 1e3:.3f} ms')
-    for name, per in {**TRAIN_LAUNCHES, **DENSE_LAUNCHES}.items():
-        check(dense_launches[name] == per * DENSE_STEPS,
-              f'{name} launched {dense_launches[name]} times in '
+    med = statistics.median(times)
+    print(f'{tag} dense targets: {DENSE_STEPS} steps, launches {launches}, '
+          f'median {med * 1e3:.3f} ms [{card}]')
+    for name, per in per_step.items():
+        check(launches[name] == per * DENSE_STEPS,
+              f'{name} launched {launches[name]} times in '
               f'{DENSE_STEPS} dense steps, want {per} per step')
-    summary['dense_step_ms'] = statistics.median(times[-DENSE_STEPS:]) * 1e3
-    return launches, dense_launches, state, summary
+    return launches, state, med * 1e3
 
 
-def main_path(det, batches, card):
-    """Phase (d): the full-width predict path answering requests."""
-    from mmdet3d_gaussian_tpu_torch.ops import _cuda
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+def predict_requests(det, batches, rounds=ROUNDS):
+    """-> (per-request seconds, outputs) of ``rounds`` passes over
+    ``batches``, each request ending in a synchronize."""
     times, outs = [], []
-    _cuda.reset_launches()
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         for batch in batches:
             t0 = time.perf_counter()
             out = det.predict(batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             outs.append(out)
+    return times, outs
+
+
+def main_path(det, batches, per_request, tag, card):
+    """Phase (d) or (d16): the full-width predict path answering
+    requests; every kernel of ``per_request`` must run that often per
+    request."""
+    from mmdet3d_gaussian_tpu_torch.ops import _cuda
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    times, outs = predict_requests(det, batches)
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     n_req = len(times)
-    print(f'(d) main path: {n_req} predicts, launches {launches}')
-    for name, (_, _, path) in KERNELS.items():
-        if path == 'predict':
-            check(launches[name] == n_req, f'{name} launched '
-                  f'{launches[name]} times in {n_req} predicts')
+    print(f'{tag} main path: {n_req} predicts, launches {launches}')
+    for name, per in per_request.items():
+        check(launches[name] == per * n_req, f'{name} launched '
+              f'{launches[name]} times in {n_req} predicts, want {per} each')
     for boxes, scores, labels, valid in outs:
         check(tuple(boxes.shape) == (BATCH, 100, 7), 'boxes shape')
         check(bool(torch.isfinite(boxes).all()
@@ -708,13 +1055,44 @@ def main_path(det, batches, card):
         check(bool(valid.any(dim=1).all()), 'a sample kept no detection')
         check(bool(((labels >= 0) & (labels < 3)).all()), 'labels range')
     med = statistics.median(times)
-    print(f'(d) predict latency median {med * 1e3:.3f} ms '
+    print(f'{tag} predict latency median {med * 1e3:.3f} ms '
           f'(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) over '
           f'{n_req} requests of {BATCH}x{POINTS} points; '
           f'{BATCH * POINTS / med:.0f} points/s; max_memory_allocated '
           f'{peak / 2**20:.1f} MiB [{card}]')
     return launches, dict(latency_ms=med * 1e3, points_per_s=BATCH * POINTS
                           / med, peak_mib=peak / 2**20)
+
+
+def s2d_on_off(det_on, det_off, batches, card):
+    """The f32 predict with the s2d canvas on against off, in turns (off,
+    on, on, off), 6 requests each, each turn's launch counts zeroed before
+    and read after (on: K7 once a request, no K2; off: K2, no K7); times
+    only recorded.  -> (medians, launches with the canvas on)."""
+    from mmdet3d_gaussian_tpu_torch.ops import _cuda
+    times = {'off': [], 'on': []}
+    launches = {'off': {}, 'on': {}}
+    for which in ('off', 'on', 'on', 'off'):
+        det = det_on if which == 'on' else det_off
+        _cuda.reset_launches()
+        times[which] += predict_requests(det, batches, rounds=1)[0]
+        for name, n in _cuda.LAUNCHES.items():
+            launches[which][name] = launches[which].get(name, 0) + n
+    for which, per in (('on', PREDICT_S2D_LAUNCHES),
+                       ('off', PREDICT_LAUNCHES)):
+        n_req = len(times[which])
+        for name in ('bev_splat', 'bev_splat_pairs'):
+            want = per.get(name, 0) * n_req
+            check(launches[which][name] == want,
+                  f'f32 predict, s2d canvas {which}: {name} launched '
+                  f'{launches[which][name]} times in {n_req} predicts, want '
+                  f'{want}')
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    print(f'(d16) f32 predict, s2d canvas on {med["on"]:.3f} ms vs off '
+          f'{med["off"]:.3f} ms (medians of {len(times["on"])} requests each, '
+          f'in turns off, on, on, off; zero cls bias in both); launches with '
+          f'it on {launches["on"]} [{card}]')
+    return {f'f32_s2d_{k}_ms': v for k, v in med.items()}, launches['on']
 
 
 def nms_counts(det, batch):
@@ -810,11 +1188,14 @@ def main() -> int:
     for kern, text in _cuda.ptxas_summary(info['ptxas']).items():
         print(f'(a) ptxas {kern}: {text}')
 
-    # full-width detector and requests
-    det = PointPillarsDetector(dict(voxelize_mode='dynamic'), device='cuda',
-                               seed=0)
+    # full-width detectors and requests: f32 on the plain canvas (K2), bf16
+    # on the s2d canvas (K7)
+    det = PointPillarsDetector(F32_MODEL, device='cuda', seed=0)
+    det16 = PointPillarsDetector(BF16_MODEL, device='cuda', seed=0)
+    check(det16.trunk.s2d and not det.trunk.s2d, 'canvas choice')
     with torch.no_grad():
         det.trunk.bbox_head.conv_cls.bias.zero_()
+        det16.trunk.bbox_head.conv_cls.bias.zero_()
     batches = [synthetic_batch(BATCH, POINTS, 16, seed=s, device='cuda')
                for s in SEEDS]
     with torch.inference_mode():
@@ -822,57 +1203,134 @@ def main() -> int:
                                           batches[0]['points_mask'])
         print(f'(d) voxels {int(scatter.num_voxels)} of capacity '
               f'{scatter.max_voxels}, overflow {int(scatter.num_overflow)}')
-        inputs = capture_inputs(det, batches[0])
+        inputs = capture_inputs(det, batches[0], PREDICT_LAUNCHES)
         results = kernel_checks(inputs, card)          # (b) predict
+        inputs16 = capture_inputs(det16, batches[0], PREDICT_S2D_LAUNCHES)
+    k2_inputs = inputs['bev_splat']
     del inputs
 
     # full-width trainers from one seed: sparse targets (the default) and
-    # dense targets (pos_cap=0, the decoded-box loss through K3)
-    tdet = PointPillarsDetector(dict(voxelize_mode='dynamic'),
-                                device='cuda', seed=0)
-    ddet = PointPillarsDetector(dict(voxelize_mode='dynamic'),
-                                dict(pos_cap=0), device='cuda', seed=0)
+    # dense targets (pos_cap=0, the decoded-box loss through K3), in f32
+    # and in bf16
+    tdet = PointPillarsDetector(F32_MODEL, device='cuda', seed=0)
+    ddet = PointPillarsDetector(F32_MODEL, dict(pos_cap=0), device='cuda',
+                                seed=0)
+    tdet16 = PointPillarsDetector(BF16_MODEL, device='cuda', seed=0)
+    ddet16 = PointPillarsDetector(BF16_MODEL, dict(pos_cap=0),
+                                  device='cuda', seed=0)
     tbatch = batches[0]
     tstate = tdet.init_train(LR, total_steps=100)
     dstate = ddet.init_train(LR, total_steps=100)
+    tstate16 = tdet16.init_train(LR, total_steps=100)
+    dstate16 = ddet16.init_train(LR, total_steps=100)
     dstate, _ = ddet.train_step(tbatch, dstate)        # warm-up
-    train_inputs, dstate = capture_train_inputs(ddet, tbatch, dstate)
+    train_inputs, dstate = capture_train_inputs(
+        ddet, tbatch, dstate, {**TRAIN_LAUNCHES, **DENSE_LAUNCHES})
     with torch.no_grad():
         results.update(train_kernel_checks(train_inputs, card))  # (b) train
     del train_inputs
+    dstate16, _ = ddet16.train_step(tbatch, dstate16)  # warm-up
+    train_inputs16, dstate16 = capture_train_inputs(
+        ddet16, tbatch, dstate16, DENSE_BF16_LAUNCHES)
+    with torch.no_grad():                              # (b) bf16
+        k7, bf16 = bf16_kernel_checks(inputs16, train_inputs16, k2_inputs,
+                                      card)
+    results.update(k7)
+    del train_inputs16, inputs16, k2_inputs
     torch.cuda.empty_cache()
     tiny_card_vs_cpu(card)                             # (c)
     tiny_train_card_vs_cpu(card)
-    launches, e2e = main_path(det, batches, card)      # (d)
+    tiny_bf16_card_vs_cpu(card)
+    launches, e2e = main_path(det, batches, PREDICT_LAUNCHES, '(d)',
+                              card)                    # (d)
     nms_counts(det, batches[-1])
     e2e.update(device_profile(lambda: det.predict(batches[0]), 'predict',
                               '(d)', card, 5))
-    launches_t, launches_d, tstate, train = train_path(   # (t)
-        tdet, ddet, tbatch, tstate, dstate, card)
+    launches16, e2e16 = main_path(det16, batches, PREDICT_S2D_LAUNCHES,
+                                  '(d16)', card)       # (d16)
+    e2e16.update(device_profile(lambda: det16.predict(batches[0]),
+                                'predict', '(d16)', card, 5))
+    # the f32 default canvas ('auto': s2d), K7 on f32 rows
+    det_s2d = PointPillarsDetector(dict(F32_MODEL, s2d_canvas='auto'),
+                                   device='cuda', seed=0)
+    check(det_s2d.trunk.s2d, 'auto did not turn the s2d canvas on')
+    with torch.no_grad():
+        det_s2d.trunk.bbox_head.conv_cls.bias.zero_()
+    k7_f32 = {}
+    with torch.inference_mode():
+        inputs_s2d = capture_inputs(det_s2d, batches[0],
+                                    PREDICT_S2D_LAUNCHES)
+        check(inputs_s2d['bev_splat_pairs'][0].dtype == torch.float32,
+              'the f32 s2d predict splat non-f32 rows')
+        splat_pairs_check(k7_f32, inputs_s2d['bev_splat_pairs'], card,
+                          ' (f32 predict, s2d canvas)')
+    del inputs_s2d
+    on_off, launches_s2d = s2d_on_off(det_s2d, det, batches, card)
+    e2e.update(on_off)
+    del det_s2d
+    launches_t, tstate, train = timed_steps(            # (t)
+        tdet, tbatch, tstate, TRAIN_LAUNCHES, '(t)', card)
+    launches_d, dstate, train['dense_step_ms'] = dense_steps(
+        ddet, tbatch, dstate, {**TRAIN_LAUNCHES, **DENSE_LAUNCHES}, '(t)',
+        card)
     holder = [tstate]
 
     def one_step():
         holder[0] = tdet.train_step(tbatch, holder[0])[0]
     train.update(device_profile(one_step, 'train step', '(t)', card, 3))
+    del tdet, ddet, holder, tstate, dstate
+    torch.cuda.empty_cache()
+    launches_t16, tstate16, train16 = timed_steps(      # (t16)
+        tdet16, tbatch, tstate16, TRAIN_BF16_LAUNCHES, '(t16)', card)
+    launches_d16, dstate16, train16['dense_step_ms'] = dense_steps(
+        ddet16, tbatch, dstate16, DENSE_BF16_LAUNCHES, '(t16)', card)
+    holder16 = [tstate16]
+
+    def one_step16():
+        holder16[0] = tdet16.train_step(tbatch, holder16[0])[0]
+    train16.update(device_profile(one_step16, 'train step', '(t16)', card,
+                                  3))
 
     kernels = []                                       # (e)
-    counts = {'predict': (launches, len(SEEDS) * ROUNDS, 'predict'),
+    n_pred = len(SEEDS) * ROUNDS
+    counts = {'predict': (launches, n_pred, 'predict'),
+              'predict_bf16': (launches16, n_pred, 'bf16 predict'),
               'train': (launches_t, TIMED_STEPS, 'step'),
               'train_dense': (launches_d, DENSE_STEPS, 'dense step')}
+    # the same kernels on the bf16 paths (K2 runs on none of them: bf16
+    # takes the s2d canvas)
+    counts16 = {'predict': counts['predict_bf16'],
+                'train': (launches_t16, TIMED_STEPS, 'bf16 step'),
+                'train_dense': (launches_d16, DENSE_STEPS,
+                                'bf16 dense step')}
+
+    def launch_keys(name, runs, n, unit):
+        return dict(launches=runs[name],
+                    launches_per=f'{runs[name] / n:g} per {unit}')
     for name, (source, replaces, path) in KERNELS.items():
         r = results[name]
-        runs, n, unit = counts[path]
-        kernels.append(dict(
+        entry = dict(
             name=name, route='cuda', source=source, replaces=replaces,
-            launches=runs[name], path=path,
-            launches_per=f'{runs[name] / n:g} per {unit}',
+            path=path, **launch_keys(name, *counts[path]),
             max_abs_err=r['max_abs_err'], ms=r['ms'], call_ms=r['call_ms'],
             plain_ms=r['plain_ms'],
             bound_ms=r['bound_ms'], bound_by=r['bound_by'],
             library_ms=r['library_ms'], bytes=r['bytes'],
-            operations=r['operations']))
+            operations=r['operations'])
+        if name == 'bev_splat_pairs':
+            entry['launches_per_bf16_step'] = \
+                launches_t16[name] / TIMED_STEPS
+            entry['f32'] = dict(k7_f32[name], **launch_keys(
+                name, launches_s2d, n_pred, 'f32 predict, s2d canvas'))
+        if name in bf16:
+            entry['bf16'] = bf16[name]
+            if name != 'bev_splat':
+                entry['bf16'].update(launch_keys(name, *counts16[path]))
+        kernels.append(entry)
     print(f'(e) predict summary {json.dumps(e2e)} [{card}]')
+    print(f'(e) bf16 predict summary {json.dumps(e2e16)} [{card}]')
     print(f'(e) train summary {json.dumps(train)} [{card}]')
+    print(f'(e) bf16 train summary {json.dumps(train16)} [{card}]')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -21,13 +21,24 @@
 // of a row; otherwise (per-channel planes) a block owns one channel and its
 // threads read neighbouring rows.  Both are coalesced.
 //
+// Element type: x and g are f32, or both bf16 (the mixed-precision model's
+// activations, as FastBatchNorm(dtype='bfloat16') reads them); every sum is
+// taken in f32 either way.
+//
 // Bound on an H100: bytes.  Each input element is read once (4 bytes, 8 for
-// the backward's g and x) and each does 2 (forward) or 4 (backward) f32
-// operations; the largest BN of the KITTI train step reads 214,272 x 128
-// f32 (110 MB), ~33 us of HBM time.
+// the backward's g and x; half that in bf16) and each does 2 (forward) or 4
+// (backward) f32 operations; the largest BN of the KITTI train step reads
+// 214,272 x 128 f32 (110 MB), ~33 us of HBM time.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 constexpr int kThreads = 256;
 
@@ -52,18 +63,18 @@ struct Cursor {
   }
 };
 
-template <bool kGrad>
+template <bool kGrad, typename T>
 __device__ __forceinline__ void accumulate_rows(
-    const float* __restrict__ x, const float* __restrict__ g, Layout lx,
+    const T* __restrict__ x, const T* __restrict__ g, Layout lx,
     Layout lg, int c, long long r_begin, long long r_end, long long step,
     float m, float iv, float& a, float& q) {
   if (r_begin >= r_end) return;
   Cursor cx(r_begin, lx.S);
   Cursor cg(r_begin, lg.S);
   for (long long r = r_begin; r < r_end; r += step) {
-    float v = x[cx.at(lx, c)];
+    float v = to_f32(x[cx.at(lx, c)]);
     if (kGrad) {
-      float gv = g[cg.at(lg, c)];
+      float gv = to_f32(g[cg.at(lg, c)]);
       a += gv;
       q += gv * ((v - m) * iv);
       cg.advance(step, lg.S);
@@ -76,9 +87,9 @@ __device__ __forceinline__ void accumulate_rows(
 }
 
 // Channels innermost: thread = (lane, channel); lanes interleave rows.
-template <bool kGrad>
-__global__ void partial_rows_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ g,
+template <bool kGrad, typename T>
+__global__ void partial_rows_kernel(const T* __restrict__ x,
+                                    const T* __restrict__ g,
                                     const float* __restrict__ mean,
                                     const float* __restrict__ inv,
                                     long long rows, int C, Layout lx,
@@ -99,8 +110,8 @@ __global__ void partial_rows_kernel(const float* __restrict__ x,
   if (active) {
     float m = kGrad ? mean[c] : 0.f;
     float iv = kGrad ? inv[c] : 0.f;
-    accumulate_rows<kGrad>(x, g, lx, lg, c, r0 + lane, r1, lanes, m, iv, a,
-                           q);
+    accumulate_rows<kGrad, T>(x, g, lx, lg, c, r0 + lane, r1, lanes, m, iv,
+                              a, q);
   }
   sa[tid] = a;
   sq[tid] = q;
@@ -117,9 +128,9 @@ __global__ void partial_rows_kernel(const float* __restrict__ x,
 
 // Channel planes: block = (row range, channel); threads interleave rows,
 // then a fixed-shape tree in shared memory.
-template <bool kGrad>
-__global__ void partial_planes_kernel(const float* __restrict__ x,
-                                      const float* __restrict__ g,
+template <bool kGrad, typename T>
+__global__ void partial_planes_kernel(const T* __restrict__ x,
+                                      const T* __restrict__ g,
                                       const float* __restrict__ mean,
                                       const float* __restrict__ inv,
                                       long long rows, int C, Layout lx,
@@ -134,8 +145,8 @@ __global__ void partial_planes_kernel(const float* __restrict__ x,
   float a = 0.f, q = 0.f;
   float m = kGrad ? mean[c] : 0.f;
   float iv = kGrad ? inv[c] : 0.f;
-  accumulate_rows<kGrad>(x, g, lx, lg, c, r0 + tid, r1, kThreads, m, iv, a,
-                         q);
+  accumulate_rows<kGrad, T>(x, g, lx, lg, c, r0 + tid, r1, kThreads, m, iv,
+                            a, q);
   sa[tid] = a;
   sq[tid] = q;
   __syncthreads();
@@ -180,8 +191,8 @@ __global__ void finalize_kernel(const float* __restrict__ parts, int P, int C,
   if (ty == 0 && c < C) out[(long long)mom * C + c] = red[0][tx];
 }
 
-template <bool kGrad>
-int launch_moments(const float* g, const float* x, const float* mean,
+template <bool kGrad, typename T>
+int launch_moments(const T* g, const T* x, const float* mean,
                    const float* inv, long long rows, int C, Layout lx,
                    Layout lg, float* parts, int P, float* out,
                    cudaStream_t stream) {
@@ -190,11 +201,11 @@ int launch_moments(const float* g, const float* x, const float* mean,
   if (lx.sc == 1) {
     int ct = C < kThreads ? C : kThreads;
     dim3 grid(P, (C + ct - 1) / ct);
-    partial_rows_kernel<kGrad><<<grid, kThreads, 0, stream>>>(
+    partial_rows_kernel<kGrad, T><<<grid, kThreads, 0, stream>>>(
         x, g, mean, inv, rows, C, lx, lg, rpb, parts);
   } else {
     dim3 grid(P, C);
-    partial_planes_kernel<kGrad><<<grid, kThreads, 0, stream>>>(
+    partial_planes_kernel<kGrad, T><<<grid, kThreads, 0, stream>>>(
         x, g, mean, inv, rows, C, lx, lg, rpb, parts);
   }
   finalize_kernel<<<dim3((C + kFinC - 1) / kFinC, 2), dim3(kFinC, kFinLanes),
@@ -204,28 +215,46 @@ int launch_moments(const float* g, const float* x, const float* mean,
 
 }  // namespace
 
-// out (2, C): out[0] = sum x, out[1] = sum x^2; parts (P, 2, C) scratch.
-KERNEL_API int bn_moments_launch(int device, const float* x, long long rows,
+// out (2, C): out[0] = sum x, out[1] = sum x^2; parts (P, 2, C) scratch;
+// bf16: x is bf16 (else f32).
+KERNEL_API int bn_moments_launch(int device, const void* x, long long rows,
                                  int C, long long S, long long sb,
                                  long long ss, long long sc, float* parts,
-                                 int P, float* out, cudaStream_t stream) {
+                                 int P, float* out, int bf16,
+                                 cudaStream_t stream) {
   int err = begin_launch(device);
   if (err) return err;
   Layout lx{S, sb, ss, sc};
-  return launch_moments<false>(nullptr, x, nullptr, nullptr, rows, C, lx, lx,
-                               parts, P, out, stream);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return launch_moments<false, T>(nullptr, static_cast<const T*>(x),
+                                    nullptr, nullptr, rows, C, lx, lx, parts,
+                                    P, out, stream);
+  }
+  return launch_moments<false, float>(nullptr, static_cast<const float*>(x),
+                                      nullptr, nullptr, rows, C, lx, lx,
+                                      parts, P, out, stream);
 }
 
-// out (2, C): out[0] = sum g, out[1] = sum g * (x - mean) * inv.
+// out (2, C): out[0] = sum g, out[1] = sum g * (x - mean) * inv; bf16: g
+// and x are bf16 (else f32).
 KERNEL_API int bn_grad_moments_launch(
-    int device, const float* g, const float* x, const float* mean,
+    int device, const void* g, const void* x, const float* mean,
     const float* inv, long long rows, int C, long long Sx, long long sbx,
     long long ssx, long long scx, long long Sg, long long sbg, long long ssg,
-    long long scg, float* parts, int P, float* out, cudaStream_t stream) {
+    long long scg, float* parts, int P, float* out, int bf16,
+    cudaStream_t stream) {
   int err = begin_launch(device);
   if (err) return err;
   Layout lx{Sx, sbx, ssx, scx};
   Layout lg{Sg, sbg, ssg, scg};
-  return launch_moments<true>(g, x, mean, inv, rows, C, lx, lg, parts, P,
-                              out, stream);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return launch_moments<true, T>(static_cast<const T*>(g),
+                                   static_cast<const T*>(x), mean, inv, rows,
+                                   C, lx, lg, parts, P, out, stream);
+  }
+  return launch_moments<true, float>(static_cast<const float*>(g),
+                                     static_cast<const float*>(x), mean, inv,
+                                     rows, C, lx, lg, parts, P, out, stream);
 }

@@ -104,7 +104,11 @@ def init_weights(trunk: nn.Module, seed: int) -> None:
 class PointPillarsDetector:
     """PointPillars + GD anchor head (reference
     ``hv_pointpillars_secfpn_kld5tau1_12x4_160e_kitti-3d-3class``).  Only
-    ``voxelize_mode='dynamic'`` is ported so far."""
+    ``voxelize_mode='dynamic'`` is ported so far, on the space-to-depth
+    canvas (the default for this config, ``s2d_canvas='auto'``) or the plain
+    one (``'off'``), in f32 or with ``compute_dtype='bfloat16'``.  In bf16
+    the parameters, their gradients and AdamW's moments stay f32, and there
+    is no loss scaling, as in the JAX package's train step."""
 
     def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
                  head_cfg: Optional[Dict[str, Any]] = None,

@@ -19,10 +19,10 @@ import math
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .. import losses as _losses  # noqa: F401  (registers the losses)
+from ..backbones import compute_dtype
 from ...core.anchor import Anchor3DRangeGenerator
 from ...core.bbox.assigners import (MaxIoUAssigner,
                                     assign_per_class_vectorized)
@@ -46,27 +46,34 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 @MODELS.register_module()
 class Anchor3DHeadConvs(nn.Module):
-    """1x1 cls / reg / dir convs over the neck output, computed as one
-    fused conv whose output is zero-padded to a multiple of ``pack_lanes``
-    channels.  Returns NHWC (cls_score, bbox_pred, dir_pred, packed)."""
+    """1x1 cls / reg / dir convs over the neck output, fused into one
+    weight whose output is zero-padded to a multiple of ``pack_lanes``
+    channels.  Returns NHWC (cls_score, bbox_pred, dir_pred, packed).
+
+    As the JAX module, the fused weight is applied to each unconcatenated
+    neck branch (its block of input channels) as a matmul and the products
+    are summed, then the bias added.  With ``dtype='bfloat16'`` the weight
+    and branches are cast to bf16 and the sum and bias are bf16, so the
+    maps are bf16."""
 
     def __init__(self, num_classes: int, num_anchors: int,
                  feat_channels: int = 384,
                  use_direction_classifier: bool = True,
-                 box_code_size: int = 7, pack_lanes: int = 128):
+                 box_code_size: int = 7, pack_lanes: int = 128,
+                 dtype: Optional[str] = None):
         super().__init__()
         self.nc = num_anchors * num_classes
         self.nb = num_anchors * box_code_size
         self.nd = num_anchors * 2 if use_direction_classifier else 0
         self.pack_lanes = pack_lanes
+        self.compute_dtype = compute_dtype(dtype)
         self.conv_cls = nn.Conv2d(feat_channels, self.nc, 1)
         self.conv_reg = nn.Conv2d(feat_channels, self.nb, 1)
         self.conv_dir_cls = (nn.Conv2d(feat_channels, self.nd, 1)
                              if use_direction_classifier else None)
 
     def forward(self, x):
-        if isinstance(x, (list, tuple)):
-            x = torch.cat(list(x), dim=-1)
+        branches = list(x) if isinstance(x, (list, tuple)) else [x]
         convs = [self.conv_cls, self.conv_reg]
         if self.conv_dir_cls is not None:
             convs.append(self.conv_dir_cls)
@@ -77,7 +84,15 @@ class Anchor3DHeadConvs(nn.Module):
             pad = self.pack_lanes - total % self.pack_lanes
             w = torch.cat([w, w.new_zeros((pad,) + w.shape[1:])], 0)
             b = torch.cat([b, b.new_zeros(pad)])
-        packed = F.conv2d(x.permute(0, 3, 1, 2), w, b).permute(0, 2, 3, 1)
+        dt = self.compute_dtype or w.dtype
+        w2 = w[:, :, 0, 0].t().to(dt)                     # (cin, total)
+        packed, off = None, 0
+        for xi in branches:
+            ci = xi.shape[-1]
+            yi = torch.matmul(xi.to(dt), w2[off:off + ci])
+            packed = yi if packed is None else packed + yi
+            off += ci
+        packed = packed + b.to(dt)
         nc, nb, nd = self.nc, self.nb, self.nd
         cls_score = packed[..., :nc]
         bbox_pred = packed[..., nc:nc + nb]
@@ -268,7 +283,7 @@ class GDAnchor3DHead:
                 cfg = (gd.loss_type, gd.center_offset, gd.fun,
                        float(gd.tau), float(gd.alpha))
                 raw = anchor_gd_loss(
-                    bbox_pred.reshape(m, a * 7),
+                    bbox_pred.float().reshape(m, a * 7),
                     targets.bbox_targets.reshape(m, a * 7),
                     w.reshape(m, a), anchors.reshape(hh * ww, a * 7),
                     hh * ww, cfg)

@@ -2,10 +2,17 @@
 canvas -> SECOND -> SECONDFPN -> head maps.
 
 Port of ``mmdet3d_gaussian_tpu/models/detectors/voxelnet.py::
-PointPillarsNet``, dynamic branch with the plain canvas (voxels compacted in
-canvas raster order, ``CANVAS_KEY_ORDER``).  The batch is flattened to one
-point axis with a batch-id coord column, so voxelization of the whole batch
-is one sort and one K1 pass per reduction.
+PointPillarsNet``, dynamic branch.  The batch is flattened to one point axis
+with a batch-id coord column, so voxelization of the whole batch is one sort
+and one K1 pass per reduction.  The canvas is the space-to-depth canvas
+(``s2d_canvas``, on under ``'auto'`` for a stride-2 first stage on an even
+grid, as in the JAX package: voxels compacted on the s2d key, splat by K7,
+read by the folded stage-0 conv) or the plain canvas (voxels compacted in
+canvas raster order, ``CANVAS_KEY_ORDER``, splat by K2).
+
+``compute_dtype='bfloat16'`` is the JAX package's mixed precision: the
+pillar encoder stays f32, the pillar rows are cast to bf16 before the splat,
+and the backbone, neck and head compute in bf16 on f32 parameters.
 """
 from __future__ import annotations
 
@@ -15,9 +22,9 @@ import torch
 from torch import nn
 
 from ...ops.scatter import batch_coords, build_scatter, compute_voxel_coords
-from ...ops.voxelize import CANVAS_KEY_ORDER, bev_scatter
+from ...ops.voxelize import CANVAS_KEY_ORDER, bev_scatter, bev_scatter_s2d
 from ...registry import MODELS
-from ..backbones import SECOND, SECONDFPN
+from ..backbones import SECOND, SECONDFPN, compute_dtype as _compute_dtype
 from ..dense_heads.anchor3d_head import Anchor3DHeadConvs
 from ..voxel_encoders import DynamicPillarFeatureNet
 
@@ -25,7 +32,12 @@ from ..voxel_encoders import DynamicPillarFeatureNet
 @MODELS.register_module()
 class PointPillarsNet(nn.Module):
     """Learned trunk; ``forward(points, points_mask)`` returns NHWC
-    (cls_score, bbox_pred, dir_pred, packed)."""
+    (cls_score, bbox_pred, dir_pred, packed).
+
+    ``s2d_canvas``: ``'auto'`` (on when the first stage has stride 2 and
+    the grid is even), ``'on'`` or ``'off'``.  ``fold_w2`` (the JAX
+    package's W-folded stage 0 after the s2d canvas, a layout of the same
+    function) is accepted so that a JAX config builds, and has no effect."""
 
     def __init__(self, voxel_size: Sequence[float] = (0.16, 0.16, 4.0),
                  point_cloud_range: Sequence[float] = (
@@ -38,7 +50,9 @@ class PointPillarsNet(nn.Module):
                  backbone_cfg: Optional[Dict[str, Any]] = None,
                  neck_cfg: Optional[Dict[str, Any]] = None,
                  head_cfg: Optional[Dict[str, Any]] = None,
-                 compute_dtype: Optional[str] = None):
+                 compute_dtype: Optional[str] = None,
+                 s2d_canvas: str = 'auto',
+                 fold_w2: bool = True):
         super().__init__()
         if voxelize_mode != 'dynamic':
             raise NotImplementedError(
@@ -47,8 +61,11 @@ class PointPillarsNet(nn.Module):
         if head_type != 'anchor':
             raise NotImplementedError(f'head_type={head_type!r} is not '
                                       f'ported yet')
-        if compute_dtype is not None:
-            raise NotImplementedError('only f32 is ported so far')
+        if s2d_canvas not in ('auto', 'on', 'off'):
+            raise ValueError(f's2d_canvas must be auto, on or off, got '
+                             f'{s2d_canvas!r}')
+        dt = _compute_dtype(compute_dtype)
+        self.compute_dtype = dt
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
         self.max_voxels_per_sample = max_voxels_per_sample
@@ -59,15 +76,20 @@ class PointPillarsNet(nn.Module):
         if nz != 1:
             raise ValueError('PointPillars needs one voxel in z (pillars); '
                              f'got {nz}')
+        bb_cfg = dict(backbone_cfg or {})
+        first_stride = tuple(bb_cfg.get('layer_strides', (2, 2, 2)))[0]
+        self.s2d = (s2d_canvas == 'on'
+                    or (s2d_canvas == 'auto' and first_stride == 2
+                        and self.nx % 2 == 0 and self.ny % 2 == 0))
         enc_cfg = dict(encoder_cfg or {})
         enc_cfg.setdefault('voxel_size', self.voxel_size)
         enc_cfg.setdefault('point_cloud_range', self.point_cloud_range)
         self.voxel_encoder = DynamicPillarFeatureNet(**enc_cfg)
-        self.backbone = SECOND(**(backbone_cfg or {}))
+        self.backbone = SECOND(input_s2d=self.s2d, dtype=dt, **bb_cfg)
         neck_kw = dict(neck_cfg or {})
         neck_kw.setdefault('concat_out', False)
-        self.neck = SECONDFPN(**neck_kw)
-        self.bbox_head = Anchor3DHeadConvs(**(head_cfg or {}))
+        self.neck = SECONDFPN(dtype=dt, **neck_kw)
+        self.bbox_head = Anchor3DHeadConvs(dtype=dt, **(head_cfg or {}))
 
     def grid(self) -> Tuple[int, int]:
         pcr, vs = self.point_cloud_range, self.voxel_size
@@ -77,8 +99,10 @@ class PointPillarsNet(nn.Module):
 
     def pillars(self, points: torch.Tensor, points_mask: torch.Tensor):
         """points (B, N, C), points_mask (B, N) -> (pillar features
-        (max_voxels, C_out), voxel coords (max_voxels, 4) as (b, ix, iy,
-        iz), the Scatter)."""
+        (max_voxels, C_out) f32, voxel coords (max_voxels, 4), the
+        Scatter).  Coords are (b, ix, iy, iz) on the plain canvas and
+        (b, iy // 2, ix // 2, (iy & 1) * 2 + (ix & 1)) on the s2d canvas,
+        voxels compacted in that canvas's raster order."""
         b, n, cdim = points.shape
         max_voxels = self.max_voxels_per_sample * b
         flat = points.reshape(b * n, cdim)
@@ -88,8 +112,19 @@ class PointPillarsNet(nn.Module):
                                           self.voxel_size)
         coords3 = torch.where(points_mask.reshape(-1, 1), coords3, -1)
         coords4 = batch_coords(coords3, batch_idx)
-        scatter = build_scatter(coords4, (b, self.nx, self.ny, 1),
-                                max_voxels, key_order=CANVAS_KEY_ORDER)
+        if self.s2d:
+            # s2d cell raster order, parity minor: the pair splat's ids are
+            # then non-decreasing; the key is bijective with the pillars
+            iy, ix = coords4[:, 2], coords4[:, 1]
+            s2d_cols = torch.stack([coords4[:, 0], iy // 2, ix // 2,
+                                    (iy & 1) * 2 + (ix & 1)], dim=1)
+            coords4 = torch.where((coords4 < 0).any(-1, keepdim=True), -1,
+                                  s2d_cols)
+            scatter = build_scatter(coords4, (b, self.ny // 2, self.nx // 2,
+                                              4), max_voxels)
+        else:
+            scatter = build_scatter(coords4, (b, self.nx, self.ny, 1),
+                                    max_voxels, key_order=CANVAS_KEY_ORDER)
         # permute points into voxel-sorted order once; every reduction in
         # the encoder then runs over contiguous segments
         flat_sorted = flat[scatter.sort_order]
@@ -98,7 +133,15 @@ class PointPillarsNet(nn.Module):
 
     def forward(self, points: torch.Tensor, points_mask: torch.Tensor):
         pillar_feats, coords_v, _ = self.pillars(points, points_mask)
-        canvas = bev_scatter(pillar_feats, coords_v, points.shape[0],
-                             self.nx, self.ny)
+        if self.compute_dtype is not None:
+            # every live cell receives one row, so casting the rows is
+            # casting the canvas
+            pillar_feats = pillar_feats.to(self.compute_dtype)
+        b = points.shape[0]
+        if self.s2d:
+            canvas = bev_scatter_s2d(pillar_feats, coords_v, b, self.nx // 2,
+                                     self.ny // 2)
+        else:
+            canvas = bev_scatter(pillar_feats, coords_v, b, self.nx, self.ny)
         feats = self.neck(self.backbone(canvas))
         return self.bbox_head(feats)

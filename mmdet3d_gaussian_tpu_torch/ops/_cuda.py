@@ -23,7 +23,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -52,14 +52,16 @@ KERNELS = {
                                [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
     'segment_argmax': ('segment_argmax_launch',
                        [_P, _P, _P, _P, _P, _I, _I]),
-    'bev_splat': ('bev_splat_launch', [_P, _P, _P, _I, _I, _LL]),
+    'bev_splat': ('bev_splat_launch', [_P, _P, _P, _I, _I, _LL, _I]),
+    'bev_splat_pairs': ('bev_splat_pairs_launch',
+                        [_P, _P, _P, _P, _I, _I, _LL, _I]),
     'rotated_iou': ('rotated_iou_launch', [_P, _P, _I, _I]),
     'nms_sweep': ('nms_sweep_launch', [_P, _P, _P, _I, _I, _F]),
     'bn_moments': ('bn_moments_launch',
-                   [_P, _LL, _I, _LL, _LL, _LL, _LL, _P, _I, _P]),
+                   [_P, _LL, _I, _LL, _LL, _LL, _LL, _P, _I, _P, _I]),
     'bn_grad_moments': ('bn_grad_moments_launch',
                         [_P, _P, _P, _P, _LL, _I] + [_LL] * 8
-                        + [_P, _I, _P]),
+                        + [_P, _I, _P, _I]),
     'gd_loss_fwd': ('gd_loss_fwd_launch',
                     [_P, _LL, _P, _P, _P, _LL, _I, _I] + _GD_CFG
                     + [_P, _I, _P]),
@@ -193,13 +195,20 @@ def launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+# element types of the activations the kernels read (f32, or the
+# mixed-precision model's bf16)
+FLOAT_TYPES = (torch.float32, torch.bfloat16)
+
+
+def check_tensor(t: torch.Tensor, name: str,
+                 dtype: Union[torch.dtype, Tuple[torch.dtype, ...]],
                  shape: Sequence[Optional[int]]) -> None:
-    """Raise unless ``t`` has ``dtype``, ``len(shape)`` dims matching the
-    non-None entries of ``shape``, and is contiguous."""
+    """Raise unless ``t`` has ``dtype`` (or one of a tuple of them),
+    ``len(shape)`` dims matching the non-None entries of ``shape``, and is
+    contiguous."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f'{name} must be a tensor, got {type(t).__name__}')
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f'{name} must be {dtype}, got {t.dtype}')
     if t.dim() != len(shape) or any(
             s is not None and s != d for s, d in zip(shape, t.shape)):

@@ -13,7 +13,10 @@ Port of ``mmdet3d_gaussian_tpu/ops/pallas/bn_kernel.py``:
 Activations are read in the layout they arrive in: an ``(M, C)`` matrix, or
 an NCHW tensor in either memory format (channels-last rows or per-channel
 planes), described to the kernel by three element strides
-(:func:`_layout`), so no copy is made around a BatchNorm.  Each wrapper
+(:func:`_layout`), so no copy is made around a BatchNorm.  They are f32, or
+bf16 in the mixed-precision model (``FastBatchNorm(dtype='bfloat16')``):
+the sums are f32 either way, and ``bn_train``'s output has the input's
+type, computed in f32 and rounded once, as the JAX module's.  Each wrapper
 computes its plain PyTorch version for CPU tensors and launches the kernel
 for CUDA tensors; there is no fallback between the two.
 """
@@ -49,11 +52,11 @@ def grad_moments_plain(g, x, mean, inv):
 
 def _layout(x: torch.Tensor):
     """(rows, C, S, row strides (batch, spatial), channel stride) of an
-    (M, C) or (B, C, H, W) f32 tensor: element (row r, channel c) sits at
-    ``(r // S) * sb + (r % S) * ss + c * sc``.  Raises for a layout that
-    three strides cannot describe."""
-    if x.dtype != torch.float32:
-        raise TypeError(f'x must be float32, got {x.dtype}')
+    (M, C) or (B, C, H, W) f32 or bf16 tensor: element (row r, channel c)
+    sits at ``(r // S) * sb + (r % S) * ss + c * sc``.  Raises for a layout
+    that three strides cannot describe."""
+    if x.dtype not in _cuda.FLOAT_TYPES:
+        raise TypeError(f'x must be float32 or bfloat16, got {x.dtype}')
     if x.dim() == 2:
         m, c = x.shape
         return m, c, m, 0, x.stride(0), x.stride(1)
@@ -74,7 +77,8 @@ def _layout(x: torch.Tensor):
 def moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (sum x, sum x^2), each (C,) f32.
 
-    x: (M, C) or (B, C, H, W) f32 in any layout :func:`_layout` accepts."""
+    x: (M, C) or (B, C, H, W) f32 or bf16 in any layout :func:`_layout`
+    accepts."""
     lay = _layout(x)
     dev = _cuda.same_device(x)
     if dev.type == 'cpu':
@@ -86,7 +90,7 @@ def moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     parts = torch.empty((_cuda_partials(lay), 2, c), dtype=torch.float32,
                         device=dev)
     _cuda.launch('bn_moments', dev, x.data_ptr(), *lay, parts.data_ptr(),
-                 parts.shape[0], out.data_ptr())
+                 parts.shape[0], out.data_ptr(), _is_bf16(x))
     return out[0], out[1]
 
 
@@ -94,11 +98,13 @@ def grad_moments(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
                  inv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (sum g, sum g * (x - mean) * inv), each (C,) f32.
 
-    g, x: the same shape, each in any layout :func:`_layout` accepts (they
-    may differ: each gets its own strides, and rows are read in x's
-    order); mean, inv: (C,) f32 contiguous."""
+    g, x: the same shape and type (f32 or bf16), each in any layout
+    :func:`_layout` accepts (they may differ: each gets its own strides,
+    and rows are read in x's order); mean, inv: (C,) f32 contiguous."""
     if g.shape != x.shape:
         raise ValueError(f'g {tuple(g.shape)} and x {tuple(x.shape)} differ')
+    if g.dtype != x.dtype:
+        raise TypeError(f'g {g.dtype} and x {x.dtype} differ')
     lay_x, lay_g = _layout(x), _layout(g)
     c = lay_x[1]
     _cuda.check_tensor(mean, 'mean', torch.float32, (c,))
@@ -113,8 +119,13 @@ def grad_moments(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
                         device=dev)
     _cuda.launch('bn_grad_moments', dev, g.data_ptr(), x.data_ptr(),
                  mean.data_ptr(), inv.data_ptr(), *lay_x, *lay_g[2:],
-                 parts.data_ptr(), parts.shape[0], out.data_ptr())
+                 parts.data_ptr(), parts.shape[0], out.data_ptr(),
+                 _is_bf16(x))
     return out[0], out[1]
+
+
+def _is_bf16(x: torch.Tensor) -> int:
+    return int(x.dtype == torch.bfloat16)
 
 
 # partial sums per channel: row blocks the first pass writes (a function of
@@ -143,8 +154,8 @@ class BNTrain(torch.autograd.Function):
         var = torch.clamp_min(sq / cnt - mean * mean, 0.0)
         inv = torch.rsqrt(var + eps)
         k = _channel_view(inv * scale, x.dim())
-        y = (x - _channel_view(mean, x.dim())) * k + _channel_view(
-            bias, x.dim())
+        y = ((x.float() - _channel_view(mean, x.dim())) * k + _channel_view(
+            bias, x.dim())).to(x.dtype)
         ctx.save_for_backward(x, scale, mean, inv)
         ctx.cnt = cnt
         ctx.mark_non_differentiable(mean, var)
@@ -156,15 +167,16 @@ class BNTrain(torch.autograd.Function):
         sg, sgx = grad_moments(gy, x, mean, inv)
         cnt = ctx.cnt
         nd = x.dim()
-        xhat = (x - _channel_view(mean, nd)) * _channel_view(inv, nd)
+        xhat = (x.float() - _channel_view(mean, nd)) * _channel_view(inv, nd)
         dx = _channel_view(inv * scale, nd) * (
-            gy - _channel_view(sg / cnt, nd)
+            gy.float() - _channel_view(sg / cnt, nd)
             - xhat * _channel_view(sgx / cnt, nd))
-        return dx, sgx, sg, None
+        return dx.to(x.dtype), sgx, sg, None
 
 
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
              eps: float):
     """Training-mode BN over the channel dim 1 of an (M, C) or (B, C, H, W)
-    f32 tensor -> (y, batch mean, batch biased var)."""
+    f32 or bf16 tensor -> (y of x's type, batch mean, batch biased var, both
+    f32)."""
     return BNTrain.apply(x, scale, bias, eps)

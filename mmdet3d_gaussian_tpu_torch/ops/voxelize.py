@@ -1,13 +1,16 @@
-"""Dense BEV canvas scatter (kernel K2, ``csrc/bev_splat.cu``).
+"""Dense BEV canvas scatters: the plain canvas (kernel K2) and the
+space-to-depth canvas (kernel K7), both in ``csrc/bev_splat.cu``.
 
-Port of ``mmdet3d_gaussian_tpu/ops/voxelize.py::bev_scatter`` on the plain
-canvas: pillar rows compacted in canvas raster order (``build_scatter`` with
-``key_order=CANVAS_KEY_ORDER``) have ascending, unique cell ids, so the splat
-is an exact row copy into a zeroed canvas.
+Port of ``mmdet3d_gaussian_tpu/ops/voxelize.py::bev_scatter`` and
+``::bev_scatter_s2d``.  Pillar rows compacted in the canvas's raster order
+(``build_scatter`` with ``key_order=CANVAS_KEY_ORDER`` for the plain canvas,
+with the s2d key for the s2d canvas) have non-decreasing cell ids, so each
+splat is an exact row placement into a zeroed canvas.  Rows and canvas are
+f32, or bf16 in the mixed-precision model; the canvas has the rows' type.
 
-Its gradient (``ops/voxelize.py::_splat_bwd`` of the JAX package) is a
-fill-gather of the canvas gradient at each row's cell, rows with
-``lin >= ncell`` reading 0: plain indexing, as JAX computes it outside
+The gradients (``_splat_bwd`` and ``_splat_pairs_bwd`` of the JAX package)
+are fill-gathers of the canvas gradient at each row's cell, rows with an id
+past the canvas reading 0: plain indexing, as JAX computes them outside
 Pallas.
 """
 from __future__ import annotations
@@ -21,36 +24,90 @@ CANVAS_KEY_ORDER = (0, 2, 1, 3)   # (b, iy, ix, iz): build_scatter key order
                                   # order -> sorted BEV cell ids
 
 
+def _check_rows(feats: torch.Tensor, ids: torch.Tensor, nrows: int):
+    _cuda.check_tensor(feats, 'feats', _cuda.FLOAT_TYPES, (None, None))
+    _cuda.check_tensor(ids, 'ids', torch.int32, (feats.shape[0],))
+    if nrows < 0 or nrows >= 2 ** 31 - 1:
+        raise ValueError(f'canvas rows {nrows} out of range')
+
+
 def bev_splat_plain(feats: torch.Tensor, lin: torch.Tensor, ncell: int):
-    """Plain version of :func:`bev_splat`: the JAX package's exact f32 path
+    """Plain version of :func:`bev_splat`: the JAX package's exact path
     (segment-sum into ``ncell + 1`` rows, trash row sliced off)."""
     c = feats.shape[1]
     idx = lin.long().clamp(max=ncell)
-    canvas = torch.zeros((ncell + 1, c), dtype=torch.float32,
+    canvas = torch.zeros((ncell + 1, c), dtype=feats.dtype,
                          device=feats.device)
-    canvas.index_add_(0, idx, feats.float())
+    canvas.index_add_(0, idx, feats)
     return canvas[:ncell]
 
 
 def bev_splat(feats: torch.Tensor, lin: torch.Tensor, ncell: int):
     """Splat sorted unique voxel rows onto a dense ``(ncell, C)`` canvas.
 
-    feats (V, C) f32 contiguous; lin (V,) int32 cell ids, ascending, unique
-    below ``ncell``, non-negative; rows with ``lin >= ncell`` are dropped.
-    Cells without a row are 0."""
-    _cuda.check_tensor(feats, 'feats', torch.float32, (None, None))
-    _cuda.check_tensor(lin, 'lin', torch.int32, (feats.shape[0],))
-    if ncell < 0 or ncell >= 2 ** 31 - 1:
-        raise ValueError(f'ncell {ncell} out of range')
+    feats (V, C) f32 or bf16 contiguous; lin (V,) int32 cell ids,
+    ascending, unique below ``ncell``, non-negative; rows with
+    ``lin >= ncell`` are dropped.  Cells without a row are 0; the canvas
+    has feats' type."""
+    _check_rows(feats, lin, ncell)
     dev = _cuda.same_device(feats, lin)
     if dev.type == 'cpu':
         return bev_splat_plain(feats, lin, ncell)
-    out = torch.empty((ncell, feats.shape[1]), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((ncell, feats.shape[1]), dtype=feats.dtype, device=dev)
     if out.numel():
         _cuda.launch('bev_splat', dev, feats.data_ptr(), lin.data_ptr(),
-                     out.data_ptr(), feats.shape[0], feats.shape[1], ncell)
+                     out.data_ptr(), feats.shape[0], feats.shape[1], ncell,
+                     feats.element_size())
     return out
+
+
+def pair_rows(lin2: torch.Tensor, par: torch.Tensor, ncell2: int):
+    """Row ids of the pair canvas seen as ``(2 * ncell2, C)`` half-rows:
+    ``2 * lin2 + par``, and ``2 * ncell2`` (past the end) where ``lin2 >=
+    ncell2``."""
+    return torch.where(lin2 < ncell2, 2 * lin2.long() + par.long(),
+                       2 * ncell2)
+
+
+def bev_splat_pairs_plain(feats: torch.Tensor, lin2: torch.Tensor,
+                          par: torch.Tensor, ncell2: int):
+    """Plain version of :func:`bev_splat_pairs`: :func:`bev_splat_plain` on
+    the half-row view."""
+    ids = pair_rows(lin2, par, ncell2)
+    return bev_splat_plain(feats, ids, 2 * ncell2).view(
+        ncell2, 2 * feats.shape[1])
+
+
+def bev_splat_pairs(feats: torch.Tensor, lin2: torch.Tensor,
+                    par: torch.Tensor, ncell2: int):
+    """Splat sorted rows into a ``(ncell2, 2C)`` paired canvas: row i lands
+    in columns ``[par[i] * C, par[i] * C + C)`` of row ``lin2[i]``.
+
+    feats (V, C) f32 or bf16 contiguous; lin2 (V,) int32 paired-cell ids,
+    non-decreasing, non-negative, at most two rows per id below ``ncell2``
+    and then of different parities; par (V,) int32 in {0, 1}; rows with
+    ``lin2 >= ncell2`` are dropped.  Unfilled halves are 0; the canvas has
+    feats' type."""
+    _check_rows(feats, lin2, 2 * ncell2)
+    _cuda.check_tensor(par, 'par', torch.int32, (feats.shape[0],))
+    dev = _cuda.same_device(feats, lin2, par)
+    if dev.type == 'cpu':
+        return bev_splat_pairs_plain(feats, lin2, par, ncell2)
+    out = torch.empty((ncell2, 2 * feats.shape[1]), dtype=feats.dtype,
+                      device=dev)
+    if out.numel():
+        _cuda.launch('bev_splat_pairs', dev, feats.data_ptr(),
+                     lin2.data_ptr(), par.data_ptr(), out.data_ptr(),
+                     feats.shape[0], feats.shape[1], ncell2,
+                     feats.element_size())
+    return out
+
+
+def _fill_gather(g: torch.Tensor, ids: torch.Tensor):
+    """Rows ``g[ids]``, 0 where ``ids`` is past the end of ``g``."""
+    n = g.shape[0]
+    rows = g[ids.long().clamp(max=max(n - 1, 0))]
+    return torch.where((ids < n)[:, None], rows, 0.0)
 
 
 class _Splat(torch.autograd.Function):
@@ -62,10 +119,25 @@ class _Splat(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (lin,) = ctx.saved_tensors
-        ncell = g.shape[0]
-        live = (lin < ncell)[:, None]
-        rows = g[lin.long().clamp(max=max(ncell - 1, 0))]
-        return torch.where(live, rows, 0.0), None, None
+        return _fill_gather(g, lin), None, None
+
+
+class _SplatPairs(torch.autograd.Function):
+    """Forward K7; backward the fill-gather of the 2C-wide row at ``lin2``
+    and the select of its ``par`` half (``_splat_pairs_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, feats, lin2, par, ncell2: int):
+        ctx.save_for_backward(lin2, par)
+        return bev_splat_pairs(feats, lin2, par, ncell2)
+
+    @staticmethod
+    def backward(ctx, g):
+        lin2, par = ctx.saved_tensors
+        c = g.shape[1] // 2
+        gi = _fill_gather(g, lin2)
+        return (torch.where((par == 0)[:, None], gi[:, :c], gi[:, c:]), None,
+                None, None)
 
 
 def bev_scatter(voxel_feats: torch.Tensor, coords: torch.Tensor,
@@ -83,5 +155,30 @@ def bev_scatter(voxel_feats: torch.Tensor, coords: torch.Tensor,
              & (iy >= 0) & (iy < ny))
     ncell = batch_size * ny * nx
     lin = torch.where(valid, (b * ny + iy) * nx + ix, ncell).to(torch.int32)
-    canvas = _Splat.apply(voxel_feats.float().contiguous(), lin, ncell)
+    canvas = _Splat.apply(voxel_feats.contiguous(), lin, ncell)
     return canvas.view(batch_size, ny, nx, voxel_feats.shape[-1])
+
+
+def bev_scatter_s2d(voxel_feats: torch.Tensor, coords_s2d: torch.Tensor,
+                    batch_size: int, nx2: int, ny2: int):
+    """Space-to-depth splat: pillars -> ``(B, ny2, nx2, 4C)`` canvas.
+
+    Each 2 x 2 block of pillars lands in one canvas cell, the four
+    parities ``(iy & 1) * 2 + (ix & 1)`` stacked on channels in blocks of C.
+    coords_s2d (V, 4) int rows ``(b, cy, cx, parity)`` (-1 rows dropped),
+    compacted in cell raster order with the parity minor (``build_scatter``
+    on the s2d key).  Parities 0, 1 and 2, 3 form the two 2C-wide halves of
+    a cell, so rows go to paired row ``cell * 2 + parity // 2``, lane half
+    ``parity & 1`` of a ``(2 * ncell, 2C)`` canvas, and its reshape to
+    ``(B, ny2, nx2, 4C)`` is a view."""
+    vb, vcy, vcx = coords_s2d[:, 0], coords_s2d[:, 1], coords_s2d[:, 2]
+    vpar = coords_s2d[:, 3]
+    valid = ((vb >= 0) & (vb < batch_size) & (vcx >= 0) & (vcx < nx2)
+             & (vcy >= 0) & (vcy < ny2))
+    ncell = batch_size * ny2 * nx2
+    lin2 = torch.where(valid, ((vb * ny2 + vcy) * nx2 + vcx) * 2 + vpar // 2,
+                       ncell * 2).to(torch.int32)
+    par = (vpar & 1).to(torch.int32)
+    canvas = _SplatPairs.apply(voxel_feats.contiguous(), lin2, par,
+                               ncell * 2)
+    return canvas.view(batch_size, ny2, nx2, 4 * voxel_feats.shape[-1])

@@ -74,6 +74,64 @@ def test_bev_splat_kernel(cuda, c):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize('c', [64, 6])
+def test_bev_splat_kernel_bf16(cuda, c):
+    """K2 on bf16 rows writes a bf16 canvas, equal to the plain version."""
+    rng = np.random.RandomState(7)
+    ncell, v, nval = 30000 + 11, 6000, 5000
+    lin = np.full(v, ncell + 1, np.int32)
+    lin[:nval] = np.sort(rng.choice(ncell, nval, replace=False))
+    feats = torch.from_numpy(rng.randn(v, c).astype(np.float32)).bfloat16()
+    lin = torch.from_numpy(lin)
+    want = voxelize.bev_splat_plain(feats, lin, ncell)
+    got = voxelize.bev_splat(feats.to(cuda), lin.to(cuda), ncell)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), want)
+
+
+def _pair_rows(seed, ncell2, v, c, npairs, nsingle):
+    """Sorted paired-cell ids (some cells with both parities), rows past
+    ncell2 at the tail."""
+    rng = np.random.RandomState(seed)
+    cells = np.sort(rng.choice(ncell2, npairs + nsingle, replace=False))
+    ids, par = [], []
+    for k, cell in enumerate(cells):
+        for p in ((0, 1) if k < npairs else (rng.randint(2),)):
+            ids.append(cell)
+            par.append(p)
+    tail = v - len(ids)
+    ids += list(ncell2 + np.arange(tail) // 2)
+    par += list(np.arange(tail) % 2)
+    return (torch.from_numpy(rng.randn(v, c).astype(np.float32)),
+            torch.tensor(ids, dtype=torch.int32),
+            torch.tensor(par, dtype=torch.int32))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', [
+    dict(ncell2=40000, v=9000, c=64, npairs=3000, nsingle=2500),
+    dict(ncell2=40000 + 77, v=9000, c=64, npairs=3000, nsingle=2500),
+    dict(ncell2=5000 + 3, v=3000, c=6, npairs=1000, nsingle=900),
+    dict(ncell2=1000, v=0, c=64, npairs=0, nsingle=0)],
+    ids=['divisible', 'ragged', 'narrow', 'empty'])
+def test_bev_splat_pairs_kernel(cuda, dtype, case):
+    """K7 against its plain version: equal canvas, one launch."""
+    feats, lin2, par = _pair_rows(8, **case)
+    feats = feats.to(dtype)
+    ncell2 = case['ncell2']
+    want = voxelize.bev_splat_pairs_plain(feats, lin2, par, ncell2)
+    before = _cuda.LAUNCHES['bev_splat_pairs']
+    got = voxelize.bev_splat_pairs(feats.to(cuda), lin2.to(cuda),
+                                   par.to(cuda), ncell2)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['bev_splat_pairs'] == before + 1
+    assert got.dtype == dtype and got.shape == (ncell2, 2 * case['c'])
+    assert torch.equal(got.cpu(), want)
+    assert int(torch.count_nonzero(want)) == (2 * case['npairs']
+                                              + case['nsingle']) * case['c']
+
+
 def test_rotated_iou_kernel(cuda):
     rng = np.random.RandomState(2)
     p, k = 3, 300
@@ -155,6 +213,27 @@ def test_bn_moment_kernels(cuda, layout):
             assert bool(((a - b_).abs() <= 1e-5 * m).all())
     again = bn.moments(x)
     assert all(torch.equal(a, b_) for a, b_ in zip(again, bn.moments(x)))
+
+
+@pytest.mark.parametrize('layout', ['channels_last', 'nchw', 'rows'])
+def test_bn_moment_kernels_bf16(cuda, layout):
+    """K4 on bf16 activations (f32 sums) against the plain version, held to
+    1e-5 of the per-channel sum of magnitudes."""
+    x = _bn_layouts(cuda)[layout].bfloat16()
+    g = torch.randn(x.shape, device=cuda).bfloat16()
+    if layout == 'channels_last':
+        g = g.contiguous(memory_format=torch.channels_last)
+    mean, inv = x.new_full((64,), 0.4).float(), x.new_full((64,), 0.7).float()
+    xr, gr = bn._channels_last_2d(x).float(), bn._channels_last_2d(g).float()
+    for got, want, mag in (
+            (bn.moments(x), bn.moments_plain(x),
+             (xr.abs().sum(0), (xr ** 2).sum(0))),
+            (bn.grad_moments(g, x, mean, inv),
+             bn.grad_moments_plain(g, x, mean, inv),
+             (gr.abs().sum(0), (gr * (xr - 0.4) * 0.7).abs().sum(0)))):
+        for a, b_, m in zip(got, want, mag):
+            assert a.dtype == torch.float32
+            assert bool(((a - b_).abs() <= 1e-5 * m).all())
 
 
 @pytest.mark.parametrize('loss_type,fun,tau', [

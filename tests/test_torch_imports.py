@@ -34,7 +34,9 @@ def test_port_modules_listed():
                 'ops.gd_loss', 'ops.scan', 'models.losses.gaussian',
                 'models.losses.common', 'core.bbox.assigners',
                 'core.bbox.coders', 'core.schedules',
-                'parallel.train_state'):
+                'parallel.train_state', 'models.backbones',
+                'models.detectors.voxelnet',
+                'models.dense_heads.anchor3d_head'):
         assert 'mmdet3d_gaussian_tpu_torch.' + mod in names
 
 

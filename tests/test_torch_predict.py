@@ -4,10 +4,11 @@ scales and biases randomized first) carried over by
 ``jax_variables_to_torch``.
 
 The JAX model runs with its defaults, which turn on the space-to-depth
-canvas and the W-folded stage 0 for this config; its voxel rows then follow
-the s2d key, so pillar rows are compared against JAX built with
-``s2d_canvas='off'`` (plain canvas order, as the port) and everything after
-the canvas against JAX with its defaults.
+canvas and the W-folded stage 0 for this config.  The port here runs the
+plain canvas (``s2d_canvas='off'``, kernel K2), so its pillar rows are
+compared against JAX built with ``s2d_canvas='off'`` (plain canvas order)
+and everything after the canvas against JAX with its defaults.  The port's
+s2d canvas is held to JAX's in ``tests/test_torch_s2d.py``.
 """
 import numpy as np
 import pytest
@@ -86,7 +87,8 @@ def jax_run():
 
 @pytest.fixture(scope='module')
 def port(jax_run):
-    det = tdet.PointPillarsDetector(TINY_MODEL, TINY_HEAD, device='cpu')
+    det = tdet.PointPillarsDetector(dict(TINY_MODEL, s2d_canvas='off'),
+                                    TINY_HEAD, device='cpu')
     det.trunk.load_state_dict(jax_variables_to_torch(jax_run['variables']),
                               strict=True)
     batch = tdet.synthetic_batch(batch_size=2, num_points=1024, num_gt=8,
@@ -180,10 +182,32 @@ def test_unported_modes_raise():
     with pytest.raises(NotImplementedError):
         tdet.PointPillarsDetector(dict(TINY_MODEL, voxelize_mode='hard'),
                                   TINY_HEAD, device='cpu')
-    with pytest.raises(NotImplementedError):
-        tdet.PointPillarsDetector(dict(TINY_MODEL,
-                                       compute_dtype='bfloat16'),
+    with pytest.raises(ValueError):
+        tdet.PointPillarsDetector(dict(TINY_MODEL, compute_dtype='float16'),
                                   TINY_HEAD, device='cpu')
+
+
+def test_bf16_detector_builds():
+    """The mixed-precision KITTI detector builds with the s2d canvas on
+    through 'auto', as the JAX package builds it; f32 parameters."""
+    det = tdet.PointPillarsDetector(dict(voxelize_mode='dynamic',
+                                         compute_dtype='bfloat16'),
+                                    device='cpu')
+    assert det.trunk.s2d and det.trunk.compute_dtype == torch.bfloat16
+    assert det.trunk.backbone.blocks[0][0].compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in det.trunk.parameters())
+
+
+@pytest.mark.parametrize('extra', [
+    dict(s2d_canvas='auto', fold_w2=True, compute_dtype='bfloat16'),
+    dict(s2d_canvas='off', fold_w2=False, compute_dtype=None),
+    dict(s2d_canvas='on', fold_w2=True)], ids=['auto_bf16', 'off', 'on'])
+def test_jax_config_builds(extra):
+    """A JAX package model config naming the canvas and precision fields
+    builds in the port, with the JAX package's canvas choice."""
+    cfg = dict(jdet.KITTI_3CLASS_MODEL, voxelize_mode='dynamic', **extra)
+    det = tdet.PointPillarsDetector(cfg, device='cpu')
+    assert det.trunk.s2d == (extra['s2d_canvas'] != 'off')
 
 
 def test_default_device_is_cuda():

@@ -2,8 +2,10 @@
 
 Targets (coder, assigners, ``compact_indices``, ``get_targets``), schedules
 and the AdamW chain against their JAX counterparts on the same numpy
-inputs; then one TINY PointPillars train step (dynamic voxelize) with the
-JAX weights carried over by ``jax_variables_to_torch``: loss terms, every
+inputs; then one TINY PointPillars train step (dynamic voxelize; the port
+on the plain canvas, JAX with its defaults, the space-to-depth canvas and
+W-folded stage 0) with the JAX weights carried over by
+``jax_variables_to_torch``: loss terms, every
 parameter gradient (mapped with ``jax_grads_to_torch``) and the new BN
 running statistics, for dense targets (``pos_cap=0``, the decoded-box loss
 through K3's plain version) and sparse ones (``pos_cap=1024``); then five
@@ -372,7 +374,8 @@ def step_pair(request):
                     {'params': variables['params'],
                      'batch_stats': _np_tree(stats)}))
 
-    td = tdet.PointPillarsDetector(TINY_MODEL, head_cfg, device='cpu')
+    td = tdet.PointPillarsDetector(dict(TINY_MODEL, s2d_canvas='off'),
+                                   head_cfg, device='cpu')
     td.trunk.load_state_dict(jax_variables_to_torch(variables), strict=True)
     batch = _batch()
     total_t, losses_t = td.loss(td.apply_train(batch), batch)
