@@ -17,7 +17,12 @@ Phases, each printing its own lines (any failure exits non-zero):
       events over back-to-back calls, its wrapper's host work included);
       and the bound.  K7 must equal its plain version; every kernel of the
       bf16 paths (K1, K3, K4, K5, K6, K7, and K2 on bf16 rows) is also
-      checked, and timed, on the bf16 paths' inputs;
+      checked, and timed, on the bf16 paths' inputs.  K4: the path each of
+      the step's 19 + 19 calls takes (all must take a vectorized path: the
+      convolutions write channels last, so the rows path), bitwise equal
+      results over repeated launches, and the largest
+      and the smallest call's time against its bound; K2 and K7: the grid,
+      tiles a block and store width they run with;
   (c) TINY predict and one TINY train step on the card against the same
       port on the CPU, in f32 and in bf16 (card bf16 held to CPU bf16 at
       under half of CPU bf16's distance from CPU f32; the same rule run on
@@ -54,6 +59,7 @@ outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -71,6 +77,11 @@ import torch
 # per issued instruction, so their peak is half of it.
 PEAK_BYTES = 3.35e12
 PEAK_F32_OPS = 67e12 / 2
+# the H100's L2 cache (50 MB): K4's single-call timings rotate through
+# copies of their inputs of twice this size
+L2_BYTES = 50 * 2 ** 20
+# BatchNorm2d's eps in the model (the forward yardstick takes it)
+BN_EPS = 1e-3
 
 # f32 operations per pair that the rotated IoU needs (each add, sub, mul,
 # div, abs, min/max, compare, select and sin/cos counted once): the steps of
@@ -229,14 +240,16 @@ def device_ms(fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = cuda_spans(prof)
-    check(spans, 'the profiler recorded no device time')
-    return sum(end - start for start, end, _ in spans) / 1e3 / iters
+    for _ in range(3):      # the tracer now and then returns no activity
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = cuda_spans(prof)
+        if spans:
+            return sum(end - start for start, end, _ in spans) / 1e3 / iters
+    raise SmokeFailure('the profiler recorded no device time')
 
 
 def record_calls(run, patches):
@@ -371,9 +384,12 @@ def kernel_checks(inputs, card, note=''):
                feats.numel() * 4 + lin.numel() * 4
                + ncell * feats.shape[1] * 4, 0, 50, 10)
         check(torch.equal(canvas, ref), 'index_copy_ yardstick disagrees')
+        print_splat_plan('bev_splat', feats, lin, out, 1, card)
+        check_yardstick(results, 'bev_splat', '')
         print(f'(b) bev_splat: zero fill of the canvas alone '
               f'{cuda_ms(canvas.zero_, 50):.4f} ms '
               f'({ncell * feats.shape[1] * 4} bytes) [{card}]')
+        splat_densities(feats, lin, ncell, card)
 
     # K5 rotated IoU
     (boxes,) = inputs['rotated_iou']
@@ -410,6 +426,135 @@ def kernel_checks(inputs, card, note=''):
     return results
 
 
+def splat_densities(feats, lin, ncell, card):
+    """Phase (b), recorded: K2 on the predict's rows placed otherwise on the
+    same canvas (no row; the rows packed at its front, so a few blocks
+    hold them all; every 8th cell), equal to its plain version, timed
+    beside ``zero_`` + ``index_copy_``."""
+    from mmdet3d_gaussian_tpu_torch.ops import voxelize
+    n, dev = int((lin < ncell).sum()), lin.device
+    trash = torch.full_like(lin, ncell)
+    step = torch.arange(n, dtype=torch.int32, device=dev)
+    for name, ids in (('no row', trash),
+                      ('rows packed at the front', torch.cat([step,
+                                                              trash[n:]])),
+                      ('every 8th cell', torch.cat([step * 8, trash[n:]]))):
+        out = voxelize.bev_splat(feats, ids, ncell)
+        check(torch.equal(out, voxelize.bev_splat_plain(feats, ids, ncell)),
+              f'bev_splat disagrees with its plain version ({name})')
+        live = ids < ncell
+        lin_live, feats_live, canvas = ids[live].long(), feats[live], out
+        ms = device_ms(lambda: voxelize.bev_splat(feats, ids, ncell), 20)
+        lib = device_ms(lambda: canvas.zero_().index_copy_(0, lin_live,
+                                                           feats_live), 20)
+        print(f'(b) bev_splat, {name} ({int(live.sum())} rows): kernel '
+              f'{ms:.4f} ms, zero_ + index_copy_ {lib:.4f} ms [{card}]')
+
+
+def print_splat_plan(name, feats, ids, out, halves, card, note=''):
+    """Phase (b): the grid and store width the splat runs with on this
+    card, and its blocks' runs over ``ids`` (``voxelize.splat_runs``): the
+    most tiles and rows a block takes, and the largest block cost (half-rows
+    written plus rows read) against the mean."""
+    from mmdet3d_gaussian_tpu_torch.ops import voxelize
+    plan = voxelize.splat_plan(feats, out, halves)
+    first, below = voxelize.splat_runs(ids, out.shape[0], halves,
+                                       plan['grid'])
+    tiles, got = first.diff(), below.diff()
+    cost = 256 * tiles + got
+    print(f'(b) {name} plan ({feats.dtype}, {tuple(out.shape)} canvas'
+          f'{note}): grid {plan["grid"]} blocks, {plan["tiles"]} tiles of '
+          f'256 half-rows, {plan["vector_bytes"]}-byte stores, slot width '
+          f'shift {plan["shift"]}; runs cut by cost: at most '
+          f'{int(tiles.max())} tiles and {int(got.max())} rows a block, '
+          f'largest block cost / mean '
+          f'{float(cost.max() / cost.float().mean()):.3f} [{card}]')
+
+
+def check_yardstick(results, name, note):
+    """Phase (b): a splat must be no slower than ``zero_`` +
+    ``index_copy_`` on the same inputs."""
+    r = results[name]
+    check(r['ms'] <= r['library_ms'],
+          f'{name}{note}: {r["ms"]:.4f} ms, slower than zero_ + index_copy_ '
+          f'({r["library_ms"]:.4f} ms)')
+
+
+def falloff_cells(n, trunk, seed=0):
+    """``n`` distinct cells of the batch-``BATCH`` BEV canvas of ``trunk``
+    (sorted linear ids ``(b * ny + iy) * nx + ix``), drawn without
+    replacement with weight 1 / r^2, r the distance of the cell's centre
+    from the sensor (the origin of the point-cloud frame; at least one
+    cell): a LiDAR sweep's density falling with range."""
+    nx, ny = trunk.nx, trunk.ny
+    vx, vy = trunk.voxel_size[:2]
+    x0, y0 = trunk.point_cloud_range[:2]
+    x = x0 + (torch.arange(nx, device='cuda') + 0.5) * vx
+    y = y0 + (torch.arange(ny, device='cuda') + 0.5) * vy
+    r2 = (x[None, :] ** 2 + y[:, None] ** 2).clamp(min=vx * vy)
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    cells = torch.multinomial((1 / r2).reshape(-1).repeat(BATCH), n,
+                              replacement=False, generator=gen)
+    return cells.sort().values
+
+
+def splat_falloff(k2_inputs, trunk, card):
+    """Phase (b): K2 and K7, f32 and bf16, on the predict's rows placed at
+    cells whose density falls as 1 / r^2 from the sensor
+    (:func:`falloff_cells`, the K7 ids the same cells on the s2d canvas):
+    equal to their plain versions, and no slower than ``zero_`` +
+    ``index_copy_``."""
+    from mmdet3d_gaussian_tpu_torch.ops import voxelize
+    feats, lin, ncell = k2_inputs
+    n = int((lin < ncell).sum())
+    cells = falloff_cells(n, trunk)
+    nx, ny = trunk.nx, trunk.ny
+    b, rem = cells // (nx * ny), cells % (nx * ny)
+    iy, ix = rem // nx, rem % nx
+    parity = (iy % 2) * 2 + ix % 2
+    half = ((b * (ny // 2) + iy // 2) * (nx // 2) + ix // 2) * 4 + parity
+    half = half.sort().values                  # half-row ids 2 lin2 + par
+    ncell2 = ncell // 2
+    pad = lin.shape[0] - n
+    k2_ids = torch.cat([cells, torch.full((pad,), ncell, device='cuda')])
+    lin2 = torch.cat([half // 2, torch.full((pad,), ncell2, device='cuda')])
+    par = torch.cat([half % 2, torch.zeros(pad, device='cuda',
+                                           dtype=torch.long)])
+    k2_ids, lin2, par = k2_ids.int(), lin2.int(), par.int()
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = feats.to(dtype)
+        note = f' ({str(dtype)[6:]}, density 1/r^2)'
+        out = voxelize.bev_splat(rows, k2_ids, ncell)
+        check(torch.equal(out, voxelize.bev_splat_plain(rows, k2_ids, ncell)),
+              f'bev_splat disagrees with its plain version{note}')
+        live = k2_ids < ncell
+        lin_live, rows_live = k2_ids[live].long(), rows[live]
+        ms = device_ms(lambda: voxelize.bev_splat(rows, k2_ids, ncell), 20)
+        lib = device_ms(lambda: out.zero_().index_copy_(0, lin_live,
+                                                        rows_live), 20)
+        results['bev_splat'] = dict(ms=ms, library_ms=lib)
+        print(f'(b) bev_splat{note}: kernel {ms:.4f} ms, zero_ + '
+              f'index_copy_ {lib:.4f} ms [{card}]')
+        print_splat_plan('bev_splat', rows, k2_ids, out, 1, card, note)
+        check_yardstick(results, 'bev_splat', note)
+        out = voxelize.bev_splat_pairs(rows, lin2, par, ncell2)
+        check(torch.equal(out, voxelize.bev_splat_pairs_plain(
+            rows, lin2, par, ncell2)),
+            f'bev_splat_pairs disagrees with its plain version{note}')
+        ids = voxelize.pair_rows(lin2, par, ncell2)[live]
+        half_rows = out.view(2 * ncell2, -1)
+        ms = device_ms(lambda: voxelize.bev_splat_pairs(rows, lin2, par,
+                                                        ncell2), 20)
+        lib = device_ms(lambda: half_rows.zero_().index_copy_(0, ids,
+                                                              rows_live), 20)
+        results['bev_splat_pairs'] = dict(ms=ms, library_ms=lib)
+        print(f'(b) bev_splat_pairs{note}: kernel {ms:.4f} ms, zero_ + '
+              f'index_copy_ on the half-row view {lib:.4f} ms [{card}]')
+        print_splat_plan('bev_splat_pairs', rows, lin2, out, 2, card, note)
+        check_yardstick(results, 'bev_splat_pairs', note)
+
+
 def splat_pairs_check(results, args, card, note):
     """K7 on one predict's arguments: equal to its plain version; timed,
     with ``zero_`` + ``index_copy_`` on the half-row view as its
@@ -437,6 +582,8 @@ def splat_pairs_check(results, args, card, note):
            50, 10, feats.numel() * esize + 2 * lin2.numel() * 4
            + ncell2 * 2 * c * esize, 0, f' exact_equal={exact}{note}')
     check(torch.equal(canvas, ref), 'index_copy_ yardstick disagrees')
+    print_splat_plan('bev_splat_pairs', feats, lin2, out, 2, card)
+    check_yardstick(results, 'bev_splat_pairs', note)
 
 
 def bf16_kernel_checks(pred_inputs, train_inputs, k2_inputs, card):
@@ -480,6 +627,8 @@ def bf16_kernel_checks(pred_inputs, train_inputs, k2_inputs, card):
            lambda: canvas16.zero_().index_copy_(0, lin_live, f16_live),
            50, 10, f16.numel() * 2 + lin.numel() * 4
            + ncell * f16.shape[1] * 2, 0, f' exact_equal={exact} (bf16)')
+    print_splat_plan('bev_splat', f16, lin, out, 1, card)
+    check_yardstick(bf16, 'bev_splat', ' (bf16)')
     bf16.update(kernel_checks(pred_inputs, card, ' (bf16 predict)'))
     bf16.update(train_kernel_checks(train_inputs, card,
                                     ' (bf16 dense step)'))
@@ -774,12 +923,16 @@ def check_k4(results, inputs, card, note=''):
         plain = bn.moments_plain if fwd else bn.grad_moments_plain
         err = rel = 0.0
         bytes_ = ops = 0
-        shapes = []
+        shapes, paths, sizes = [], [], []
         for args in calls:
             x = args[0] if fwd else args[1]
             m, cc = rows_of(x).shape
             shapes.append(f'{m}x{cc}')
+            paths.append(bn.kernel_plan(x, None if fwd else args[0]).path)
             got, want = kern(*args), plain(*args)
+            check(all(all(torch.equal(a, b) for a, b in zip(got, kern(*args)))
+                      for _ in range(2)),
+                  f'{name}: repeated launches differ')
             if fwd:
                 mags = (rows_of(x).abs().sum(0), (rows_of(x) ** 2).sum(0))
             else:
@@ -793,20 +946,41 @@ def check_k4(results, inputs, card, note=''):
                 err = max(err, float((a - b).abs().max()))
                 rel = max(rel, float(((a - b).abs() / mag.clamp(
                     min=1e-30)).max()))
-            bytes_ += (1 if fwd else 2) * m * cc * x.element_size() \
+            call_bytes = (1 if fwd else 2) * m * cc * x.element_size() \
                 + (2 if fwd else 4) * cc * 4
+            sizes.append((call_bytes, args))
+            bytes_ += call_bytes
             ops += (2 if fwd else 4) * m * cc
         dtype = str(calls[0][0].dtype).replace('torch.', '')
         print(f'(b) {name}{note}: {len(calls)} calls of one step, {dtype} '
               f'rows x channels {shapes}; max error / per-channel sum of '
-              f'magnitudes {rel:.3g}')
+              f'magnitudes {rel:.3g}; bitwise equal over 3 launches each')
+        print(f'(b) {name}{note}: path per call {paths}')
+        check(all(p.endswith('-vector') for p in paths),
+              f'{name}: a main-path call took a scalar path')
+        sizes.sort(key=lambda s: s[0])
+        for what, (nbytes, args) in (('largest', sizes[-1]),
+                                     ('smallest', sizes[0])):
+            x = args[0] if fwd else args[1]
+            # copies of the inputs, called in turn, so that each call reads
+            # its bytes from HBM and not from the last call's L2
+            n_copies = 1 + -(-2 * L2_BYTES // nbytes)
+            copies = itertools.cycle(
+                [tuple(a.clone() if i < (1 if fwd else 2) else a
+                       for i, a in enumerate(args))
+                 for _ in range(n_copies)])
+            t = device_ms(lambda: kern(*next(copies)), 50)
+            b_ms = bound(nbytes, 0)[0]
+            print(f'(b) {name}{note}: {what} call {tuple(x.shape)}: '
+                  f'{t:.4f} ms, bound {b_ms:.4f} ms ({t / b_ms:.2f}x; inputs '
+                  f'in turn from {n_copies} copies, over twice the L2) '
+                  f'[{card}]')
+            del copies
 
         def lib(fwd=fwd, calls=calls):
             for args in calls:
                 if fwd:
-                    x = args[0]
-                    torch.var_mean(x, (0, 2, 3) if x.dim() == 4 else (0,),
-                                   correction=0)
+                    torch.batch_norm_stats(args[0], BN_EPS)
                 else:
                     lib_bwd(*args)
         report(results, name, card, err, '1e-5 of the sum of magnitudes',
@@ -1205,6 +1379,7 @@ def main() -> int:
               f'{scatter.max_voxels}, overflow {int(scatter.num_overflow)}')
         inputs = capture_inputs(det, batches[0], PREDICT_LAUNCHES)
         results = kernel_checks(inputs, card)          # (b) predict
+        splat_falloff(inputs['bev_splat'], det.trunk, card)
         inputs16 = capture_inputs(det16, batches[0], PREDICT_S2D_LAUNCHES)
     k2_inputs = inputs['bev_splat']
     del inputs

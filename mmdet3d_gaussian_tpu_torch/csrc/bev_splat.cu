@@ -1,3 +1,5 @@
+// K2 and K7 on Hopper: a persistent grid of contiguous runs of 256-half-row tiles, cut by cost (half-rows written plus rows read); each block reads its run's source rows into shared memory first, then streams every element of its tiles once with evict-first 16-byte stores (row width a compile-time shift), each window carried from the last. Bound: bytes (K2 236 MB f32 / 118 MB bf16, 0.0705 / 0.0353 ms at 3.35 TB/s).
+//
 // Sorted voxel rows -> dense BEV canvas: the plain canvas (K2) and the
 // parity-pair canvas of the space-to-depth layout (K7).
 //
@@ -25,92 +27,306 @@
 // Bound on an H100: bytes.  At KITTI batch 4 the plain canvas is 857,088 x
 // 64 f32 (219 MB) and the s2d pair canvas 428,544 x 128 bf16 (110 MB),
 // against 16 or 8 MB of voxel rows, so both kernels are write streams.
-// Each block owns a tile of kTile key rows, finds its input window by two
-// binary searches on the sorted ids, records in shared memory which slot of
-// the tile each source row fills, then writes every element of its tile
-// exactly once (source value or 0) with 16-byte stores where the row width
-// and alignment allow: no separate memset pass, no atomics, each input row
+// Design: a tile is 256 half-rows (256 key rows of K2, 128 of K7), so the
+// ids of a tile's window (at most one per half-row) are one load a thread.
+// The grid is as many blocks as stay resident (two an SM, each with 96 KB of
+// shared memory); each block owns a contiguous run of tiles, cut by cost:
+// a tile costs the 256 half-rows it writes, a row the half-row read for it,
+// and block b's run starts at the first tile where the cost of the tiles
+// before it reaches b / grid of the whole.  A LiDAR sweep is dense near the
+// sensor, so runs cut by tiles alone would leave a few blocks with most of
+// the rows.  Three searches find the run (the live rows, then each end of
+// the run, 256- and 128-wide: 6 dependent loads at V = 64,000), and the
+// block reads its rows into shared memory before it stores anything: all
+// of the kernel's reads come in one burst at its start, and its stores
+// then stream with no reads among them (mixed in, the 16 MB of f32 rows
+// cost K2 ~12 us more, from L2 too).  Each window starts where the last one ended, its length the count
+// of loaded ids below the tile's end, its ids loaded one tile ahead.  The
+// slot of each half-row holds the index of its source row; an entry below
+// the window's start is stale (windows only move forward), so the slots are
+// cleared once per block.  Every element of the canvas is written exactly
+// once (source value or 0), with streaming 16-byte stores where the row
+// width and alignment allow: no memset pass, no atomics, each input row
 // read by exactly one block.
+#include <climits>
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 128;     // key rows per block
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // half-rows of a tile; window ids a tile
 
-__device__ __forceinline__ int first_not_less(const int* __restrict__ a, int n,
-                                           long long key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if ((long long)a[mid] < key) lo = mid + 1; else hi = mid;
+// First index of [0, n) where less(i) turns false (less holds on a
+// prefix), searched by the kWidth threads of this thread's group (threads
+// [g * kWidth, (g + 1) * kWidth)), each probing one of kWidth evenly
+// spaced indices a round.  Every thread of the block runs the same rounds
+// (barriers inside), so groups search side by side; counts: one int of
+// shared memory a warp.
+template <int kWidth, typename Less>
+__device__ long long group_search(long long n, Less less, int* counts) {
+  constexpr int kGroupWarps = kWidth / 32;
+  const int j = threadIdx.x % kWidth, warp = threadIdx.x / 32;
+  const int first = warp / kGroupWarps * kGroupWarps;
+  long long lo = 0, hi = n;
+  for (long long size = n; size > 0; size = (size + kWidth - 1) / kWidth - 1) {
+    const long long step = lo < hi ? (hi - lo + kWidth - 1) / kWidth : 0;
+    const long long q = lo + (j + 1) * step - 1;
+    const unsigned int ballot =
+        __ballot_sync(0xffffffffu, step > 0 && q < hi && less(q));
+    if ((threadIdx.x & 31) == 0) counts[warp] = __popc(ballot);
+    __syncthreads();
+    int cnt = 0;
+    for (int w = 0; w < kGroupWarps; ++w) cnt += counts[first + w];
+    __syncthreads();
+    if (step > 0) {
+      lo += cnt * step;
+      hi = min(hi, lo + step - 1);
+    }
   }
   return lo;
 }
 
-// W: the unit of one load / store (uint4 = 16 bytes, or one element);
-// cw: units per slot (C elements); rows: key rows of the output.
-template <typename W, int kHalves>
-__global__ void splat_kernel(const W* __restrict__ feats,
-                             const int* __restrict__ ids,
-                             const int* __restrict__ par,
-                             W* __restrict__ out, int V, int cw,
-                             long long rows) {
-  __shared__ int src[kTile * kHalves];
-  __shared__ int window[2];
-  long long base = (long long)blockIdx.x * kTile;
-  int n = (int)min((long long)kTile, rows - base);
-  for (int r = threadIdx.x; r < kTile * kHalves; r += blockDim.x) src[r] = -1;
-  if (threadIdx.x == 0) window[0] = first_not_less(ids, V, base);
-  if (threadIdx.x == 32) window[1] = first_not_less(ids, V, base + n);
+__device__ __forceinline__ void store_stream(uint4* p, uint4 v) {
+  __stcs(p, v);
+}
+__device__ __forceinline__ void store_stream(uint32_t* p, uint32_t v) {
+  __stcs(reinterpret_cast<unsigned int*>(p), static_cast<unsigned int>(v));
+}
+__device__ __forceinline__ void store_stream(uint16_t* p, uint16_t v) {
+  __stcs(reinterpret_cast<unsigned short*>(p),
+         static_cast<unsigned short>(v));
+}
+
+// W: the unit of one load / store (uint4 = 16 bytes, or one element); a
+// slot (C elements) is cw units, cw = 1 << kShift, or any cw when kShift
+// is -1; rows: key rows of the output; tiles: ceil(rows / kTile); stage:
+// the units of dynamic shared memory that hold the block's source rows.
+//
+// Reads first, then writes: the block loads the source rows of its whole
+// run (contiguous in feats) into shared memory before its first store; the
+// store phase reads nothing but the next window's ids, loaded one tile
+// ahead.  A run denser than the stage reads its next rows in one burst
+// between two tiles when a window leaves the stage; a window wider than the
+// stage (rows over 96 KB / 256) reads the rest where they are needed.
+template <typename W, int kHalves, int kShift>
+__global__ void __launch_bounds__(kThreads) splat_kernel(
+    const W* __restrict__ feats, const int* __restrict__ ids,
+    const int* __restrict__ par, W* __restrict__ out, int V, int cw,
+    long long rows, long long tiles, int stage) {
+  constexpr int kTile = kThreads / kHalves;   // key rows a tile
+  extern __shared__ uint4 dynamic_smem[];
+  W* staged_rows = reinterpret_cast<W*>(dynamic_smem);
+  __shared__ int src[kThreads];
+  __shared__ int counts[kThreads / 32];
+  __shared__ long long span[2];                // the run's tiles
+  __shared__ int run[2];                       // ... and its rows
+  const int tid = threadIdx.x;
+  // The run: live rows (ids below the canvas's end; the others sort last);
+  // the cost of tiles [0, t), t * kThreads half-rows written plus R(t)
+  // rows read (R(t): live rows with an id below t * kTile); block b owns
+  // tiles [t_b, t_b+1), t_b the least t whose cost reaches b * total /
+  // grid.  Half the block finds t_b, the other half t_b+1.
+  const long long live = group_search<kThreads>(
+      V, [&](long long i) { return (long long)__ldg(ids + i) < rows; },
+      counts);
+  const int side = tid / (kThreads / 2), j = tid % (kThreads / 2);
+  const long long goal = (tiles * kThreads + live)
+      * (blockIdx.x + side) / gridDim.x;
+  // r: the least row with kThreads * tile(r) + r >= goal (or live); the
+  // boundary tb is the least t past row r - 1's tile with t * kThreads + r
+  // >= goal
+  const long long r = group_search<kThreads / 2>(
+      live, [&](long long q) {
+        return (long long)(__ldg(ids + q) / kTile) * kThreads + q < goal;
+      }, counts);
+  long long tb = (goal - r + kThreads - 1) / kThreads;
+  if (r > 0) tb = max(tb, (long long)(__ldg(ids + r - 1) / kTile) + 1);
+  tb = min(tb, tiles);
+  // R(tb) = r + the rows from r on that share row r - 1's tile (fewer
+  // than kThreads: one tile's rows)
+  unsigned int below = 0;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const long long q = r + 2 * j + e;
+    below += q < live && (long long)__ldg(ids + q) < tb * kTile;
+  }
+  below = __reduce_add_sync(0xffffffffu, below);
+  if ((tid & 31) == 0) counts[tid / 32] = (int)below;
   __syncthreads();
-  for (int i = window[0] + threadIdx.x; i < window[1]; i += blockDim.x) {
-    int slot = (int)(ids[i] - base) * kHalves;
-    if constexpr (kHalves == 2) slot += par[i];
-    src[slot] = i;
+  if (j == 0) {
+    constexpr int kHalfWarps = kThreads / 64;
+    int n = 0;
+    for (int w = 0; w < kHalfWarps; ++w) n += counts[side * kHalfWarps + w];
+    span[side] = tb;
+    run[side] = (int)(r + n);
   }
   __syncthreads();
+  const long long t_begin = span[0], t_end = span[1];
+  if (t_begin >= t_end) return;
+  if constexpr (kShift >= 0) cw = 1 << kShift;
+  src[tid] = -1;
+  // the stage holds rows [first, first + staged / cw) of the run
+  int first = 0, staged = 0;
+  auto restage = [&](int from) {
+    first = from;
+    staged = (int)min((long long)(run[1] - from) * cw, (long long)stage);
+    for (int e = tid; e < staged; e += kThreads)
+      staged_rows[e] = __ldg(feats + (long long)from * cw + e);
+  };
+  restage(run[0]);
 
-  W* o = out + base * kHalves * cw;
-  for (int e = threadIdx.x; e < n * kHalves * cw; e += blockDim.x) {
-    int h = e / cw;
-    int s = src[h];
-    W v;
-    if (s >= 0) {
-      v = feats[(long long)s * cw + (e - h * cw)];
-    } else {
-      v = W{};
+  // this thread's id of window t (its start s0) and of window t + 1 (s1)
+  auto load_key = [&](int at, long long t, int& key, int& half) {
+    key = INT_MAX;
+    half = 0;
+    if (t < t_end && (long long)at + tid < V) {
+      key = __ldg(ids + at + tid);
+      if (kHalves == 2) half = __ldg(par + at + tid) & 1;
     }
-    o[e] = v;
+  };
+  // count of window t's ids (sorted, so the first ones) below tile t's end
+  auto window = [&](long long t, int key, bool& in) {
+    const long long base = t * kTile;
+    in = key >= base && key < base + min((long long)kTile, rows - base);
+    return __syncthreads_count(in);
+  };
+  auto fill = [&](long long t, int at, bool in, int key, int half) {
+    if (in) src[(int)(key - t * kTile) * kHalves + half] = at + tid;
+  };
+
+  int s0 = run[0], key0, half0;
+  bool in0;
+  load_key(s0, t_begin, key0, half0);
+  const int cnt0 = window(t_begin, key0, in0);
+  int s1 = s0 + cnt0, key1, half1;
+  load_key(s1, t_begin + 1, key1, half1);
+  fill(t_begin, s0, in0, key0, half0);
+  __syncthreads();
+  for (long long t = t_begin; t < t_end; ++t) {
+    bool in1;
+    const int cnt1 = window(t + 1, key1, in1);
+    const int s2 = s1 + cnt1;
+    int key2, half2;
+    load_key(s2, t + 2, key2, half2);
+
+    const long long base = t * kTile;
+    const int n = (int)min((long long)kTile, rows - base);
+    W* o = out + base * kHalves * cw;
+    const int units = n * kHalves * cw;
+#pragma unroll 4
+    for (int e = tid; e < units; e += kThreads) {
+      int h;
+      if constexpr (kShift >= 0) h = e >> kShift; else h = e / cw;
+      const int s = src[h];
+      W v{};
+      if (s >= s0) {
+        const int u = (s - first) * cw + (e - h * cw);
+        v = u < staged ? staged_rows[u]
+                       : __ldg(feats + (long long)first * cw + u);
+      }
+      store_stream(o + e, v);
+    }
+    __syncthreads();                    // slots and stage read
+    if (t + 1 < t_end) {
+      // a run denser than the stage: read its next rows in one burst
+      if ((long long)(s2 - first) * cw > staged) restage(s1);
+      fill(t + 1, s1, in1, key1, half1);
+    }
+    __syncthreads();
+    s0 = s1;
+    s1 = s2;
+    key1 = key2;
+    half1 = half2;
   }
 }
 
+struct Plan {
+  long long tiles;
+  unsigned int grid;
+  int unit_bytes;   // 16, or the element's width
+  int shift;        // slot width in units as a shift, or -1
+};
+
+// Shared memory for a block's source rows: two blocks fit on an SM.
+constexpr int kStageBytes = 96 * 1024;
+
+// Blocks that stay resident with the stage (and allows the stage first).
+template <typename W, int kHalves, int kShift>
+int resident(int device) {
+  static ResidentCache cache;
+  const auto kernel = splat_kernel<W, kHalves, kShift>;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kStageBytes) != cudaSuccess)
+    return 0;
+  return cache.get(kernel, device, kThreads, kStageBytes);
+}
+
 template <int kHalves>
-int launch_splat(const void* feats, const int* ids, const int* par,
-                 void* out, int V, int C, long long rows, int elem_bytes,
-                 cudaStream_t stream) {
-  if (rows == 0 || C == 0) return 0;
+int plan_splat(int device, const void* feats, const void* out, int C,
+               long long rows, int elem_bytes, Plan* plan) {
   if (elem_bytes != 4 && elem_bytes != 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  unsigned int blocks = (unsigned int)((rows + kTile - 1) / kTile);
-  long long row_bytes = (long long)C * elem_bytes;
-  bool vec16 = (row_bytes % 16 == 0)
+  const long long row_bytes = (long long)C * elem_bytes;
+  const bool vec16 = (row_bytes % 16 == 0)
       && (reinterpret_cast<uintptr_t>(feats) % 16 == 0)
       && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  if (vec16) {
-    splat_kernel<uint4, kHalves><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const uint4*>(feats), ids, par, static_cast<uint4*>(out),
-        V, (int)(row_bytes / 16), rows);
+  plan->unit_bytes = vec16 ? 16 : elem_bytes;
+  plan->shift = -1;
+  int cap;
+  if (vec16 && row_bytes == 256) {
+    plan->shift = 4;
+    cap = resident<uint4, kHalves, 4>(device);
+  } else if (vec16 && row_bytes == 128) {
+    plan->shift = 3;
+    cap = resident<uint4, kHalves, 3>(device);
+  } else if (vec16) {
+    cap = resident<uint4, kHalves, -1>(device);
   } else if (elem_bytes == 4) {
-    splat_kernel<uint32_t, kHalves><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const uint32_t*>(feats), ids, par,
-        static_cast<uint32_t*>(out), V, C, rows);
+    cap = resident<uint32_t, kHalves, -1>(device);
   } else {
-    splat_kernel<uint16_t, kHalves><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const uint16_t*>(feats), ids, par,
-        static_cast<uint16_t*>(out), V, C, rows);
+    cap = resident<uint16_t, kHalves, -1>(device);
+  }
+  if (cap <= 0) {
+    const int err = static_cast<int>(cudaGetLastError());
+    return err ? err : static_cast<int>(cudaErrorUnknown);
+  }
+  const int tile = kThreads / kHalves;
+  plan->tiles = (rows + tile - 1) / tile;
+  plan->grid = (unsigned int)(plan->tiles < cap ? plan->tiles : cap);
+  return 0;
+}
+
+template <typename W, int kHalves, int kShift>
+void run(const Plan& p, const void* feats, const int* ids, const int* par,
+         void* out, int V, int cw, long long rows, cudaStream_t stream) {
+  splat_kernel<W, kHalves, kShift><<<p.grid, kThreads, kStageBytes,
+                                     stream>>>(
+      static_cast<const W*>(feats), ids, par, static_cast<W*>(out), V, cw,
+      rows, p.tiles, kStageBytes / (int)sizeof(W));
+}
+
+template <int kHalves>
+int launch_splat(int device, const void* feats, const int* ids,
+                 const int* par, void* out, int V, int C, long long rows,
+                 int elem_bytes, cudaStream_t stream) {
+  if (rows == 0 || C == 0) return 0;
+  Plan p;
+  int err = plan_splat<kHalves>(device, feats, out, C, rows, elem_bytes, &p);
+  if (err) return err;
+  const int cw = (int)((long long)C * elem_bytes / p.unit_bytes);
+  if (p.unit_bytes == 16) {
+    if (p.shift == 4)
+      run<uint4, kHalves, 4>(p, feats, ids, par, out, V, cw, rows, stream);
+    else if (p.shift == 3)
+      run<uint4, kHalves, 3>(p, feats, ids, par, out, V, cw, rows, stream);
+    else
+      run<uint4, kHalves, -1>(p, feats, ids, par, out, V, cw, rows, stream);
+  } else if (p.unit_bytes == 4) {
+    run<uint32_t, kHalves, -1>(p, feats, ids, par, out, V, cw, rows, stream);
+  } else {
+    run<uint16_t, kHalves, -1>(p, feats, ids, par, out, V, cw, rows, stream);
   }
   return end_launch();
 }
@@ -125,8 +341,8 @@ KERNEL_API int bev_splat_launch(int device, const void* feats,
                                 cudaStream_t stream) {
   int err = begin_launch(device);
   if (err) return err;
-  return launch_splat<1>(feats, lin, nullptr, out, V, C, ncell, elem_bytes,
-                         stream);
+  return launch_splat<1>(device, feats, lin, nullptr, out, V, C, ncell,
+                         elem_bytes, stream);
 }
 
 // K7: out (ncell2, 2C), laid out as (2 * ncell2, C) half-rows.
@@ -137,6 +353,26 @@ KERNEL_API int bev_splat_pairs_launch(int device, const void* feats,
                                       cudaStream_t stream) {
   int err = begin_launch(device);
   if (err) return err;
-  return launch_splat<2>(feats, lin2, par, out, V, C, ncell2, elem_bytes,
-                         stream);
+  return launch_splat<2>(device, feats, lin2, par, out, V, C, ncell2,
+                         elem_bytes, stream);
+}
+
+// What a launch with these arguments runs (halves 1: K2, 2: K7), no launch:
+// result = (grid, tiles, bytes a load / store, slot width in units as a
+// shift or -1).
+KERNEL_API int bev_splat_plan(int device, const void* feats, const void* out,
+                              int C, long long rows, int elem_bytes,
+                              int halves, long long* result) {
+  int err = begin_launch(device);
+  if (err) return err;
+  Plan p;
+  err = halves == 2
+      ? plan_splat<2>(device, feats, out, C, rows, elem_bytes, &p)
+      : plan_splat<1>(device, feats, out, C, rows, elem_bytes, &p);
+  if (err) return err;
+  result[0] = p.grid;
+  result[1] = p.tiles;
+  result[2] = p.unit_bytes;
+  result[3] = p.shift;
+  return 0;
 }

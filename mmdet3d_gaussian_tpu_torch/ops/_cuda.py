@@ -58,16 +58,23 @@ KERNELS = {
     'rotated_iou': ('rotated_iou_launch', [_P, _P, _I, _I]),
     'nms_sweep': ('nms_sweep_launch', [_P, _P, _P, _I, _I, _F]),
     'bn_moments': ('bn_moments_launch',
-                   [_P, _LL, _I, _LL, _LL, _LL, _LL, _P, _I, _P, _I]),
+                   [_P, _LL, _I] + [_LL] * 4 + [_I] + [_LL] * 4
+                   + [_P, _P, _P, _I]),
     'bn_grad_moments': ('bn_grad_moments_launch',
-                        [_P, _P, _P, _P, _LL, _I] + [_LL] * 8
-                        + [_P, _I, _P, _I]),
+                        [_P, _P, _P, _P, _LL, _I] + [_LL] * 7 + [_I]
+                        + [_LL] * 4 + [_P, _P, _P, _I]),
     'gd_loss_fwd': ('gd_loss_fwd_launch',
                     [_P, _LL, _P, _P, _P, _LL, _I, _I] + _GD_CFG
                     + [_P, _I, _P]),
     'gd_loss_bwd': ('gd_loss_bwd_launch',
                     [_P, _P, _LL, _P, _P, _P, _LL, _I, _I] + _GD_CFG
                     + [_P]),
+}
+
+# queries that launch nothing: name -> (C function, argtypes after the
+# leading device index)
+QUERIES = {
+    'bev_splat_plan': ('bev_splat_plan', [_P, _P, _I, _LL, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -171,6 +178,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, symbol)
         fn.argtypes = [_I] + argtypes + [_P]
         fn.restype = _I
+    for name, (symbol, argtypes) in QUERIES.items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = [_I] + argtypes
+        fn.restype = _I
     lib.kernels_error_string.argtypes = [_I]
     lib.kernels_error_string.restype = ctypes.c_char_p
     BUILD_INFO.update(path=str(so), built=built,
@@ -179,12 +190,14 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream; raise on a
-    refused launch, count it otherwise."""
+def launch(name: str, device: torch.device, *args,
+           stream: Optional[int] = None) -> None:
+    """Launch kernel ``name`` on ``stream`` (default: ``device``'s current
+    stream); raise on a refused launch, count it otherwise."""
     lib = library()
     symbol = KERNELS[name][0]
-    stream = torch.cuda.current_stream(device).cuda_stream
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, symbol)(device.index if device.index is not None
                                else torch.cuda.current_device(),
                                *args, stream)
@@ -193,6 +206,18 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f'CUDA kernel {name} failed to launch: {msg} '
                            f'(error {err})')
     LAUNCHES[name] += 1
+
+
+def query(name: str, device: torch.device, *args) -> None:
+    """Call query ``name`` of :data:`QUERIES` for ``device``; raise on an
+    error.  Launches nothing and counts nothing."""
+    lib = library()
+    err = getattr(lib, QUERIES[name][0])(
+        device.index if device.index is not None
+        else torch.cuda.current_device(), *args)
+    if err:
+        msg = lib.kernels_error_string(err).decode()
+        raise RuntimeError(f'CUDA query {name} failed: {msg} (error {err})')
 
 
 # element types of the activations the kernels read (f32, or the

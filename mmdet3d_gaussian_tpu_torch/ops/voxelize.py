@@ -15,6 +15,8 @@ Pallas.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _cuda
@@ -101,6 +103,41 @@ def bev_splat_pairs(feats: torch.Tensor, lin2: torch.Tensor,
                      feats.shape[0], feats.shape[1], ncell2,
                      feats.element_size())
     return out
+
+
+def splat_plan(feats: torch.Tensor, out: torch.Tensor, halves: int = 1):
+    """What the CUDA splat runs for ``feats`` (V, C) into the canvas
+    ``out`` (``halves`` 1: K2 on ``(ncell, C)``, 2: K7 on ``(ncell2,
+    2C)``), without launching it: dict of the persistent grid, the tiles of
+    256 half-rows, the bytes of one load or store, and the slot width in
+    those units as a shift (-1: a division)."""
+    dev = _cuda.same_device(feats, out)
+    if dev.type != 'cuda':
+        raise ValueError('splat_plan describes the CUDA kernel')
+    res = (ctypes.c_longlong * 4)()
+    _cuda.query('bev_splat_plan', dev, feats.data_ptr(), out.data_ptr(),
+                feats.shape[1], out.shape[0], feats.element_size(), halves,
+                res)
+    return dict(zip(('grid', 'tiles', 'vector_bytes', 'shift'), res))
+
+
+def splat_runs(ids: torch.Tensor, rows: int, halves: int, grid: int):
+    """The runs the splat kernel's ``grid`` blocks take over a canvas of
+    ``rows`` key rows (``halves`` 1: K2's ``lin``, 2: K7's ``lin2``):
+    -> (first tile, first row) of each block and of the end, each
+    ``(grid + 1,)`` int64.  A tile is ``256 // halves`` key rows; the tiles
+    before t cost ``256 t + R(t)`` (half-rows written, plus rows read: R(t)
+    live rows with an id below the tile's first), and block b starts at the
+    least t whose cost reaches ``b * total // grid``, as in the kernel."""
+    tile = 256 // halves
+    tiles = -(-rows // tile)
+    ids = ids.long()
+    starts = torch.arange(tiles + 1, device=ids.device) * tile
+    below = torch.searchsorted(ids, starts.clamp(max=rows))
+    cost = 256 * torch.arange(tiles + 1, device=ids.device) + below
+    goals = cost[-1] * torch.arange(grid + 1, device=ids.device) // grid
+    first = torch.searchsorted(cost, goals)
+    return first, below[first]
 
 
 def _fill_gather(g: torch.Tensor, ids: torch.Tensor):

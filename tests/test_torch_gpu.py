@@ -236,6 +236,216 @@ def test_bn_moment_kernels_bf16(cuda, layout):
             assert bool(((a - b_).abs() <= 1e-5 * m).all())
 
 
+# K4 test cases: shape, memory format of x and g ('nchw' or 'cl', channels
+# last), whether both start one element past a 16-byte boundary, and the
+# path the kernel must take
+_BN_CASES = {
+    'odd': ((3, 24, 37, 51), 'nchw', 'nchw', False, 'planes'),
+    'offset': ((2, 16, 29, 31), 'nchw', 'nchw', True, 'planes'),
+    'smallest': ((4, 256, 62, 54), 'nchw', 'nchw', False, 'planes'),
+    'largest': ((4, 64, 248, 216), 'nchw', 'nchw', False, 'planes'),
+    'cl_smallest': ((4, 256, 62, 54), 'cl', 'cl', False, 'rows-vector'),
+    'cl_largest': ((4, 64, 248, 216), 'cl', 'cl', False, 'rows-vector'),
+    'cl_ragged_group': ((3, 96, 37, 51), 'cl', 'cl', False, 'rows-vector'),
+    'cl_offset': ((2, 64, 29, 31), 'cl', 'cl', True, 'rows-scalar'),
+    'g_channels_last': ((2, 32, 37, 50), 'nchw', 'cl', False, 'planes'),
+    'x_channels_last': ((2, 32, 37, 50), 'cl', 'nchw', False, 'rows-scalar'),
+}
+
+
+def _bn_case(cuda, case, dtype):
+    """x and g of one K4 test case on the card (the step's smallest
+    BatchNorm is 13,392 x 256, its largest 214,272 x 64; its convolutions
+    write channels last), and the path K4 must take."""
+    shape, fx, fg, offset, path = _BN_CASES[case]
+    b, c, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    n = b * c * h * w
+    out = []
+    for fmt, scale, shift in ((fx, 2.0, 0.5), (fg, 1.0, 0.0)):
+        flat = (torch.randn(n + 1, device=cuda, generator=gen) * scale
+                + shift).to(dtype)[int(offset):][:n]
+        out.append(flat.view(b, h, w, c).permute(0, 3, 1, 2) if fmt == 'cl'
+                   else flat.view(shape))
+    return out[0], out[1], path
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', list(_BN_CASES))
+def test_bn_moment_kernels_paths(cuda, case, dtype):
+    """K4 on each path: the path the layout takes, both moments
+    against the plain version within 1e-5 of the per-channel sum of
+    magnitudes, and bitwise equal over repeated launches, in both
+    directions and types."""
+    x, g, path = _bn_case(cuda, case, dtype)
+    c = x.shape[1]
+    assert bn.kernel_plan(x, g).path == path
+    mean = torch.linspace(-0.5, 0.5, c, device=cuda)
+    inv = torch.linspace(0.5, 1.5, c, device=cuda)
+    xr, gr = bn._channels_last_2d(x).float(), bn._channels_last_2d(g).float()
+    for kern, plain, args, mag in (
+            (bn.moments, bn.moments_plain, (x,),
+             (xr.abs().sum(0), (xr ** 2).sum(0))),
+            (bn.grad_moments, bn.grad_moments_plain, (g, x, mean, inv),
+             (gr.abs().sum(0), (gr * (xr - mean) * inv).abs().sum(0)))):
+        got = kern(*args)
+        for a, b_, m in zip(got, plain(*args), mag):
+            assert a.dtype == torch.float32
+            assert bool(((a - b_).abs() <= 1e-5 * m).all())
+        for _ in range(3):
+            assert all(torch.equal(a, b_) for a, b_ in zip(got, kern(*args)))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_bn_moment_kernels_one_launch(cuda, dtype):
+    """Each K4 call runs one kernel on the card (the second level is folded
+    into it) and counts one launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, g, _ = _bn_case(cuda, 'odd', dtype)
+    mean = torch.zeros(x.shape[1], device=cuda)
+    inv = torch.ones(x.shape[1], device=cuda)
+    for name, fn in (('bn_moments', lambda: bn.moments(x)),
+                     ('bn_grad_moments',
+                      lambda: bn.grad_moments(g, x, mean, inv))):
+        fn()
+        torch.cuda.synchronize()
+        before = _cuda.LAUNCHES[name]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == 1, kernels
+        assert _cuda.LAUNCHES[name] == before + 1
+
+
+def _falloff_keys(rows, v, rng):
+    """``v`` distinct key rows of a KITTI b4 canvas of ``rows`` rows, 432
+    to a line (K2: 496 lines of cells; K7: 248 lines of paired cells),
+    drawn with weight 1 / r^2, r the distance from the sensor (the middle
+    of each sample's first column): a LiDAR sweep's density falling with
+    range."""
+    per = rows // 4
+    iy, ix = np.divmod(np.arange(per), 432)
+    r2 = np.maximum((ix + 0.5) ** 2 + (iy + 0.5 - per / 864) ** 2, 1.0)
+    w = np.tile(1 / r2, 4)
+    return np.sort(rng.choice(rows, v, replace=False, p=w / w.sum()))
+
+
+def _splat_ids(kind, rows, tile, v, rng):
+    """Sorted unique key rows for a splat test: 'runs' of full tiles and of
+    empty tiles around random cells; 'packed' every key row from the
+    first; 'falloff' density falling as 1 / r^2; else random."""
+    if kind == 'runs':
+        full = [np.arange(a * tile, min(rows, (a + n) * tile))
+                for a, n in ((0, 3), (40, 5), (rows // tile - 2, 3))]
+        sparse = rng.choice(np.arange(45 * tile, (rows // tile - 2) * tile),
+                            v, replace=False)        # tiles 3-39 empty
+        keys = np.concatenate(full + [sparse, [rows - 1]])
+    elif kind == 'packed':
+        keys = np.arange(v)
+    elif kind == 'falloff':
+        keys = _falloff_keys(rows, v, rng)
+    else:
+        keys = rng.choice(rows, v, replace=False)
+    return np.unique(keys).astype(np.int32)
+
+
+def _around_runs(keys, ids_of, rows, halves, grid):
+    """``keys`` with the key rows on both sides of every block's first tile
+    added, the blocks' runs (``voxelize.splat_runs`` over ``ids_of(keys)``)
+    taken again after each addition until no key is new."""
+    tile = 256 // halves
+    for _ in range(8):
+        first, _ = voxelize.splat_runs(torch.from_numpy(ids_of(keys)), rows,
+                                       halves, grid)
+        starts = first[1:-1].numpy() * tile
+        starts = starts[(starts > 0) & (starts < rows)]
+        more = np.unique(np.concatenate([keys, starts - 1, starts]))
+        if more.size == keys.size:
+            return keys
+        keys = more.astype(np.int32)
+    raise AssertionError('block runs did not settle')
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('kind', ['main', 'runs', 'boundaries', 'packed',
+                                  'falloff'])
+def test_bev_splat_kernel_persistent(cuda, kind, dtype):
+    """K2 with more tiles than the persistent grid (the KITTI b4 canvas,
+    857,088 x 64), runs of full and of empty tiles, rows on both sides of
+    every block's run of tiles, all rows in the first tiles, and density
+    falling with range: equal to the plain version, one launch, 16-byte
+    stores with the row width as a shift."""
+    rng = np.random.RandomState(12)
+    ncell, c = 857088, 64
+    feats = torch.from_numpy(rng.randn(70000, c).astype(np.float32)).to(
+        dtype).to(cuda)
+    plan = voxelize.splat_plan(
+        feats, torch.empty((ncell, c), dtype=dtype, device=cuda))
+    assert plan['tiles'] > plan['grid'] and plan['vector_bytes'] == 16
+    assert plan['shift'] == (4 if dtype == torch.float32 else 3)
+    keys = _splat_ids(kind, ncell, 256, 64000 if kind == 'main' else 20000,
+                      rng)
+    if kind == 'boundaries':
+        keys = _around_runs(keys, lambda k: k, ncell, 1, plan['grid'])
+    lin = np.full(feats.shape[0], ncell + 5, np.int32)
+    lin[:keys.size] = keys
+    lin = torch.from_numpy(lin).to(cuda)
+    before = _cuda.LAUNCHES['bev_splat']
+    got = voxelize.bev_splat(feats, lin, ncell)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['bev_splat'] == before + 1
+    assert torch.equal(got, voxelize.bev_splat_plain(feats, lin, ncell))
+
+
+def _pairs(keys):
+    """K7 ids of ``keys``: both parities of every key whose hash is even,
+    one (by the hash) otherwise, -> (lin2, par)."""
+    h = (keys.astype(np.int64) * 2654435761) % 2 ** 32
+    both = h % 4 < 2
+    lin2 = np.repeat(keys, np.where(both, 2, 1))
+    par = np.concatenate([[0, 1] if b else [(h_ >> 7) % 2]
+                          for b, h_ in zip(both, h)]).astype(np.int32)
+    return lin2, par
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('kind', ['runs', 'boundaries', 'falloff'])
+def test_bev_splat_pairs_kernel_persistent(cuda, kind, dtype):
+    """K7 on the KITTI b4 s2d canvas (428,544 x 128): runs of full and of
+    empty tiles, both parities of paired rows on both sides of every
+    block's run of tiles, and density falling with range; equal to the
+    plain version."""
+    rng = np.random.RandomState(13)
+    ncell2, c = 428544, 64
+    feats = torch.from_numpy(rng.randn(80000, c).astype(np.float32)).to(
+        dtype).to(cuda)
+    plan = voxelize.splat_plan(
+        feats, torch.empty((ncell2, 2 * c), dtype=dtype, device=cuda), 2)
+    assert plan['tiles'] > plan['grid'] and plan['vector_bytes'] == 16
+    keys = _splat_ids(kind, ncell2, 128, 15000, rng)
+    if kind == 'boundaries':
+        keys = _around_runs(keys, lambda k: _pairs(k)[0], ncell2, 2,
+                            plan['grid'])
+    lin2, par = _pairs(keys)
+    tail = feats.shape[0] - lin2.size
+    lin2 = np.concatenate([lin2, ncell2 + np.arange(tail) // 2])
+    par = np.concatenate([par, np.arange(tail) % 2])
+    lin2 = torch.from_numpy(lin2.astype(np.int32)).to(cuda)
+    par = torch.from_numpy(par.astype(np.int32)).to(cuda)
+    got = voxelize.bev_splat_pairs(feats, lin2, par, ncell2)
+    want = voxelize.bev_splat_pairs_plain(feats, lin2, par, ncell2)
+    assert torch.equal(got, want)
+    assert int(torch.count_nonzero(want.abs().sum(1))) == keys.size
+
+
 @pytest.mark.parametrize('loss_type,fun,tau', [
     ('gwd3d', 'log1p', 1.0), ('kld3d', 'log1p', 1.0), ('kld3d', 'none', 0.0),
     ('jd3d', 'log1p', 1.0), ('kld3d_symmax', 'log1p', 1.0),

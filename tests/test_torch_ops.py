@@ -502,6 +502,148 @@ def test_k4_layout_strides():
         tbn._layout(base.double().view(b * h * w, c))
 
 
+@pytest.mark.parametrize('rows,plane,per', [
+    (214272, 53568, 3348),          # the largest BN on channel planes
+    (214272, 214272, 837),          # ... channels innermost
+    (13392, 3348, 2048),            # the smallest BN, bf16 planes
+    (5550, 1850, 1024),             # odd plane length
+    (3 * 7, 7, 1024),               # short planes: grouped, ragged group
+    (1000, 1000, 64),               # rows path, one plane
+    (17, 17, 1),                    # one row a chunk
+    (0, 0, 1024)])                  # no rows
+def test_k4_chunking_covers_rows(rows, plane, per):
+    """K4's chunking: each row of a channel in exactly one chunk, no chunk
+    over ``per`` rows but by a whole plane, the partial count bounded by
+    2 * rows / per + 1, and the same chunking for the same numbers."""
+    ch = tbn.chunking(rows, plane, per)
+    assert ch == tbn.chunking(rows, plane, per)
+    assert ch.count <= 2 * rows / per + 1
+    seen = np.zeros(rows, np.int64)
+    for k in range(ch.count):
+        ranges = tbn.chunk_rows(ch, k, plane, rows)
+        assert sum(stop - start for start, stop in ranges) <= max(per, plane)
+        for start, stop in ranges:
+            seen[start:stop] += 1
+    assert (seen == 1).all()
+
+
+def test_k4_chunking_is_a_function_of_the_shape():
+    """The kernel's plan for a tensor depends on its shape, type and
+    layout, not on its values; the main path's channels-last activations
+    take the vectorized rows path in f32 and bf16, NCHW ones the planes
+    path (an unaligned start too), each with a bounded number of partial
+    sums."""
+    shape = (4, 256, 62, 54)
+    a = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    b = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+    assert tbn.kernel_plan(a) == tbn.kernel_plan(b)
+    assert tbn.kernel_plan(a, b).chunks == tbn.kernel_plan(a).chunks
+    for dtype in (torch.float32, torch.bfloat16):
+        p = tbn.kernel_plan(a.to(dtype))
+        assert p.path == 'planes'
+        assert p.c * p.chunks.count <= 2 * tbn.PLANE_CHUNKS
+        cl = a.to(dtype).contiguous(memory_format=torch.channels_last)
+        p = tbn.kernel_plan(cl)
+        assert p.path == 'rows-vector'
+        assert -(-p.c // tbn.ROW_GROUP) * p.chunks.count <= tbn.ROW_BLOCKS
+    flat = torch.zeros(1 + a.numel())
+    assert tbn.kernel_plan(flat[1:].view(shape)).path == 'planes'
+
+
+@pytest.mark.parametrize('case,path', [
+    ('nchw', 'planes'),
+    ('channels_last', 'rows-vector'),
+    ('rows', 'rows-vector'),
+    ('slice', 'rows-scalar'),
+    ('g_channels_last', 'planes'),
+    ('x_channels_last', 'rows-scalar'),
+    ('g_offset', 'planes'),
+    ('strided_w', 'planes')])
+def test_k4_kernel_plan_paths(case, path):
+    """The path K4 takes for each layout, and the strides it is given still
+    address every element of x and g in row order."""
+    b, c, h, w = 2, 8, 3, 5
+    nhwc = torch.arange(b * h * w * c, dtype=torch.float32).view(b, h, w, c)
+    nchw = nhwc.permute(0, 3, 1, 2).contiguous()
+    cl = nhwc.permute(0, 3, 1, 2)
+    wide = torch.zeros(b, c, h, 2 * w)
+    wide[..., ::2] = nchw
+    g = None
+    x = {'nchw': nchw, 'channels_last': cl, 'rows': nhwc.reshape(-1, c),
+         'slice': torch.cat([nhwc.reshape(-1, c)] * 2, 1)[:, 3:3 + c],
+         'g_channels_last': nchw, 'x_channels_last': cl, 'g_offset': nchw,
+         'strided_w': wide[..., ::2]}[case]
+    if case == 'g_channels_last':
+        g = cl
+    elif case == 'x_channels_last':
+        g = nchw
+    elif case == 'g_offset':
+        g = torch.zeros(1 + nchw.numel())[1:].view(nchw.shape)
+        g.copy_(nchw)
+    p = tbn.kernel_plan(x, g)
+    assert p.path == path
+    rows = tbn._channels_last_2d(x)
+    r = torch.arange(p.rows)[:, None]
+    for t, (sb, ss, sc) in ((x, p.x), (x if g is None else g, p.g)):
+        off = (r // p.plane) * sb + (r % p.plane) * ss + torch.arange(p.c) * sc
+        size = t.untyped_storage().nbytes() // 4 - t.storage_offset()
+        flat = torch.as_strided(t, (size,), (1,), t.storage_offset())
+        assert torch.equal(flat[off], rows)
+
+
+def _splat_runs_brute(ids, rows, halves, grid):
+    """The splat's block runs by their definition: block b starts at the
+    least tile t with 256 t + R(t) >= b * total // grid."""
+    tile = 256 // halves
+    tiles = -(-rows // tile)
+    ids = np.asarray(ids)
+
+    def below(t):
+        return int((ids < min(t * tile, rows)).sum())
+    cost = [256 * t + below(t) for t in range(tiles + 1)]
+    first = [next(t for t in range(tiles + 1)
+                  if cost[t] >= cost[-1] * b // grid)
+             for b in range(grid + 1)]
+    return first, [below(t) for t in first], cost
+
+
+@pytest.mark.parametrize('kind,rows,halves,grid', [
+    ('uniform', 5000, 1, 7),
+    ('packed', 5000, 1, 7),          # every row in the first tiles
+    ('falloff', 5000, 1, 7),         # density falling along the canvas
+    ('none', 5000, 1, 7),            # no live row
+    ('pairs', 2500, 2, 5),           # K7: up to two rows a key row
+    ('one_tile', 100, 1, 1)])
+def test_splat_runs_cut_by_cost(kind, rows, halves, grid):
+    """The runs the splat kernel's blocks take (``splat_runs``, the
+    kernel's formula): equal to their definition, covering every tile and
+    every live row once in order, and no block's cost (half-rows written
+    plus rows read) over its share by more than one tile's."""
+    rng = np.random.RandomState(21)
+    n = rows // 5
+    keys = {'uniform': lambda: rng.choice(rows, n, replace=False),
+            'packed': lambda: np.arange(n),
+            'falloff': lambda: rng.choice(
+                rows, n, replace=False,
+                p=(w := 1 / (1 + np.arange(rows)) ** 2) / w.sum()),
+            'none': lambda: np.zeros(0, np.int64),
+            'pairs': lambda: np.repeat(rng.choice(rows, n, replace=False),
+                                       rng.randint(1, 3, n)),
+            'one_tile': lambda: np.arange(0, rows, 3)}[kind]()
+    ids = np.concatenate([np.sort(keys), [rows, rows, rows + 3]])
+    first, below = tvx.splat_runs(torch.from_numpy(ids.astype(np.int32)),
+                                  rows, halves, grid)
+    want_first, want_below, cost = _splat_runs_brute(ids, rows, halves, grid)
+    assert first.tolist() == want_first
+    assert below.tolist() == want_below
+    tiles = -(-rows // (256 // halves))
+    assert first[0] == 0 and first[-1] == tiles
+    assert bool((first.diff() >= 0).all())
+    assert below[-1] == int((ids < rows).sum())
+    block = np.diff(np.asarray(cost)[first.numpy()])
+    assert block.max() <= cost[-1] / grid + 512
+
+
 @pytest.mark.parametrize('layout', ['channels_last', 'nchw'])
 def test_batchnorm2d_train_matches_fast_batchnorm(pallas_bn, layout):
     """The port's BatchNorm2d in training vs FastBatchNorm (Pallas moments,
