@@ -22,7 +22,14 @@ Phases, each printing its own lines (any failure exits non-zero):
       convolutions write channels last, so the rows path), bitwise equal
       results over repeated launches, and the largest
       and the smallest call's time against its bound; K2 and K7: the grid,
-      tiles a block and store width they run with;
+      tiles a block and store width they run with; K5: the share s of near
+      pairs (its cull predicate ``near_pairs_plain``) and the boxes'
+      spread, the plain IoU and the kernel exactly 0 on every far pair, its
+      bound (near pairs in full plus the cull of every pair) beside the
+      all-pairs bound (no cull) and the time of ``zero_`` on its
+      output, and three recorded cases (``clustered``, ``all near`` and
+      ``none near`` boxes, :func:`k5_boxes`) held to the plain version and
+      timed;
   (c) TINY predict and one TINY train step on the card against the same
       port on the CPU, in f32 and in bf16 (card bf16 held to CPU bf16 at
       under half of CPU bf16's distance from CPU f32; the same rule run on
@@ -97,6 +104,13 @@ IOU_OPS_PER_PAIR = (4          # cos, sin of both boxes
                     + 72       # collapse invalid slots
                     + 100      # shoelace
                     + 8)       # area clamp and division
+# f32 operations per pair of the cull test that K5 runs on every pair: two
+# subtractions, two products and a sum for d^2, a sum and a product for
+# (R_a + R_b)^2, two compares and their and
+CULL_OPS_PER_PAIR = 10
+# K5's recorded cases (phase (b)): boxes of P problems of K, like the
+# predict's NMS candidates
+K5_P, K5_K = 12, 1024
 
 # Phase (c): head maps may differ between card and CPU by MAP_TOL. Decode
 # scales a map error by its derivative: the anchor's BEV diagonal for x and
@@ -401,11 +415,13 @@ def kernel_checks(inputs, card, note=''):
     print(f'(b) rotated_iou inputs{note}: {p} problems x {k} boxes, share '
           f'of pairs with IoU > {thr}: {overlap:.4f}')
     check(overlap > 0, 'rotated IoU inputs do not overlap')
+    n_near = k5_cull(boxes, out, ref, card, f'predict inputs{note}')
     record('rotated_iou', lambda: rotated_iou.iou_bev_pairwise(boxes),
            lambda: rotated_iou.iou_bev_pairwise_plain(boxes), None,
-           float((out - ref).abs().max()), 1e-5,
-           boxes.numel() * 4 + p * k * k * 4, p * k * k * IOU_OPS_PER_PAIR,
+           float((out - ref).abs().max()), 1e-5, *k5_work(boxes, n_near),
            20, 2)
+    results['rotated_iou']['near_share'] = n_near / (p * k * k)
+    k5_bounds(results['rotated_iou'], out, boxes, card, note)
     del ref
 
     # K6 NMS sweep, on the main path's IoU and valid mask
@@ -424,6 +440,130 @@ def kernel_checks(inputs, card, note=''):
            iou.numel() * 4 + 2 * p * k, iou.numel() + sweep, 50, 2,
            exact=exact)
     return results
+
+
+def k5_cull(boxes, out, ref, card, what):
+    """Phase (b), K5: the share s of near pairs (``near_pairs_plain``, the
+    kernel's cull predicate) and the spread of the boxes; fails unless the
+    sizes are positive and both the plain IoU ``ref`` and the kernel's
+    ``out`` are exactly 0 on every far pair.  -> the number of near
+    pairs."""
+    from mmdet3d_gaussian_tpu_torch.ops import rotated_iou
+    near = rotated_iou.near_pairs_plain(boxes)
+    n_near, total = int(near.sum()), near.numel()
+    check(bool((boxes[..., 2:4] > 0).all()),
+          f'rotated_iou {what}: a box size is not positive')
+    far = ~near
+    check(bool((ref[far] == 0).all()),
+          f'rotated_iou {what}: the plain IoU is not 0 on a far pair')
+    check(bool((out[far] == 0).all()),
+          f'rotated_iou {what}: the kernel is not 0 on a far pair')
+    q = torch.tensor([0.0, 0.05, 0.5, 0.95, 1.0], device=boxes.device)
+
+    def quant(t):
+        return '/'.join(f'{v:.3f}' for v in t.reshape(-1).quantile(q)
+                        .tolist())
+    ctr = boxes[..., :2] - boxes[..., :2].mean(1, keepdim=True)
+    print(f'(b) rotated_iou {what}: near share s = {n_near / total:.6f} '
+          f'({n_near} of {total} pairs; IoU > 0 on '
+          f'{int((ref > 0).sum())}); w quantiles 0/5/50/95/100 % '
+          f'{quant(boxes[..., 2])} m, h {quant(boxes[..., 3])} m, centre '
+          f'distance from the problem mean {quant(ctr.norm(dim=-1))} m '
+          f'[{card}]')
+    return n_near
+
+
+def k5_work(boxes, n_near):
+    """(bytes, operations) the function needs on ``boxes`` with ``n_near``
+    near pairs: each box read and each IoU written once; the polygon of
+    the near pairs and the cull test of every pair."""
+    p, k = boxes.shape[:2]
+    return (boxes.numel() * 4 + p * k * k * 4,
+            n_near * IOU_OPS_PER_PAIR + p * k * k * CULL_OPS_PER_PAIR)
+
+
+def k5_bounds(r, out, boxes, card, note=''):
+    """Phase (b), K5: the all-pairs bound (every pair in full, the bound of
+    a design without the cull) beside the function's bound ``r['bound_ms']``
+    (:func:`k5_work`), and the time to write the output alone
+    (``zero_``)."""
+    r['bound_all_pairs_ms'] = bound(k5_work(boxes, 0)[0],
+                                    out.numel() * IOU_OPS_PER_PAIR)[0]
+    r['zero_fill_ms'] = device_ms(out.zero_, 20)
+    print(f'(b) rotated_iou bounds{note}: near pairs in full + cull '
+          f'{r["bound_ms"]:.4f} ms ({r["bound_by"]}), all pairs in full '
+          f'{r["bound_all_pairs_ms"]:.4f} ms; zero fill of '
+          f'the {out.numel() * 4} output bytes {r["zero_fill_ms"]:.4f} ms '
+          f'[{card}]')
+
+
+def k5_boxes(case, seed=0, p=K5_P, k=K5_K):
+    """(p, k, 5) f32 boxes of one of K5's recorded cases, from a seed:
+    ``clustered``, k boxes around 64 object centres over the KITTI range
+    (sigma 0.6 m; each object's class size and yaw, jittered), the
+    candidates of a trained model; ``all near``, centres in a 0.5 m square
+    and sides of at least 0.6 m, so every pair is near; ``none near``,
+    centres on a 10 m grid, so only a box and itself are near (the cost of
+    the cull and the write alone)."""
+    gen = torch.Generator().manual_seed(seed)
+    if case == 'clustered':
+        sizes = torch.tensor([[3.9, 1.6], [0.8, 0.6], [1.76, 0.6]])
+        n_obj = 64
+        ctr = torch.rand(p, n_obj, 2, generator=gen) * torch.tensor(
+            [69.12, 79.36]) - torch.tensor([0.0, 39.68])
+        cls = torch.randint(0, 3, (p, n_obj), generator=gen)
+        yaw = (torch.rand(p, n_obj, generator=gen) * 2 - 1) * math.pi
+        obj = torch.randint(0, n_obj, (p, k), generator=gen)
+        xy = (ctr.gather(1, obj[..., None].expand(-1, -1, 2))
+              + 0.6 * torch.randn(p, k, 2, generator=gen))
+        wh = (sizes[cls.gather(1, obj)]
+              * torch.exp(0.1 * torch.randn(p, k, 2, generator=gen)))
+        yaw = yaw.gather(1, obj) + 0.1 * torch.randn(p, k, generator=gen)
+    else:
+        if case == 'all near':
+            xy = torch.tensor([35.0, 0.0]) + (
+                torch.rand(p, k, 2, generator=gen) - 0.5) * 0.5
+        else:
+            n = torch.arange(k)
+            xy = (10.0 * torch.stack([n % 32, n // 32], -1).float())
+            xy = xy.expand(p, k, 2)
+        wh = torch.rand(p, k, 2, generator=gen) * torch.tensor(
+            [3.9, 1.4]) + 0.6
+        yaw = (torch.rand(p, k, generator=gen) * 2 - 1) * math.pi
+    return torch.cat([xy, wh, yaw[..., None]], -1).float().cuda()
+
+
+def k5_cases(card):
+    """Phase (b), recorded: K5 on the ``clustered``, ``all near`` and
+    ``none near`` boxes (:func:`k5_boxes`), each held to its plain version
+    within 1e-5 and exactly 0 on every far pair, with its device time and
+    near share s.  -> {case: its numbers}."""
+    from mmdet3d_gaussian_tpu_torch.ops import rotated_iou
+    out = {}
+    for case in ('clustered', 'all near', 'none near'):
+        boxes = k5_boxes(case)
+        got = rotated_iou.iou_bev_pairwise(boxes)
+        ref = rotated_iou.iou_bev_pairwise_plain(boxes)
+        err = float((got - ref).abs().max())
+        check(err <= 1e-5, f'rotated_iou ({case}) disagrees with its plain '
+              f'version: max_abs_err {err:.3g}')
+        n_near = k5_cull(boxes, got, ref, card, case)
+        if case == 'all near':
+            check(n_near == got.numel(), 'all near: a pair is far')
+        if case == 'none near':
+            check(n_near == boxes.shape[0] * boxes.shape[1],
+                  'none near: a pair of two boxes is near')
+        del ref
+        ms = device_ms(lambda: rotated_iou.iou_bev_pairwise(boxes), 20)
+        b_ms, b_by = bound(*k5_work(boxes, n_near))
+        s = n_near / got.numel()
+        out[case] = dict(ms=ms, max_abs_err=err, near_share=s,
+                         bound_ms=b_ms, bound_by=b_by)
+        print(f'(b) rotated_iou ({case}): max_abs_err={err:.3g} (tol 1e-5) '
+              f'kernel={ms:.4f} ms near share s = {s:.6f} '
+              f'bound={b_ms:.4f} ms ({b_by}) [{card}]')
+        k5_bounds(out[case], got, boxes, card, f' ({case})')
+    return out
 
 
 def splat_densities(feats, lin, ncell, card):
@@ -1379,6 +1519,7 @@ def main() -> int:
               f'{scatter.max_voxels}, overflow {int(scatter.num_overflow)}')
         inputs = capture_inputs(det, batches[0], PREDICT_LAUNCHES)
         results = kernel_checks(inputs, card)          # (b) predict
+        results['rotated_iou']['cases'] = k5_cases(card)
         splat_falloff(inputs['bev_splat'], det.trunk, card)
         inputs16 = capture_inputs(det16, batches[0], PREDICT_S2D_LAUNCHES)
     k2_inputs = inputs['bev_splat']
@@ -1492,6 +1633,9 @@ def main() -> int:
             bound_ms=r['bound_ms'], bound_by=r['bound_by'],
             library_ms=r['library_ms'], bytes=r['bytes'],
             operations=r['operations'])
+        if name == 'rotated_iou':
+            entry.update({key: r[key] for key in (
+                'near_share', 'bound_all_pairs_ms', 'zero_fill_ms', 'cases')})
         if name == 'bev_splat_pairs':
             entry['launches_per_bf16_step'] = \
                 launches_t16[name] / TIMED_STEPS

@@ -232,14 +232,21 @@ class SECOND(nn.Module):
 class SECONDFPN(nn.Module):
     """Per level: ConvTranspose(k = stride) for stride > 1, or a 1x1 conv
     for stride 1, then BN and ReLU; levels concatenated on channels (or
-    returned as a tuple with ``concat_out=False``)."""
+    returned as a tuple with ``concat_out=False``).  The transposed conv is
+    always the JAX package's ``'d2s'`` form (matmul + depth-to-space);
+    ``deconv_impl`` (None, ``'d2s'`` or ``'convt'``) is accepted so that a
+    JAX config builds, and has no effect."""
 
     def __init__(self, in_channels: Sequence[int] = (64, 128, 256),
                  out_channels: Sequence[int] = (128, 128, 128),
                  upsample_strides: Sequence[int] = (1, 2, 4),
                  concat_out: bool = True,
+                 deconv_impl: Optional[str] = None,
                  dtype: Optional[Union[str, torch.dtype]] = None):
         super().__init__()
+        if deconv_impl not in (None, 'd2s', 'convt'):
+            raise ValueError(f'deconv_impl must be None, d2s or convt, got '
+                             f'{deconv_impl!r}')
         self.concat_out = concat_out
         dt = compute_dtype(dtype)
         deblocks = []

@@ -34,17 +34,22 @@ class PointPillarsNet(nn.Module):
     """Learned trunk; ``forward(points, points_mask)`` returns NHWC
     (cls_score, bbox_pred, dir_pred, packed).
 
+    ``voxelize_mode`` defaults to ``'hard'``, as in the JAX package, which
+    raises until hard voxelize is ported; ``'dynamic'`` is the ported mode.
     ``s2d_canvas``: ``'auto'`` (on when the first stage has stride 2 and
     the grid is even), ``'on'`` or ``'off'``.  ``fold_w2`` (the JAX
     package's W-folded stage 0 after the s2d canvas, a layout of the same
-    function) is accepted so that a JAX config builds, and has no effect."""
+    function) and ``hard_encoder`` (``'packed'`` or ``'sorted'``, two forms
+    of the hard branch's encoder) are accepted so that a JAX config builds,
+    and have no effect.  ``axis_name`` (cross-replica BatchNorm) must be
+    None: multi-device is not ported."""
 
     def __init__(self, voxel_size: Sequence[float] = (0.16, 0.16, 4.0),
                  point_cloud_range: Sequence[float] = (
                      0., -39.68, -3., 69.12, 39.68, 1.),
                  max_points_per_voxel: int = 32,
                  max_voxels_per_sample: int = 16000,
-                 voxelize_mode: str = 'dynamic',
+                 voxelize_mode: str = 'hard',
                  head_type: str = 'anchor',
                  encoder_cfg: Optional[Dict[str, Any]] = None,
                  backbone_cfg: Optional[Dict[str, Any]] = None,
@@ -52,12 +57,21 @@ class PointPillarsNet(nn.Module):
                  head_cfg: Optional[Dict[str, Any]] = None,
                  compute_dtype: Optional[str] = None,
                  s2d_canvas: str = 'auto',
-                 fold_w2: bool = True):
+                 fold_w2: bool = True,
+                 hard_encoder: str = 'packed',
+                 axis_name: Optional[str] = None):
         super().__init__()
         if voxelize_mode != 'dynamic':
             raise NotImplementedError(
                 f'voxelize_mode={voxelize_mode!r} is not ported yet; only '
                 f"'dynamic' is")
+        if hard_encoder not in ('packed', 'sorted'):
+            raise ValueError(f'hard_encoder must be packed or sorted, got '
+                             f'{hard_encoder!r}')
+        if axis_name is not None:
+            raise NotImplementedError(
+                f'axis_name={axis_name!r}: multi-device BatchNorm is not '
+                f'ported yet')
         if head_type != 'anchor':
             raise NotImplementedError(f'head_type={head_type!r} is not '
                                       f'ported yet')

@@ -6,6 +6,11 @@ the intersection polygon is built branch-free from 24 candidate vertices
 (4 + 4 corners inside the other box, 16 edge intersections), ordered around
 its centroid by the pseudo-angle ``sign(dy) * (1 - dx / (|dx| + |dy|))``,
 and its shoelace area is clamped by both box areas.
+
+The kernel skips the polygon for *far* pairs, whose IoU is exactly that of
+an empty intersection (0 for boxes of size >= 0): :func:`near_pairs_plain`
+is its cull predicate, :func:`cull_radius` the radius it gives each box
+(the proof that the cull is exact is in ``csrc/rotated_iou.cu``).
 """
 from __future__ import annotations
 
@@ -14,6 +19,17 @@ import torch
 from . import _cuda
 
 _BIG = 1e9
+
+# Cull radius R = CULL_REL * (half diagonal) + CULL_ABS + CULL_POS * (|cx| +
+# |cy|); a box whose shorter side is not 0 but under THIN_REL * (half
+# diagonal) + THIN_POS * (|cx| + |cy|) is near every box.  Powers of two,
+# so an f32 product or sum with them rounds the same whether the constant
+# is held as f32 (the kernel) or as a double (a PyTorch scalar).
+CULL_REL = 1.0 + 2.0 ** -6
+CULL_ABS = 2.0 ** -10
+CULL_POS = 2.0 ** -17
+THIN_REL = 2.0 ** -10
+THIN_POS = 2.0 ** -16
 
 
 def box_corners(boxes: torch.Tensor) -> torch.Tensor:
@@ -113,6 +129,35 @@ def _iou_plain(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
 def iou_bev_pairwise_plain(boxes: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`iou_bev_pairwise`."""
     return _iou_plain(boxes, boxes)
+
+
+def cull_radius(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 5) boxes -> (...,) f32 cull radius, the kernel's arithmetic:
+    +inf for a thin box, NaN for a box with a non-finite field."""
+    boxes = boxes.float()
+    cx, cy, w, h = boxes[..., 0], boxes[..., 1], boxes[..., 2], boxes[..., 3]
+    hd = 0.5 * torch.sqrt(w * w + h * h)
+    pos = cx.abs() + cy.abs()
+    r = hd * CULL_REL + CULL_ABS + CULL_POS * pos
+    side = torch.minimum(w.abs(), h.abs())
+    thin = (side > 0) & (side < hd * THIN_REL + THIN_POS * pos)
+    r = torch.where(thin, torch.inf, r)
+    return torch.where(boxes.isfinite().all(-1), r, torch.nan)
+
+
+def near_pairs_plain(boxes: torch.Tensor) -> torch.Tensor:
+    """(P, K, 5) boxes -> (P, K, K) bool: the pairs the kernel computes in
+    full.  Pair (i, j) is far iff d^2 > (R_i + R_j)^2 with d^2 finite (d the
+    distance between the centres, R :func:`cull_radius`); a NaN anywhere
+    makes the pair near."""
+    r = cull_radius(boxes)
+    cx, cy = boxes[..., 0].float(), boxes[..., 1].float()
+    dx = cx[:, :, None] - cx[:, None, :]
+    dy = cy[:, :, None] - cy[:, None, :]
+    d2 = dx * dx + dy * dy
+    s = r[:, :, None] + r[:, None, :]
+    far = (d2 > s * s) & (d2 <= torch.finfo(torch.float32).max)
+    return ~far
 
 
 def iou_bev_pairwise(boxes: torch.Tensor) -> torch.Tensor:

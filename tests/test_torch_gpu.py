@@ -15,6 +15,8 @@ from mmdet3d_gaussian_tpu_torch.ops import _cuda, bn, gd_loss
 from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, segment
 from mmdet3d_gaussian_tpu_torch.ops import voxelize
 
+from .torch_k5_boxes import adversarial_boxes, cluster_boxes
+
 pytestmark = pytest.mark.gpu
 
 
@@ -145,6 +147,82 @@ def test_rotated_iou_kernel(cuda):
     got = rotated_iou.iou_bev_pairwise(boxes.to(cuda)).cpu()
     assert (want > 0.01).any()
     assert float((got - want).abs().max()) <= 1e-5
+
+
+def _check_k5(boxes, cuda):
+    """K5 on ``boxes`` against its plain version: within 1e-5 everywhere
+    (NaN where it is NaN), exactly equal on every far pair (exactly 0 where
+    both sizes are >= 0); one launch, bitwise repeatable.  -> near mask."""
+    boxes = torch.as_tensor(boxes).to(cuda)
+    want = rotated_iou.iou_bev_pairwise_plain(boxes)
+    near = rotated_iou.near_pairs_plain(boxes)
+    before = _cuda.LAUNCHES['rotated_iou']
+    got = rotated_iou.iou_bev_pairwise(boxes)
+    again = rotated_iou.iou_bev_pairwise(boxes)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['rotated_iou'] == before + (2 if got.numel()
+                                                        else 0)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got.isnan(), want.isnan())
+    fin = ~want.isnan()
+    if fin.any():
+        assert float((got[fin] - want[fin]).abs().max()) <= 1e-5
+    far = ~near
+    assert torch.equal(got[far], want[far])
+    sized = (boxes[..., 2] >= 0) & (boxes[..., 3] >= 0)
+    assert not got[far & sized[:, :, None] & sized[:, None, :]].any()
+    return near.cpu()
+
+
+@pytest.mark.parametrize('region', ['origin', 'range_corners'])
+def test_rotated_iou_cull_adversarial(cuda, region):
+    """Pairs at R_a + R_b +- 1e-4 edge to edge and corner to corner,
+    zero-size, thin, equal, negative-width and NaN boxes."""
+    boxes = torch.from_numpy(adversarial_boxes(0, region))
+    near = _check_k5(boxes, cuda)[0]
+    assert near[-1].all()                      # the NaN box
+    assert not near.all()
+
+
+@pytest.mark.parametrize('k', [1, 33, 1000, 1500])
+def test_rotated_iou_tiles(cuda, k):
+    """Tiles of 64 x 128 boxes, part-filled at the edges; K not a multiple
+    of 4 takes 4-byte stores."""
+    _check_k5(torch.from_numpy(cluster_boxes(k, 2, k, spread=20.0)), cuda)
+
+
+@pytest.mark.parametrize('shape', [(0, 16), (3, 0)])
+def test_rotated_iou_empty(cuda, shape):
+    boxes = torch.zeros(shape + (5,), device=cuda)
+    before = _cuda.LAUNCHES['rotated_iou']
+    out = rotated_iou.iou_bev_pairwise(boxes)
+    assert out.shape == (shape[0], shape[1], shape[1])
+    assert _cuda.LAUNCHES['rotated_iou'] == before
+
+
+def test_rotated_iou_all_near(cuda):
+    """Centres in a 0.5 m square, sides of at least 0.6 m: every pair in
+    full."""
+    rng = np.random.RandomState(6)
+    p, k = 2, 700
+    xy = 35.0 + rng.uniform(-0.25, 0.25, (p, k, 2))
+    wh = rng.uniform([0.6, 0.6], [4.5, 2.0], (p, k, 2))
+    yaw = rng.uniform(-np.pi, np.pi, (p, k, 1))
+    boxes = np.concatenate([xy, wh, yaw], -1).astype(np.float32)
+    assert _check_k5(torch.from_numpy(boxes), cuda).all()
+
+
+def test_rotated_iou_none_near(cuda):
+    """Boxes 10 m apart on a grid: only a box and itself are near."""
+    g = np.stack(np.meshgrid(np.arange(40) * 10.0, np.arange(30) * 10.0
+                             - 150.0), -1).reshape(1, -1, 2)
+    rng = np.random.RandomState(7)
+    k = g.shape[1]
+    boxes = np.concatenate([g, rng.uniform(0.5, 4.5, (1, k, 2)),
+                            rng.uniform(-np.pi, np.pi, (1, k, 1))], -1)
+    near = _check_k5(torch.from_numpy(boxes.astype(np.float32)), cuda)
+    assert torch.equal(near[0], torch.eye(k, dtype=torch.bool))
 
 
 @pytest.mark.parametrize('k', [100, 1500])

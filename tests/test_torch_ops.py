@@ -4,6 +4,8 @@ the reduce backward), K2 (BEV splat and its gradient), K4 (BatchNorm
 moments, ``bn_train`` and the BN modules in training), K5 (rotated IoU) and
 K6 (NMS sweep), each held to its Pallas kernel in interpret mode and to the
 JAX XLA path.  Inputs are made with numpy from a seed and handed to both.
+K5's cull predicate (``near_pairs_plain``) is held to the plain version and
+to JAX: every pair it calls far has the IoU of an empty intersection.
 """
 import numpy as np
 import pytest
@@ -34,6 +36,9 @@ from mmdet3d_gaussian_tpu_torch.ops import scatter as tsc
 from mmdet3d_gaussian_tpu_torch.ops import segment as tseg
 from mmdet3d_gaussian_tpu_torch.ops import voxelize as tvx
 from mmdet3d_gaussian_tpu_torch.ops.scan import cummax_i32, cumsum_i32
+
+from .torch_k5_boxes import adversarial_boxes, far_value
+from .torch_k5_boxes import cluster_boxes as _cluster_boxes
 
 torch.set_num_threads(2)
 
@@ -224,19 +229,6 @@ def test_bev_scatter_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
-def _cluster_boxes(seed, p, k, spread=20.0):
-    """Decoded-anchor-like BEV boxes: jittered clusters, so many pairs
-    overlap and some IoUs exceed the NMS threshold."""
-    rng = np.random.RandomState(seed)
-    centers = rng.uniform(-spread, spread, (p, k // 4, 2))
-    pick = rng.randint(0, k // 4, (p, k))
-    xy = np.take_along_axis(centers, pick[..., None], 1) \
-        + rng.normal(0, 0.6, (p, k, 2))
-    wh = rng.uniform([0.5, 0.5], [4.5, 2.0], (p, k, 2))
-    yaw = rng.uniform(-np.pi, np.pi, (p, k, 1))
-    return np.concatenate([xy, wh, yaw], -1).astype(np.float32)
-
-
 @pytest.mark.parametrize('spread', [3.0, 20.0])
 def test_k5_plain_matches_xla(spread):
     """Rotated IoU plain version vs the JAX XLA iou_bev (atan2 order)."""
@@ -278,6 +270,71 @@ def test_k5_iou_bev_and_corners():
     # boxes 20 m from the origin)
     np.testing.assert_allclose(np.diag(tiou.iou_bev(_t(a), _t(a)).numpy()),
                                1.0, atol=1e-4)
+
+
+def _assert_far_pairs_empty(boxes):
+    """On every pair that ``near_pairs_plain`` calls far, the plain IoU and
+    the JAX XLA ``iou_bev`` equal the IoU of an empty intersection (what
+    the kernel writes there): exactly 0 where both sizes are >= 0.  -> the
+    near mask."""
+    near = tiou.near_pairs_plain(_t(boxes))
+    far = ~near
+    plain = tiou.iou_bev_pairwise(_t(boxes))
+    want = far_value(boxes)
+    assert torch.equal(plain[far], want[far])
+    for i in range(boxes.shape[0]):
+        xla = torch.from_numpy(np.array(jiou.iou_bev(
+            jnp.asarray(boxes[i]), jnp.asarray(boxes[i]))))
+        assert torch.equal(xla[far[i]], want[i][far[i]])
+    sized = (boxes[..., 2] >= 0) & (boxes[..., 3] >= 0)
+    both = _t(sized[:, :, None] & sized[:, None, :])
+    assert not plain[far & both].any()         # exactly 0
+    assert bool(near[(plain != 0) & both].all())   # every overlap is near
+    return near
+
+
+@pytest.mark.parametrize('region', ['origin', 'range_corners'])
+def test_k5_cull_is_exact(region):
+    """K5's cull never calls a pair with a nonzero IoU far, in the plain
+    version or in JAX, on boxes placed at R_a + R_b +- 1e-4 edge to edge
+    and corner to corner, zero-size, thin, equal, negative-width and NaN
+    boxes; both sides of the threshold occur."""
+    boxes = adversarial_boxes(0, region)
+    near = _assert_far_pairs_empty(boxes)[0]
+    k = boxes.shape[1]
+    pair = near[np.arange(0, 48, 2), np.arange(1, 48, 2)]
+    assert pair.any() and not pair.all()       # both sides of R_a + R_b
+    assert bool(near[k - 1].all() and near[:, k - 1].all())   # NaN box
+    neg = k - 2                                # negative width: far pairs
+    far_neg = ~near[neg]                       # keep the plain value
+    assert far_neg.any()
+    assert bool((far_value(boxes)[0, neg][far_neg] < 0).all())
+
+
+@pytest.mark.parametrize('spread', [3.0, 20.0])
+def test_k5_cull_is_exact_on_clusters(spread):
+    boxes = _cluster_boxes(0, 2, 96, spread)
+    near = _assert_far_pairs_empty(boxes)
+    assert 0 < float(near.float().mean()) < 1
+
+
+def test_k5_cull_radius():
+    """The cull radius: half the diagonal with its margins, +inf for a box
+    whose shorter side is not 0 but under 2^-10 of its half diagonal, NaN
+    for a non-finite field; the near mask is symmetric."""
+    b = torch.tensor([[[10.0, -20.0, 4.0, 3.0, 0.5],
+                       [10.0, -14.0, 4.0, 0.001, 0.5],
+                       [10.0, -8.0, 0.0, 3.0, 0.5],
+                       [10.0, -2.0, 4.0, 3.0, float('inf')],
+                       [30.0, 0.0, 4.0, 3.0, 0.5]]])
+    r = tiou.cull_radius(b)[0]
+    assert float(r[0]) == pytest.approx(2.5 * (1 + 2 ** -6) + 2 ** -10
+                                        + 30 * 2 ** -17, rel=1e-6)
+    assert float(r[1]) == float('inf') and float(r[2]) < float('inf')
+    assert torch.isnan(r[3])
+    near = tiou.near_pairs_plain(b)[0]
+    assert torch.equal(near, near.T) and bool(near.diagonal().all())
+    assert not near[0, 4] and near[0, 1] and near[3].all()
 
 
 def test_k6_plain_matches_pallas():

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 from mmdet3d_gaussian_tpu.engine import detector as jdet
 
 from mmdet3d_gaussian_tpu_torch.engine import detector as tdet
+from mmdet3d_gaussian_tpu_torch.models.detectors.voxelnet import \
+    PointPillarsNet
 from mmdet3d_gaussian_tpu_torch.ops import rotated_iou as tiou
 from mmdet3d_gaussian_tpu_torch.weights import jax_variables_to_torch
 
@@ -198,16 +200,73 @@ def test_bf16_detector_builds():
     assert all(p.dtype == torch.float32 for p in det.trunk.parameters())
 
 
+# JAX config fields that name a layout or a form of the same function (and
+# axis_name=None, one device): the port accepts them and changes nothing.
+# SECOND's input_wfold and chunk_h are not among them: JAX's PointPillarsNet
+# works both out itself and passes them beside backbone_cfg, so no JAX
+# config names them.
+JAX_LAYOUT_FIELDS = [dict(hard_encoder='sorted', axis_name=None,
+                          deconv_impl='convt'),
+                     dict(hard_encoder='packed', deconv_impl='d2s')]
+
+
+def _with_layout_fields(cfg, fields):
+    fields = dict(fields)
+    neck = dict(cfg['neck_cfg'], deconv_impl=fields.pop('deconv_impl'))
+    return dict(cfg, **fields, neck_cfg=neck)
+
+
 @pytest.mark.parametrize('extra', [
     dict(s2d_canvas='auto', fold_w2=True, compute_dtype='bfloat16'),
     dict(s2d_canvas='off', fold_w2=False, compute_dtype=None),
-    dict(s2d_canvas='on', fold_w2=True)], ids=['auto_bf16', 'off', 'on'])
+    dict(s2d_canvas='on', fold_w2=True),
+    dict(s2d_canvas='auto', hard_encoder='packed', axis_name=None,
+         neck_cfg=dict(jdet.KITTI_3CLASS_MODEL['neck_cfg'],
+                       deconv_impl='d2s'))],
+    ids=['auto_bf16', 'off', 'on', 'layout_fields'])
 def test_jax_config_builds(extra):
-    """A JAX package model config naming the canvas and precision fields
-    builds in the port, with the JAX package's canvas choice."""
+    """A JAX package model config naming the canvas, precision and layout
+    fields builds in the port, with the JAX package's canvas choice."""
     cfg = dict(jdet.KITTI_3CLASS_MODEL, voxelize_mode='dynamic', **extra)
     det = tdet.PointPillarsDetector(cfg, device='cpu')
     assert det.trunk.s2d == (extra['s2d_canvas'] != 'off')
+
+
+@pytest.mark.parametrize('fields', JAX_LAYOUT_FIELDS, ids=['sorted_convt',
+                                                       'packed_d2s'])
+def test_layout_fields_predict_the_same(port, fields):
+    """The TINY detector built with the JAX layout fields predicts exactly
+    what it predicts without them, from the same weights."""
+    det, batch = port
+    other = tdet.PointPillarsDetector(
+        _with_layout_fields(dict(TINY_MODEL, s2d_canvas='off'), fields),
+        TINY_HEAD, device='cpu')
+    other.trunk.load_state_dict(det.trunk.state_dict(), strict=True)
+    for got, want in zip(other.predict(batch), det.predict(batch)):
+        assert torch.equal(got, want)
+
+
+def test_voxelize_mode_defaults_to_hard():
+    """The trunk's default is the JAX package's 'hard', which is not ported:
+    it raises, and so does a config without the key, JAX's or the port's,
+    instead of building the dynamic trunk."""
+    with pytest.raises(NotImplementedError, match='hard'):
+        PointPillarsNet()
+    for model in (jdet.KITTI_3CLASS_MODEL, tdet.KITTI_3CLASS_MODEL):
+        cfg = {k: v for k, v in model.items() if k != 'voxelize_mode'}
+        with pytest.raises(NotImplementedError, match='hard'):
+            PointPillarsNet(**cfg)
+
+
+def test_unported_fields_raise():
+    cfg = dict(TINY_MODEL, s2d_canvas='off')
+    with pytest.raises(NotImplementedError, match='axis_name'):
+        PointPillarsNet(**cfg, axis_name='x')
+    with pytest.raises(ValueError, match='hard_encoder'):
+        PointPillarsNet(**cfg, hard_encoder='dense')
+    with pytest.raises(ValueError, match='deconv_impl'):
+        PointPillarsNet(**dict(cfg, neck_cfg=dict(cfg['neck_cfg'],
+                                                  deconv_impl='xla')))
 
 
 def test_default_device_is_cuda():
