@@ -29,7 +29,13 @@ Phases, each printing its own lines (any failure exits non-zero):
       all-pairs bound (no cull) and the time of ``zero_`` on its
       output, and three recorded cases (``clustered``, ``all near`` and
       ``none near`` boxes, :func:`k5_boxes`) held to the plain version and
-      timed;
+      timed; K6: the device ms of its pack and sweep kernels apart (by
+      their profiler names), the predict's kept share of the valid
+      candidates per problem, its bound (the strict upper triangle of the
+      IoU, valid and keep), and seven recorded cases (none suppressed, all
+      suppressed, the chain, random symmetric at thr 0.25 and 0.8, K =
+      1,024 and 512: :func:`k6_matrix`) held exactly to the plain version
+      and timed;
   (c) TINY predict and one TINY train step on the card against the same
       port on the CPU, in f32 and in bf16 (card bf16 held to CPU bf16 at
       under half of CPU bf16's distance from CPU f32; the same rule run on
@@ -111,6 +117,14 @@ CULL_OPS_PER_PAIR = 10
 # K5's recorded cases (phase (b)): boxes of P problems of K, like the
 # predict's NMS candidates
 K5_P, K5_K = 12, 1024
+
+# K6's recorded cases (phase (b)): (case, K, thr) for P problems of K
+# candidates, like the predict's NMS (:func:`k6_matrix`)
+K6_P = 12
+K6_CASES = (('none suppressed', 1024, 0.25), ('all suppressed', 1024, 0.25),
+            ('chain', 1024, 0.25), ('random', 1024, 0.25),
+            ('random', 1024, 0.8), ('random', 512, 0.25),
+            ('random', 512, 0.8))
 
 # Phase (c): head maps may differ between card and CPU by MAP_TOL. Decode
 # scales a map error by its derivative: the anchor's BEV diagonal for x and
@@ -246,15 +260,15 @@ def cuda_spans(prof):
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, iters, warmup=2):
-    """Mean device ms per call: the summed durations of the kernels,
-    copies and fills that ``iters`` calls of ``fn`` ran on the card
-    (torch.profiler), so host time between launches is left out."""
+def device_ms_by_name(fn, iters, warmup=2):
+    """{name: mean device ms per call} of the kernels, copies and fills
+    that ``iters`` calls of ``fn`` ran on the card (torch.profiler), so
+    host time between launches is left out."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # the tracer now and then returns no activity
+    for _ in range(5):      # the tracer now and then returns no activity
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -262,8 +276,17 @@ def device_ms(fn, iters, warmup=2):
             torch.cuda.synchronize()
         spans = cuda_spans(prof)
         if spans:
-            return sum(end - start for start, end, _ in spans) / 1e3 / iters
+            out = {}
+            for start, end, name in spans:
+                out[name] = out.get(name, 0.0) + (end - start) / 1e3 / iters
+            return out
     raise SmokeFailure('the profiler recorded no device time')
+
+
+def device_ms(fn, iters, warmup=2):
+    """Mean device ms per call: the summed durations of everything that
+    ``iters`` calls of ``fn`` ran on the card (:func:`device_ms_by_name`)."""
+    return sum(device_ms_by_name(fn, iters, warmup).values())
 
 
 def record_calls(run, patches):
@@ -429,17 +452,105 @@ def kernel_checks(inputs, card, note=''):
     keep = nms.suppress_sweep(iou, valid, thr)
     ref = nms.suppress_sweep_plain(iou, valid, thr)
     exact = bool(torch.equal(keep, ref))
-    p, k = valid.shape
-    # compares of every IoU plus, for each kept row, its sweep of later
-    # columns
-    pos = torch.arange(k, device=keep.device)
-    sweep = int(((k - 1 - pos) * ref).sum())
+    n_valid = valid.sum(1)
+    share = (ref.sum(1) / n_valid.clamp(min=1)).tolist()
+    print(f'(b) nms_sweep inputs{note}: {valid.shape[0]} problems x '
+          f'{valid.shape[1]} candidates, thr {thr}; valid per problem '
+          f'{n_valid.tolist()}, kept share of the valid '
+          f'{[round(x, 4) for x in share]}')
     record('nms_sweep', lambda: nms.suppress_sweep(iou, valid, thr),
            lambda: nms.suppress_sweep_plain(iou, valid, thr), None,
            float((keep.int() - ref.int()).abs().max()), 0.0,
-           iou.numel() * 4 + 2 * p * k, iou.numel() + sweep, 50, 2,
-           exact=exact)
+           *k6_work(valid, ref), 50, 2, exact=exact)
+    results['nms_sweep']['kept_share'] = share
+    results['nms_sweep']['split'] = k6_split(
+        lambda: nms.suppress_sweep(iou, valid, thr), card,
+        f'predict inputs{note}')
     return results
+
+
+def k6_work(valid, keep):
+    """(bytes, operations) the sweep needs: the strict upper triangle of
+    the IoU read once, valid read and keep written once; a compare of every
+    upper IoU and, for each kept row, one update of each later column."""
+    p, k = valid.shape
+    upper = p * k * (k - 1) // 2
+    pos = torch.arange(k, device=keep.device)
+    return upper * 4 + 2 * p * k, upper + int(((k - 1 - pos) * keep).sum())
+
+
+def k6_split(fn, card, what):
+    """Phase (b), K6: the device ms of its two kernels, the pack and the
+    sweep, by their profiler names.  -> {'pack': ms, 'sweep': ms}."""
+    by_name = device_ms_by_name(fn, 50)
+    split = {part: sum(ms for name, ms in by_name.items()
+                       if f'nms_{part}_kernel' in name)
+             for part in ('pack', 'sweep')}
+    check(split['pack'] > 0 and split['sweep'] > 0,
+          f'nms_sweep ({what}): the profiler saw no pack or no sweep kernel '
+          f'({sorted(by_name)})')
+    print(f'(b) nms_sweep ({what}): pack {split["pack"]:.4f} ms, sweep '
+          f'{split["sweep"]:.4f} ms [{card}]')
+    return split
+
+
+def k6_matrix(case, k, thr, seed=0, p=K6_P):
+    """(iou (p, k, k) f32, valid (p, k) bool) on the card, of one of K6's
+    recorded cases: ``none suppressed`` (every IoU below thr),
+    ``all suppressed`` (every IoU above: row 0 keeps alone), ``chain``
+    (iou[i, i+1] above alone: every other row kept) or ``random`` (a
+    uniform symmetric matrix; the mean of two U(0, 1))."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    u = torch.rand(p, k, k, device='cuda', generator=gen)
+    valid = torch.ones(p, k, dtype=torch.bool, device='cuda')
+    if case == 'none suppressed':
+        iou = u * thr
+    elif case == 'all suppressed':
+        iou = 1.0 + u
+    elif case == 'chain':
+        iou = torch.zeros_like(u)
+        i = torch.arange(k - 1, device='cuda')
+        iou[:, i, i + 1] = 1.0
+    else:
+        iou = (u + u.transpose(1, 2)) / 2
+    return iou.contiguous(), valid
+
+
+def k6_expected(case, valid):
+    """The keep mask a K6 case must give, where it is known (else None)."""
+    pos = torch.arange(valid.shape[1], device=valid.device)
+    return {'none suppressed': valid,
+            'all suppressed': (pos == 0).expand_as(valid),
+            'chain': (pos % 2 == 0).expand_as(valid)}.get(case)
+
+
+def k6_cases(card):
+    """Phase (b), recorded: K6 on :data:`K6_CASES`, each held exactly to
+    its plain version (and to its known answer), timed, with its pack and
+    sweep split and bound.  -> {case: its numbers}."""
+    from mmdet3d_gaussian_tpu_torch.ops import nms
+    out = {}
+    for case, k, thr in K6_CASES:
+        name = f'{case}, K={k}, thr={thr}'
+        iou, valid = k6_matrix(case, k, thr)
+        got = nms.suppress_sweep(iou, valid, thr)
+        ref = nms.suppress_sweep_plain(iou, valid, thr)
+        check(torch.equal(got, ref),
+              f'nms_sweep ({name}) disagrees with its plain version')
+        want = k6_expected(case, valid)
+        check(want is None or torch.equal(ref, want),
+              f'nms_sweep ({name}): the plain version is wrong')
+        ms = device_ms(lambda: nms.suppress_sweep(iou, valid, thr), 50)
+        b_ms, b_by = bound(*k6_work(valid, ref))
+        kept = float(ref.float().mean())
+        print(f'(b) nms_sweep ({name}): exact_equal=True kernel={ms:.4f} ms '
+              f'kept share {kept:.4f} bound={b_ms:.4f} ms ({b_by}) [{card}]')
+        out[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                         kept_share=kept, exact=True, split=k6_split(
+                             lambda: nms.suppress_sweep(iou, valid, thr),
+                             card, name))
+        del iou
+    return out
 
 
 def k5_cull(boxes, out, ref, card, what):
@@ -1423,8 +1534,10 @@ def nms_counts(det, batch):
                        v_sorted.reshape(b * c, k)).reshape(b, c, k)
     valid = v_sorted.sum(-1).cpu()
     kept = keep.sum(-1).cpu()
+    share = (kept / valid.clamp(min=1)).round(decimals=4)
     print(f'(d) NMS valid candidates per sample x class {valid.tolist()}, '
-          f'kept {kept.tolist()}, suppressed {int((valid - kept).sum())}')
+          f'kept {kept.tolist()} (share of the valid {share.tolist()}), '
+          f'suppressed {int((valid - kept).sum())}')
     check(bool((valid > 0).any(dim=1).all()),
           'a sample has no valid NMS candidate')
     check(int((valid - kept).sum()) > 0, 'the sweep suppressed nothing')
@@ -1520,6 +1633,7 @@ def main() -> int:
         inputs = capture_inputs(det, batches[0], PREDICT_LAUNCHES)
         results = kernel_checks(inputs, card)          # (b) predict
         results['rotated_iou']['cases'] = k5_cases(card)
+        results['nms_sweep']['cases'] = k6_cases(card)
         splat_falloff(inputs['bev_splat'], det.trunk, card)
         inputs16 = capture_inputs(det16, batches[0], PREDICT_S2D_LAUNCHES)
     k2_inputs = inputs['bev_splat']
@@ -1636,6 +1750,9 @@ def main() -> int:
         if name == 'rotated_iou':
             entry.update({key: r[key] for key in (
                 'near_share', 'bound_all_pairs_ms', 'zero_fill_ms', 'cases')})
+        if name == 'nms_sweep':
+            entry.update({key: r[key] for key in (
+                'kept_share', 'split', 'cases')})
         if name == 'bev_splat_pairs':
             entry['launches_per_bf16_step'] = \
                 launches_t16[name] / TIMED_STEPS

@@ -56,7 +56,7 @@ KERNELS = {
     'bev_splat_pairs': ('bev_splat_pairs_launch',
                         [_P, _P, _P, _P, _I, _I, _LL, _I]),
     'rotated_iou': ('rotated_iou_launch', [_P, _P, _I, _I]),
-    'nms_sweep': ('nms_sweep_launch', [_P, _P, _P, _I, _I, _F]),
+    'nms_sweep': ('nms_sweep_launch', [_P, _P, _P, _P, _I, _I, _F]),
     'bn_moments': ('bn_moments_launch',
                    [_P, _LL, _I] + [_LL] * 4 + [_I] + [_LL] * 4
                    + [_P, _P, _P, _I]),

@@ -4,7 +4,8 @@
 Port of ``mmdet3d_gaussian_tpu/ops/nms.py`` (``nms_bev``,
 ``_suppress_sweep``) and of the TPU kernel ``ops/pallas/nms_kernel.py``.
 Candidates arrive sorted by descending score; a batch of P independent
-problems runs as one launch of each kernel.
+problems runs as one launch of K5 and one of K6 (whose launcher enqueues
+its pack and its sweep kernel).
 """
 from __future__ import annotations
 
@@ -15,8 +16,11 @@ import torch
 from . import _cuda
 from .rotated_iou import iou_bev_pairwise
 
-_MAX_K = 24 * 1024   # the sweep keeps a K-byte mask + one staged K-row in
-                     # 48 KB of shared memory
+# The sweep stages whole 64-row blocks of the packed triangle in shared
+# memory: the first holds 64 rows of ceil(K / 64) words, 192 KB at this K,
+# beside the alive words, within a block's 227 KB; one warp's lanes hold
+# the alive words, 12 a lane at this K.
+_MAX_K = 24 * 1024
 
 
 def suppress_sweep_plain(iou: torch.Tensor, valid: torch.Tensor,
@@ -52,9 +56,19 @@ def suppress_sweep(iou: torch.Tensor, valid: torch.Tensor,
         return suppress_sweep_plain(iou, valid, thr)
     keep = torch.empty((p, k), dtype=torch.bool, device=dev)
     if keep.numel():
+        words = torch.empty(p * packed_words(k), dtype=torch.int64,
+                            device=dev)
         _cuda.launch('nms_sweep', dev, iou.data_ptr(), valid.data_ptr(),
-                     keep.data_ptr(), p, k, float(thr))
+                     keep.data_ptr(), words.data_ptr(), p, k, float(thr))
     return keep
+
+
+def packed_words(k: int) -> int:
+    """64-bit words of one problem's packed suppression triangle in the
+    kernel's workspace: row block b (rows 64 b .. 64 b + 63) keeps words
+    b .. W-1 of each row, W = ceil(k / 64)."""
+    w = -(-k // 64)
+    return 32 * w * (w + 1)
 
 
 def nms_bev(boxes: torch.Tensor, thr: float,

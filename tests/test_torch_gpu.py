@@ -16,6 +16,9 @@ from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, segment
 from mmdet3d_gaussian_tpu_torch.ops import voxelize
 
 from .torch_k5_boxes import adversarial_boxes, cluster_boxes
+from .torch_k6_iou import CASES as K6_CASES
+from .torch_k6_iou import THRESHOLDS as K6_THRESHOLDS
+from .torch_k6_iou import adversarial as k6_adversarial
 
 pytestmark = pytest.mark.gpu
 
@@ -225,17 +228,62 @@ def test_rotated_iou_none_near(cuda):
     assert torch.equal(near[0], torch.eye(k, dtype=torch.bool))
 
 
-@pytest.mark.parametrize('k', [100, 1500])
+@pytest.mark.parametrize('k', [100, 1500, 4100])
 def test_nms_sweep_kernel(cuda, k):
-    """K = 1500 exceeds one block's threads: columns loop."""
+    """K = 1500: 24 words a row; K = 4100: 65 words, several a lane, a
+    partial last word.  One launch a call."""
     rng = np.random.RandomState(3)
     m = rng.rand(2, k, k).astype(np.float32) * 0.35
     valid = rng.rand(2, k) > 0.1
     iou, valid = torch.from_numpy(m), torch.from_numpy(valid)
     want = nms.suppress_sweep_plain(iou, valid, 0.3)
+    before = _cuda.LAUNCHES['nms_sweep']
     got = nms.suppress_sweep(iou.to(cuda), valid.to(cuda), 0.3)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['nms_sweep'] == before + 1
     assert torch.equal(got.cpu(), want)
     assert int(want.sum()) < int(valid.sum())
+
+
+@pytest.mark.parametrize('k', [1, 31, 65, 1500])
+@pytest.mark.parametrize('case', K6_CASES)
+def test_nms_sweep_kernel_adversarial(cuda, case, k):
+    """The adversarial matrices (``tests/torch_k6_iou.py``: ties at f32(thr)
+    and one ulp either side, NaN/inf/-0.0, all or none above, the chain,
+    invalid suppressors) at the configs' three thresholds; K = 1, 31 and 65
+    take the scalar loads (K % 4 != 0), 1500 the 16-byte ones."""
+    for thr in K6_THRESHOLDS:
+        iou, valid = k6_adversarial(case, k, thr, seed=k)
+        iou, valid = torch.from_numpy(iou), torch.from_numpy(valid)
+        want = nms.suppress_sweep_plain(iou, valid, thr)
+        got = nms.suppress_sweep(iou.to(cuda), valid.to(cuda), thr)
+        assert torch.equal(got.cpu(), want), (case, thr)
+
+
+def test_nms_sweep_kernel_limit(cuda):
+    """P = 1 at K = 24,576, the wrapper's limit: the sweep stages the packed
+    triangle a few row blocks at a time (the first alone takes 192 KB)."""
+    k = 24 * 1024
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    iou = torch.rand(1, k, k, device=cuda, generator=gen) * 0.3003
+    valid = torch.rand(1, k, device=cuda, generator=gen) > 0.1
+    want = nms.suppress_sweep_plain(iou, valid, 0.3)
+    got = nms.suppress_sweep(iou, valid, 0.3)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < int(valid.sum())
+    with pytest.raises(ValueError, match='sweep limit'):
+        nms.suppress_sweep(torch.zeros(1, k + 1, k + 1, device=cuda),
+                           torch.ones(1, k + 1, dtype=torch.bool,
+                                      device=cuda), 0.3)
+
+
+@pytest.mark.parametrize('shape', [(0, 16), (3, 0)])
+def test_nms_sweep_kernel_empty(cuda, shape):
+    p, k = shape
+    got = nms.suppress_sweep(torch.zeros(p, k, k, device=cuda),
+                             torch.ones(p, k, dtype=torch.bool, device=cuda),
+                             0.3)
+    assert got.shape == (p, k) and got.device.type == 'cuda'
 
 
 def test_wrapper_rejects_mixed_devices(cuda):

@@ -39,6 +39,10 @@ from mmdet3d_gaussian_tpu_torch.ops.scan import cummax_i32, cumsum_i32
 
 from .torch_k5_boxes import adversarial_boxes, far_value
 from .torch_k5_boxes import cluster_boxes as _cluster_boxes
+from .torch_k6_iou import CASES as K6_CASES
+from .torch_k6_iou import THRESHOLDS as K6_THRESHOLDS
+from .torch_k6_iou import adversarial as k6_adversarial
+from .torch_k6_iou import blocked_word_sweep
 
 torch.set_num_threads(2)
 
@@ -352,6 +356,71 @@ def test_k6_plain_matches_pallas():
                                                jnp.asarray(valid[i]), 0.3))
         np.testing.assert_array_equal(got[i], want)
     assert not got[~valid].any()                 # invalid rows never kept
+
+
+@pytest.mark.parametrize('thr', K6_THRESHOLDS)
+@pytest.mark.parametrize('case', K6_CASES)
+def test_k6_adversarial_matches_pallas(case, thr):
+    """The plain sweep and the blocked word sweep (the CUDA kernel's
+    algorithm, emulated) vs the Pallas kernel in interpret mode on the
+    adversarial matrices (threshold ties, NaN/inf/-0.0, all or none above,
+    the chain, invalid suppressors) at K = 130 (a partial last word);
+    keep masks equal."""
+    iou, valid = k6_adversarial(case, 130, thr, seed=1, p=1)
+    got = tnms.suppress_sweep(_t(iou), _t(valid), thr).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(nms_sweep_pallas(jnp.asarray(iou[0]),
+                                           jnp.asarray(valid[0]), thr))
+    np.testing.assert_array_equal(got[0], want)
+    np.testing.assert_array_equal(blocked_word_sweep(iou, valid, thr), got)
+    if case == 'chain':
+        np.testing.assert_array_equal(want, np.arange(130) % 2 == 0)
+    if case == 'all_above':
+        np.testing.assert_array_equal(want, np.arange(130) == 0)
+    if case == 'none_above':
+        np.testing.assert_array_equal(want, valid[0])
+
+
+@pytest.mark.parametrize('thr', K6_THRESHOLDS)
+@pytest.mark.parametrize('k', [1, 31, 64, 65, 1500])
+def test_k6_adversarial_matches_xla(k, thr):
+    """The plain sweep and the blocked word sweep vs JAX's XLA
+    ``_suppress_sweep`` on every adversarial matrix, problem by problem;
+    keep masks equal.  K = 1 and 31 leave idle lanes, 65 a one-bit last
+    word, 1500 24 words a row."""
+    for case in K6_CASES:
+        iou, valid = k6_adversarial(case, k, thr, seed=k)
+        got = tnms.suppress_sweep(_t(iou), _t(valid), thr).numpy()
+        for i in range(iou.shape[0]):
+            want = np.asarray(jnms._suppress_sweep(
+                jnp.asarray(iou[i]), jnp.asarray(valid[i]), thr))
+            np.testing.assert_array_equal(got[i], want, err_msg=case)
+        np.testing.assert_array_equal(blocked_word_sweep(iou, valid, thr),
+                                      got, err_msg=case)
+
+
+@pytest.mark.parametrize('k', [200, 1500])
+def test_k6_blocked_sweep_streams(k):
+    """The blocked word sweep staged one or a few row blocks at a time (the
+    kernel's path for large K) equals the plain sweep and the sweep staged
+    whole, on a random symmetric matrix."""
+    rng = np.random.RandomState(k)
+    m = rng.rand(3, k, k).astype(np.float32) * 0.5
+    m = (m + m.transpose(0, 2, 1)) / 2
+    valid = rng.rand(3, k) > 0.1
+    want = tnms.suppress_sweep_plain(_t(m), _t(valid), 0.3).numpy()
+    assert want.sum() < valid.sum()
+    w = -(-k // 64)
+    for cap in (None, 64 * w, 64 * w + 64 * (w - 1), 3 * 64 * w):
+        np.testing.assert_array_equal(
+            blocked_word_sweep(m, valid, 0.3, cap_words=cap), want)
+
+
+def test_k6_packed_words():
+    """The wrapper's workspace holds the kernel's triangle: row block b keeps
+    words b .. W-1 of 64 rows."""
+    for k, w in ((1, 1), (64, 1), (65, 2), (1024, 16), (24 * 1024, 384)):
+        assert tnms.packed_words(k) == sum(64 * (w - b) for b in range(w))
 
 
 def test_nms_bev_matches_jax():
