@@ -35,7 +35,14 @@ Phases, each printing its own lines (any failure exits non-zero):
       IoU, valid and keep), and seven recorded cases (none suppressed, all
       suppressed, the chain, random symmetric at thr 0.25 and 0.8, K =
       1,024 and 512: :func:`k6_matrix`) held exactly to the plain version
-      and timed;
+      and timed; K1 (reduce, mapback, winner with its per-row mask) and
+      K3 (forward, backward): the body K1 runs (float4; the smoke fails on
+      the single-float one), the device time cold (inputs rotated over
+      copies totalling over twice the L2) and warm (the same inputs again)
+      beside the bound and the device time of an empty kernel (the launch
+      floor), K1 reduce against ``torch.segment_reduce`` cold and warm (the
+      smoke fails if it is slower), K3's forward bitwise equal over 10
+      calls, and a ``zero_`` of K3 backward's output (its floor);
   (c) TINY predict and one TINY train step on the card against the same
       port on the CPU, in f32 and in bf16 (card bf16 held to CPU bf16 at
       under half of CPU bf16's distance from CPU f32; the same rule run on
@@ -90,8 +97,8 @@ import torch
 # per issued instruction, so their peak is half of it.
 PEAK_BYTES = 3.35e12
 PEAK_F32_OPS = 67e12 / 2
-# the H100's L2 cache (50 MB): K4's single-call timings rotate through
-# copies of their inputs of twice this size
+# the H100's L2 cache (50 MB): K4's single-call timings and the cold times
+# of K1 and K3 rotate through copies of their inputs of twice this size
 L2_BYTES = 50 * 2 ** 20
 # BatchNorm2d's eps in the model (the forward yardstick takes it)
 BN_EPS = 1e-3
@@ -161,8 +168,8 @@ KERNELS = {
     'rotated_iou': (SRC + 'rotated_iou.cu', TPU + 'rotated_iou_kernel.py:166',
                     'predict'),
     'nms_sweep': (SRC + 'nms_sweep.cu', TPU + 'nms_kernel.py:37', 'predict'),
-    'segment_argmax': (SRC + 'segment_reduce.cu',
-                       TPU + 'segment_kernel.py:263', 'train'),
+    'segment_max_winner': (SRC + 'segment_reduce.cu',
+                           TPU + 'segment_kernel.py:263', 'train'),
     'bn_moments': (SRC + 'bn_moments.cu', TPU + 'bn_kernel.py:101', 'train'),
     'bn_grad_moments': (SRC + 'bn_moments.cu', TPU + 'bn_kernel.py:120',
                         'train'),
@@ -175,7 +182,7 @@ KERNELS = {
 # BatchNorm2d layers (16 in SECOND, 3 in SECONDFPN), one winner pass for the
 # encoder's final voxel max; K3 once each way per dense-target step
 TRAIN_LAUNCHES = {'bn_moments': 19, 'bn_grad_moments': 19,
-                  'segment_argmax': 1}
+                  'segment_max_winner': 1}
 DENSE_LAUNCHES = {'gd_loss_fwd': 1, 'gd_loss_bwd': 1}
 # launches per request or step on each path (the f32 paths splat with K2
 # on the plain canvas, the bf16 paths, and the f32 predict with the s2d
@@ -289,6 +296,60 @@ def device_ms(fn, iters, warmup=2):
     return sum(device_ms_by_name(fn, iters, warmup).values())
 
 
+def clone_like(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` with its strides (a channel slice stays one)."""
+    out = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                              device=t.device)
+    return out.copy_(t)
+
+
+def cold_ms(fn, args, iters=50):
+    """(mean device ms of ``fn(*args)`` with every tensor of ``args``
+    rotated over copies that total over twice the L2, so that each call
+    reads its inputs from HBM and not from the last call's L2; the number
+    of copies)."""
+    first = tuple(clone_like(a) if isinstance(a, torch.Tensor) else a
+                  for a in args)
+    nbytes = sum(a.untyped_storage().nbytes() for a in first
+                 if isinstance(a, torch.Tensor))
+    n_copies = 1 + -(-2 * L2_BYTES // max(nbytes, 1))
+    sets = [first] + [tuple(clone_like(a) if isinstance(a, torch.Tensor)
+                            else a for a in args)
+                      for _ in range(n_copies - 1)]
+    copies = itertools.cycle(sets)
+    ms = device_ms(lambda: fn(*next(copies)), iters)
+    del sets, copies
+    return ms, n_copies
+
+
+_FLOOR = {}
+
+
+def launch_floor() -> float:
+    """Device ms of the port's empty kernel, launched as every kernel is:
+    the floor of a kernel whose bytes take less than a launch."""
+    if 'ms' not in _FLOOR:
+        from mmdet3d_gaussian_tpu_torch.ops import _cuda
+        dev = torch.device('cuda', torch.cuda.current_device())
+        _FLOOR['ms'] = device_ms(lambda: _cuda.launch('empty', dev), 200)
+    return _FLOOR['ms']
+
+
+def cold_warm(results, name, fn, args, card, note='', iters=50):
+    """Add the cold time (:func:`cold_ms`) and the launch floor to
+    ``results[name]`` (whose ``ms`` is the warm time) and print both with
+    the bound and its share of each."""
+    r = results[name]
+    r['cold_ms'], n_copies = cold_ms(fn, args, iters)
+    r['floor_ms'] = launch_floor()
+    b = r['bound_ms']
+    print(f'(b) {name}{note}: cold {r["cold_ms"]:.4f} ms (inputs in turn '
+          f'from {n_copies} copies, over twice the L2), warm {r["ms"]:.4f} '
+          f'ms; bound {b:.4f} ms ({r["bound_by"]}) = {b / r["cold_ms"]:.0%} '
+          f'of cold, {b / r["ms"]:.0%} of warm; empty-kernel launch floor '
+          f'{r["floor_ms"]:.4f} ms [{card}]')
+
+
 def record_calls(run, patches):
     """Run ``run()`` with the kernel wrappers ``patches`` ((module,
     attribute, kernel name), ...) wrapped to record the arguments of every
@@ -381,7 +442,6 @@ def kernel_checks(inputs, card, note=''):
     ref = segment.segment_reduce_plain(data, starts, counts, op)
     n_live = int(torch.count_nonzero(counts))
     rows = int(counts.sum())
-    v, c = counts.shape[0], data.shape[1]
     lengths = counts[:n_live].long()
     check(bool((counts[n_live:] == 0).all()), 'live voxels not first')
     live_rows = data[:rows]
@@ -391,20 +451,35 @@ def kernel_checks(inputs, card, note=''):
            lambda: torch.segment_reduce(live_rows, op, lengths=lengths,
                                         unsafe=True),
            float((out - ref).abs().max()), 0.0,
-           data.numel() * 4 + v * 8 + v * c * 4, rows * c, 200, 10)
+           *k1_work('reduce', data, None, starts, counts), 200, 10)
+    check_k1_path('segment_reduce', data, note)
+    cold_warm(results, 'segment_reduce', segment.segment_reduce,
+              (data, starts, counts, op), card, note, 200)
+    lib_cold, _ = cold_ms(
+        lambda d: torch.segment_reduce(d[:rows], op, lengths=lengths,
+                                       unsafe=True), (data,), 200)
+    r = results['segment_reduce']
+    r['library_cold_ms'] = lib_cold
+    print(f'(b) segment_reduce{note}: torch.segment_reduce cold '
+          f'{lib_cold:.4f} ms, warm {r["library_ms"]:.4f} ms [{card}]')
+    check(r['ms'] < r['library_ms'] and r['cold_ms'] < lib_cold,
+          'K1 reduce is slower than torch.segment_reduce')
 
     # K1 mapback form (cluster mean: xyz + ones column, 4 channels)
     data, ids, starts, counts, op = inputs['segment_reduce_mapback']
     out = segment.segment_reduce_mapback(data, ids, starts, counts, op)
     ref = segment.segment_reduce_mapback_plain(data, ids, starts, counts, op)
-    n, c = data.shape
     record('segment_reduce_mapback',
            lambda: segment.segment_reduce_mapback(data, ids, starts, counts,
                                                   op),
            lambda: segment.segment_reduce_mapback_plain(data, ids, starts,
                                                         counts, op),
            None, float((out - ref).abs().max()), 1e-4,
-           n * c * 8 + n * 4 + counts.shape[0] * 8, n * c, 200, 10)
+           *k1_work('mapback', data, ids, starts, counts), 200, 10)
+    check_k1_path('segment_reduce_mapback', data, note)
+    cold_warm(results, 'segment_reduce_mapback',
+              segment.segment_reduce_mapback,
+              (data, ids, starts, counts, op), card, note, 200)
 
     # K2 BEV splat
     if 'bev_splat' in inputs:
@@ -467,6 +542,48 @@ def kernel_checks(inputs, card, note=''):
         lambda: nms.suppress_sweep(iou, valid, thr), card,
         f'predict inputs{note}')
     return results
+
+
+def k1_work(form, data, ids, starts, counts):
+    """(bytes, operations) K1's ``form`` needs: each input read once (the
+    rows, the segment bounds, the ids where the form reads them), each
+    output written once (the mask as bytes), one operation an element
+    of the live rows."""
+    n, c = data.shape
+    v = counts.shape[0]
+    ops = int(counts.sum()) * c
+    if form == 'reduce':
+        return n * c * 4 + v * 8 + v * c * 4, ops
+    if form == 'mapback':
+        return n * c * 8 + n * 4 + v * 8, n * c
+    return n * c * 4 + v * 8 + n * 4 + v * c * 4 + n * c, ops  # winner
+
+
+def k3_work(pred2, w_a):
+    """{'fwd' | 'bwd': (bytes, operations)}, (anchors with weight > 0,
+    with weight < 0): every weight is read, and of the rest only what the
+    weighted anchors need: pred, target and anchor (21 floats) where w > 0,
+    target and anchor (14) where w < 0; an anchor with w == 0 adds 0 and
+    has a 0 gradient.  The backward writes every gradient row."""
+    m, k7 = pred2.shape
+    anchors = m * k7 // 7
+    n_pos = int((w_a > 0).sum())
+    n_neg = int(((w_a != 0) & ~(w_a > 0)).sum())
+    fwd = ((anchors + 21 * n_pos + 14 * n_neg) * 4 + 4,
+           anchors + (n_pos + n_neg) * GD_OPS_PER_ANCHOR)
+    bwd = ((anchors + 21 * n_pos + 7 * anchors + 1) * 4,
+           anchors + n_pos * 3 * GD_OPS_PER_ANCHOR)
+    return dict(fwd=fwd, bwd=bwd), (n_pos, n_neg)
+
+
+def check_k1_path(name, data, note):
+    """Print the body K1 runs on ``data`` and fail unless it is the
+    16-byte one (the main path hands it fresh, 64- or 4-channel rows)."""
+    from mmdet3d_gaussian_tpu_torch.ops import segment
+    vec = segment.vectorized(data)
+    print(f'(b) {name}{note}: {data.shape[0]} rows x {data.shape[1]} '
+          f'channels, {"float4" if vec else "single-float"} body')
+    check(vec, f'{name}: a main-path call took the single-float body')
 
 
 def k6_work(valid, keep):
@@ -1140,7 +1257,7 @@ def capture_train_inputs(det, batch, state, per_step):
     from mmdet3d_gaussian_tpu_torch.ops import bn, gd_loss, scatter, voxelize
     patches = [(bn, 'moments', 'bn_moments'),
                (bn, 'grad_moments', 'bn_grad_moments'),
-               (scatter, 'segment_argmax', 'segment_argmax'),
+               (scatter, 'segment_max_winner', 'segment_max_winner'),
                (gd_loss, 'gd_loss_fwd', 'gd_loss_fwd'),
                (gd_loss, 'gd_loss_bwd', 'gd_loss_bwd'),
                (voxelize, 'bev_splat_pairs', 'bev_splat_pairs')]
@@ -1213,20 +1330,12 @@ def check_k4(results, inputs, card, note=''):
         for what, (nbytes, args) in (('largest', sizes[-1]),
                                      ('smallest', sizes[0])):
             x = args[0] if fwd else args[1]
-            # copies of the inputs, called in turn, so that each call reads
-            # its bytes from HBM and not from the last call's L2
-            n_copies = 1 + -(-2 * L2_BYTES // nbytes)
-            copies = itertools.cycle(
-                [tuple(a.clone() if i < (1 if fwd else 2) else a
-                       for i, a in enumerate(args))
-                 for _ in range(n_copies)])
-            t = device_ms(lambda: kern(*next(copies)), 50)
+            t, n_copies = cold_ms(kern, args, 50)
             b_ms = bound(nbytes, 0)[0]
             print(f'(b) {name}{note}: {what} call {tuple(x.shape)}: '
                   f'{t:.4f} ms, bound {b_ms:.4f} ms ({t / b_ms:.2f}x; inputs '
                   f'in turn from {n_copies} copies, over twice the L2) '
                   f'[{card}]')
-            del copies
 
         def lib(fwd=fwd, calls=calls):
             for args in calls:
@@ -1247,49 +1356,45 @@ def train_kernel_checks(inputs, card, note=''):
     from mmdet3d_gaussian_tpu_torch.ops import gd_loss, segment
     results = {}
 
-    # K1 winner form: the encoder's final per-voxel max (64 channels)
-    ((data, starts, counts),) = inputs['segment_argmax']
-    out, win = segment.segment_argmax(data, starts, counts)
-    ref, ref_w = segment.segment_argmax_plain(data, starts, counts)
-    exact = bool(torch.equal(out, ref) and torch.equal(win, ref_w))
-    v, c = counts.shape[0], data.shape[1]
-    rows = int(counts.sum())
-    report(results, 'segment_argmax', card, float((out - ref).abs().max()),
-           '0, winners equal', exact,
-           lambda: segment.segment_argmax(data, starts, counts),
-           lambda: segment.segment_argmax_plain(data, starts, counts), None,
-           200, 5, data.numel() * 4 + v * 8 + v * c * 8, rows * c,
+    # K1 winner form: the encoder's final per-voxel max (64 channels) and
+    # its per-row winner mask
+    ((data, ids, starts, counts),) = inputs['segment_max_winner']
+    out, mask = segment.segment_max_winner(data, ids, starts, counts)
+    ref, ref_m = segment.segment_max_winner_plain(data, ids, starts, counts)
+    exact = bool(torch.equal(out, ref) and torch.equal(mask, ref_m))
+    report(results, 'segment_max_winner', card,
+           float((out - ref).abs().max()), '0, masks equal', exact,
+           lambda: segment.segment_max_winner(data, ids, starts, counts),
+           lambda: segment.segment_max_winner_plain(data, ids, starts,
+                                                    counts), None,
+           200, 5, *k1_work('winner', data, ids, starts, counts),
            f' exact_equal={exact}{note}')
+    check_k1_path('segment_max_winner', data, note)
+    cold_warm(results, 'segment_max_winner', segment.segment_max_winner,
+              (data, ids, starts, counts), card, note, 200)
 
     check_k4(results, inputs, card, note)
 
     # K3: the dense decoded-box GD loss and its d(pred)
     ((pred2, tgt2, w_a, anc2, hw, cfg),) = inputs['gd_loss_fwd']
     ((gout, *_),) = inputs['gd_loss_bwd']
-    # The function reads every weight and, of the rest, only what the
-    # weighted anchors need: pred, target and anchor (21 floats) where
-    # w > 0, target and anchor (14) where w < 0; an anchor with w == 0 adds
-    # 0 and has a 0 gradient.  The backward writes every gradient row.
-    m, k7 = pred2.shape
-    anchors = m * k7 // 7
-    n_pos = int((w_a > 0).sum())
-    n_neg = int(((w_a != 0) & ~(w_a > 0)).sum())
-    print(f'(b) gd_loss inputs{note}: {m} rows x {k7 // 7} anchors, config '
-          f'{cfg}, {n_pos} anchors with weight > 0, {n_neg} with weight < 0, '
-          f'box map {pred2.dtype}')
+    work, (n_pos, n_neg) = k3_work(pred2, w_a)
+    print(f'(b) gd_loss inputs{note}: {pred2.shape[0]} rows x '
+          f'{pred2.shape[1] // 7} anchors, config {cfg}, {n_pos} anchors '
+          f'with weight > 0, {n_neg} with weight < 0, box map {pred2.dtype}')
     check(n_pos > 0, 'no positive anchor in the dense step')
     check(pred2.dtype == torch.float32, 'K3 was given a non-f32 box map')
     args = (tgt2, w_a, anc2, hw, cfg)
     got = gd_loss.gd_loss_fwd(pred2, *args)
     want = gd_loss.anchor_gd_loss_plain(pred2, *args)
     err = abs(float(got) - float(want))
-    in_bytes = (anchors + 21 * n_pos + 14 * n_neg) * 4
+    check(all(torch.equal(gd_loss.gd_loss_fwd(pred2, *args), got)
+              for _ in range(10)), 'K3 forward is not bitwise repeatable')
     report(results, 'gd_loss_fwd', card, err, '1e-5 relative',
            err <= 1e-5 * abs(float(want)),
            lambda: gd_loss.gd_loss_fwd(pred2, *args),
            lambda: gd_loss.anchor_gd_loss_plain(pred2, *args), None, 50, 5,
-           in_bytes + 4,
-           anchors + (n_pos + n_neg) * GD_OPS_PER_ANCHOR, note)
+           *work['fwd'], note)
     dgot = gd_loss.gd_loss_bwd(gout, pred2, *args)
     dwant = gd_loss.gd_loss_bwd_plain(gout, pred2, *args)
     diff = (dgot - dwant).abs()
@@ -1298,8 +1403,17 @@ def train_kernel_checks(inputs, card, note=''):
                                         .all()),
            lambda: gd_loss.gd_loss_bwd(gout, pred2, *args),
            lambda: gd_loss.gd_loss_bwd_plain(gout, pred2, *args), None, 50,
-           5, (anchors + 21 * n_pos + 7 * anchors + 1) * 4,
-           anchors + n_pos * 3 * GD_OPS_PER_ANCHOR, note)
+           5, *work['bwd'], note)
+    cold_warm(results, 'gd_loss_fwd', gd_loss.gd_loss_fwd, (pred2, *args),
+              card, note)
+    cold_warm(results, 'gd_loss_bwd', gd_loss.gd_loss_bwd,
+              (gout, pred2, *args), card, note)
+    # the floor of the backward: writing its (M, A*7) output once
+    dz = torch.empty(pred2.shape, dtype=torch.float32, device=pred2.device)
+    zero_ms = results['gd_loss_bwd']['zero_fill_ms'] = device_ms(dz.zero_,
+                                                                 50)
+    print(f'(b) gd_loss_bwd{note}: zero_ of its {tuple(dz.shape)} f32 output '
+          f'{zero_ms:.4f} ms [{card}]')
     return results
 
 
@@ -1747,6 +1861,9 @@ def main() -> int:
             bound_ms=r['bound_ms'], bound_by=r['bound_by'],
             library_ms=r['library_ms'], bytes=r['bytes'],
             operations=r['operations'])
+        entry.update({key: r[key] for key in (
+            'cold_ms', 'floor_ms', 'library_cold_ms', 'zero_fill_ms')
+            if key in r})
         if name == 'rotated_iou':
             entry.update({key: r[key] for key in (
                 'near_share', 'bound_all_pairs_ms', 'zero_fill_ms', 'cases')})

@@ -47,11 +47,11 @@ _GD_CFG = [_I, _I, _F, _F, _F, _F, _F]   # loss type, fun, tau, alpha, offset
 # stream is appended by launch())
 KERNELS = {
     'segment_reduce': ('segment_reduce_launch',
-                       [_P, _P, _P, _P, _I, _I, _I]),
+                       [_P, _P, _P, _P, _I, _I, _I, _I]),
     'segment_reduce_mapback': ('segment_mapback_launch',
-                               [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
-    'segment_argmax': ('segment_argmax_launch',
-                       [_P, _P, _P, _P, _P, _I, _I]),
+                               [_P, _P, _P, _P, _I, _I, _I, _I, _I]),
+    'segment_max_winner': ('segment_max_winner_launch',
+                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I]),
     'bev_splat': ('bev_splat_launch', [_P, _P, _P, _I, _I, _LL, _I]),
     'bev_splat_pairs': ('bev_splat_pairs_launch',
                         [_P, _P, _P, _P, _I, _I, _LL, _I]),
@@ -65,10 +65,13 @@ KERNELS = {
                         + [_LL] * 4 + [_P, _P, _P, _I]),
     'gd_loss_fwd': ('gd_loss_fwd_launch',
                     [_P, _LL, _P, _P, _P, _LL, _I, _I] + _GD_CFG
-                    + [_P, _I, _P]),
+                    + [_P, _I, _P, _P]),
     'gd_loss_bwd': ('gd_loss_bwd_launch',
                     [_P, _P, _LL, _P, _P, _P, _LL, _I, _I] + _GD_CFG
                     + [_P]),
+    # does nothing: the device time of a launch, the floor of the kernels
+    # whose bytes take less
+    'empty': ('empty_launch', []),
 }
 
 # queries that launch nothing: name -> (C function, argtypes after the

@@ -8,6 +8,10 @@ return ``sum(loss * weight)`` (divide by ``avg_factor`` outside).  The
 gradient is d(pred) in the conv layout ``(M, A*7)``.  The kernels read an
 anchor's pred, target and anchor only where its weight is not 0: an anchor
 of weight 0 adds ``0 * loss(target, target)``, 0 for any finite target.
+The forward is one launch (weights read as float4, the partial sums added
+in order by the last block, so repeated calls agree bitwise); the backward
+writes the rows of the anchors with weight > 0 and fills the rest of its
+output with zeros in 16-byte stores.
 
 * :func:`gd_loss_fwd` / :func:`gd_loss_bwd`: the kernel wrappers (plain
   PyTorch versions for CPU tensors, the kernels for CUDA tensors, no
@@ -18,7 +22,7 @@ of weight 0 adds ``0 * loss(target, target)``, 0 for any finite target.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -35,7 +39,11 @@ FUNS = ('none', 'log1p', 'expm1', 'nlog')
 Config = Tuple[str, Sequence[float], str, float, float]
 
 _THREADS = 256
-_MAX_PARTS = 1056       # first-pass blocks of the forward sum: 8 per SM
+# the forward's blocks: one for every 16 weight quads a thread (4 loads of
+# 4 in flight), at most 4 a streaming multiprocessor; fixed by the shape
+# alone, so the sum's order is too
+_FWD_ANCHORS_PER_BLOCK = 16 * _THREADS
+_FWD_MAX_BLOCKS = 528
 
 
 def anchor_gd_loss_plain(pred2, tgt2, w_a, anc2, hw: int, cfg: Config):
@@ -103,13 +111,30 @@ def gd_loss_fwd(pred2, tgt2, w_a, anc2, hw: int, cfg: Config):
     if dev.type == 'cpu':
         return anchor_gd_loss_plain(pred2, tgt2, w_a, anc2, hw, cfg)
     m = pred2.shape[0]
-    parts_n = max(1, min(_MAX_PARTS, -(-m * a // _THREADS)))
+    parts_n = max(1, min(_FWD_MAX_BLOCKS,
+                         -(-m * a // _FWD_ANCHORS_PER_BLOCK)))
     parts = torch.empty((parts_n,), dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     _cuda.launch('gd_loss_fwd', dev, pred2.data_ptr(), rs, tgt2.data_ptr(),
                  w_a.data_ptr(), anc2.data_ptr(), m, a, hw, *cargs,
-                 parts.data_ptr(), parts_n, out.data_ptr())
+                 parts.data_ptr(), parts_n, _ticket(dev, stream).data_ptr(),
+                 out.data_ptr(), stream=stream)
     return out
+
+
+def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    """The zeroed counter the forward's blocks draw tickets from, one per
+    device and stream; the block drawing the last ticket sets it back to
+    0."""
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return t
+
+
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def gd_loss_bwd(gout, pred2, tgt2, w_a, anc2, hw: int, cfg: Config):

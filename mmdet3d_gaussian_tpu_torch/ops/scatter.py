@@ -8,9 +8,10 @@ beyond ``max_voxels`` map to the trash id ``max_voxels``.
 
 Gradients (``segment_kernel.py::sorted_reduce`` / ``sorted_reduce_mapback``
 VJPs): a sum / mean copies each voxel's gradient back to its rows; a max
-routes it to the one row per (voxel, channel) that K1's winner form picked,
-the lowest row index holding the max (the reference's atomicMin traceback).
-Every backward is a gather per row, never a scatter.
+routes it to the one row per (voxel, channel) that K1's winner form marks
+in its per-row mask, the lowest row index holding the max (the reference's
+atomicMin traceback).  Every backward is a gather per row, never a
+scatter.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from .scan import cummax_i32, cumsum_i32
-from .segment import segment_argmax, segment_reduce, segment_reduce_mapback
+from .segment import segment_max_winner, segment_reduce
+from .segment import segment_reduce_mapback
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -58,12 +60,6 @@ def _row_gather(table: torch.Tensor, ids: torch.Tensor, fill) -> torch.Tensor:
     return padded[torch.where((ids >= 0) & (ids < v), ids.long(), v)]
 
 
-def _winner_rows(winner: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """(N, C) bool: row r is the winner of its (segment, channel)."""
-    rows = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device)
-    return _row_gather(winner, ids, -1) == rows[:, None]
-
-
 class _SortedReduce(torch.autograd.Function):
     """Per-segment sum / max of sorted rows with the gradient rules of
     ``sorted_reduce`` (``segment_kernel.py:298-314``)."""
@@ -72,7 +68,7 @@ class _SortedReduce(torch.autograd.Function):
     def forward(ctx, rows, ids, starts, counts, op: str):
         ctx.op = op
         if op == 'max':
-            out, winner = segment_argmax(rows, starts, counts)
+            out, winner = segment_max_winner(rows, ids, starts, counts)
             ctx.save_for_backward(ids, winner)
         else:
             out = segment_reduce(rows, starts, counts, 'sum')
@@ -84,8 +80,7 @@ class _SortedReduce(torch.autograd.Function):
         ids = ctx.saved_tensors[0]
         g_pt = _row_gather(g, ids, 0.0)
         if ctx.op == 'max':
-            g_pt = torch.where(_winner_rows(ctx.saved_tensors[1], ids), g_pt,
-                               0.0)
+            g_pt = torch.where(ctx.saved_tensors[1], g_pt, 0.0)
         return g_pt, None, None, None, None
 
 
@@ -99,7 +94,7 @@ class _SortedReduceMapback(torch.autograd.Function):
     def forward(ctx, rows, ids, starts, counts, op: str):
         ctx.op = op
         if op == 'max':
-            per_seg, winner = segment_argmax(rows, starts, counts)
+            per_seg, winner = segment_max_winner(rows, ids, starts, counts)
             ctx.save_for_backward(ids, starts, counts, winner)
             return _row_gather(per_seg, ids, 0.0)
         ctx.save_for_backward(ids, starts, counts)
@@ -112,8 +107,7 @@ class _SortedReduceMapback(torch.autograd.Function):
         gm = torch.where(valid, g.float(), 0.0).contiguous()
         gsum = segment_reduce_mapback(gm, ids, starts, counts, 'sum')
         if ctx.op == 'max':
-            gsum = torch.where(_winner_rows(ctx.saved_tensors[3], ids), gsum,
-                               0.0)
+            gsum = torch.where(ctx.saved_tensors[3], gsum, 0.0)
         return gsum, None, None, None, None
 
 

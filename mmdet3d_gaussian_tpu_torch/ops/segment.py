@@ -10,13 +10,16 @@ reductions accumulate in f32.
 * :func:`segment_reduce_mapback` -> ``(N, C)``, every row of a live segment
   receives its segment's value; rows whose id is outside ``[0, V)`` (invalid
   points, the trash segment) receive 0.
-* :func:`segment_argmax` (the winner form, ``_winner_mask``) -> the
-  per-segment max ``(V, C)`` and, per (segment, channel), the lowest row
-  index holding it (``-1`` for empty segments and NaN maxima, which take no
-  gradient), for the max backward.
+* :func:`segment_max_winner` (the winner form, ``_winner_mask``) -> the
+  per-segment max ``(V, C)`` and the per-row winner mask ``(N, C)`` bool:
+  true at the lowest row holding its segment's max, false everywhere for a
+  NaN max and on rows outside every segment.  The max's gradient is
+  ``where(mask, gathered gradient, 0)``.
 
 Each wrapper computes its plain PyTorch version for CPU tensors and launches
-the CUDA kernel for CUDA tensors; there is no fallback between the two.
+the CUDA kernel for CUDA tensors; there is no fallback between the two.  On
+the card the kernel reads 16-byte vectors where :func:`vectorized` says so
+(C a multiple of 4 and ``data`` 16-byte aligned), single floats otherwise.
 """
 from __future__ import annotations
 
@@ -71,9 +74,11 @@ def _segments_of_rows(starts, counts):
     return seg, row
 
 
-def segment_argmax_plain(data, starts, counts):
-    """Plain version of :func:`segment_argmax` (same rules)."""
-    v, c = counts.shape[0], data.shape[1]
+def segment_max_winner_plain(data, ids, starts, counts):
+    """Plain version of :func:`segment_max_winner` (same rules; ``ids`` is
+    only checked, rows outside every segment are false)."""
+    n, c = data.shape
+    v = counts.shape[0]
     dev = data.device
     seg, row = _segments_of_rows(starts, counts)
     rows = data.float()[row]
@@ -82,10 +87,19 @@ def segment_argmax_plain(data, starts, counts):
     nan.index_add_(0, seg, rows.isnan().float())
     out = torch.where(nan > 0, float('nan'), out)
     big = torch.iinfo(torch.int32).max
-    cand = torch.where(rows == out[seg], row[:, None].to(torch.int32), big)
+    row32 = row[:, None].to(torch.int32)
+    cand = torch.where(rows == out[seg], row32, big)
     win = torch.full((v, c), big, dtype=torch.int32, device=dev)
     win.scatter_reduce_(0, seg[:, None].expand(-1, c), cand, 'amin')
-    return out, torch.where(win == big, -1, win)
+    mask = torch.zeros((n, c), dtype=torch.bool, device=dev)
+    mask[row] = win[seg] == row32
+    return out, mask
+
+
+def vectorized(data: torch.Tensor) -> bool:
+    """True where the kernels read ``data`` (N, C) f32 as 16-byte vectors:
+    C a multiple of 4 and the data pointer 16-byte aligned."""
+    return data.shape[1] % 4 == 0 and data.data_ptr() % 16 == 0
 
 
 def _check_common(data, starts, counts):
@@ -110,7 +124,7 @@ def segment_reduce(data: torch.Tensor, starts: torch.Tensor,
     if out.numel():
         _cuda.launch('segment_reduce', dev, data.data_ptr(),
                      starts.data_ptr(), counts.data_ptr(), out.data_ptr(),
-                     v, c, is_max)
+                     v, c, is_max, int(vectorized(data)))
     return out
 
 
@@ -132,26 +146,30 @@ def segment_reduce_mapback(data: torch.Tensor, ids: torch.Tensor,
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     if out.numel():
         _cuda.launch('segment_reduce_mapback', dev, data.data_ptr(),
-                     ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-                     out.data_ptr(), n, counts.shape[0], c, is_max)
+                     ids.data_ptr(), counts.data_ptr(), out.data_ptr(), n,
+                     counts.shape[0], c, is_max, int(vectorized(data)))
     return out
 
 
-def segment_argmax(data: torch.Tensor, starts: torch.Tensor,
-                   counts: torch.Tensor):
+def segment_max_winner(data: torch.Tensor, ids: torch.Tensor,
+                       starts: torch.Tensor, counts: torch.Tensor):
     """Per-segment max ``(V, C)`` f32 (empty segments 0, NaN propagates)
-    and winner ``(V, C)`` int32: the lowest row index holding the max, -1
-    for empty segments and NaN maxima.  Arguments as :func:`segment_reduce`.
+    and the winner mask ``(N, C)`` bool: true at the lowest row index
+    holding its segment's max, false for a NaN max, false on rows whose id
+    lies outside ``[0, V)``.  Arguments as :func:`segment_reduce_mapback`.
     """
     _check_common(data, starts, counts)
-    dev = _cuda.same_device(data, starts, counts)
+    _cuda.check_tensor(ids, 'ids', torch.int32, (data.shape[0],))
+    dev = _cuda.same_device(data, ids, starts, counts)
     if dev.type == 'cpu':
-        return segment_argmax_plain(data, starts, counts)
-    v, c = counts.shape[0], data.shape[1]
+        return segment_max_winner_plain(data, ids, starts, counts)
+    n, c = data.shape
+    v = counts.shape[0]
     out = torch.empty((v, c), dtype=torch.float32, device=dev)
-    winner = torch.empty((v, c), dtype=torch.int32, device=dev)
-    if out.numel():
-        _cuda.launch('segment_argmax', dev, data.data_ptr(),
-                     starts.data_ptr(), counts.data_ptr(), out.data_ptr(),
-                     winner.data_ptr(), v, c)
-    return out, winner
+    mask = torch.empty((n, c), dtype=torch.bool, device=dev)
+    if out.numel() or mask.numel():
+        _cuda.launch('segment_max_winner', dev, data.data_ptr(),
+                     ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+                     out.data_ptr(), mask.data_ptr(), n, v, c,
+                     int(vectorized(data)))
+    return out, mask

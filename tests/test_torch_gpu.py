@@ -293,21 +293,147 @@ def test_wrapper_rejects_mixed_devices(cuda):
 
 
 def test_segment_argmax_kernel(cuda):
-    """K1 winner form: max and lowest tied row equal to the plain version,
-    on small integer data (many ties), a NaN, empty segments, a trash
+    """K1 winner form: max and winner mask equal to the plain version, on
+    small integer data (many ties), a NaN, empty segments, a trash
     tail."""
-    data, _ids, starts, counts = _segments(4, 2000, 64, 30, 50)
+    data, ids, starts, counts = _segments(4, 2000, 64, 30, 50)
     data = torch.round(data)
     data[5, 3] = float('nan')
-    want, want_w = segment.segment_argmax_plain(data, starts, counts)
-    before = _cuda.LAUNCHES['segment_argmax']
-    got, got_w = segment.segment_argmax(data.to(cuda), starts.to(cuda),
-                                        counts.to(cuda))
+    want, want_m = segment.segment_max_winner_plain(data, ids, starts,
+                                                    counts)
+    before = _cuda.LAUNCHES['segment_max_winner']
+    got, got_m = segment.segment_max_winner(
+        *(t.to(cuda) for t in (data, ids, starts, counts)))
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES['segment_argmax'] == before + 1
+    assert _cuda.LAUNCHES['segment_max_winner'] == before + 1
     assert torch.equal(got.cpu().nan_to_num(7.5), want.nan_to_num(7.5))
-    assert torch.equal(got_w.cpu(), want_w)
-    assert int((want_w == -1).sum()) > 64     # empty segments and the NaN
+    assert torch.equal(got_m.cpu(), want_m)
+    assert not bool(want_m[-50:].any())       # the trash tail
+    assert int(want_m.sum()) < int(counts.sum()) * 64
+
+
+K1_CASES = ('ties', 'long', 'unaligned', 'empty', 'v0', 'n0')
+K1_WIDTHS = (1, 3, 4, 7, 64, 65)
+
+
+def _k1_case(case, c, seed=3):
+    """(data, ids, starts, counts) on the CPU: small integers (ties) with
+    NaN, +-inf and +-0.0 sprinkled in; 'long' adds a 5,000-row segment
+    (kept free of NaN), 'empty' has only empty segments and a trash tail,
+    'v0' no segment, 'n0' no row."""
+    rng = np.random.RandomState(seed + c)
+    if case in ('empty', 'v0', 'n0'):
+        v = 0 if case == 'v0' else 40
+        n = 0 if case == 'n0' else 37
+        counts = np.zeros(v, np.int32)
+        starts = np.zeros(v, np.int32)
+        ids = np.full(n, v, np.int32)
+    else:
+        v = 600
+        counts = rng.randint(0, 12, v).astype(np.int32)
+        counts[rng.rand(v) < 0.2] = 0
+        if case == 'long':
+            counts[7] = 5000
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        starts = np.maximum.accumulate(np.where(counts > 0, starts, 0))
+        ids = np.concatenate([np.repeat(np.arange(v), counts),
+                              np.full(29, v)])
+        n = ids.size
+    data = np.round(rng.randn(n, c) * 2).astype(np.float32)
+    u = rng.rand(n, c)
+    data[u < 0.004] = np.nan
+    data[(u >= 0.004) & (u < 0.008)] = np.inf
+    data[(u >= 0.008) & (u < 0.012)] = -np.inf
+    data[(u >= 0.012) & (u < 0.05)] = -0.0
+    if case == 'long':
+        s = starts[7]
+        rows = data[s:s + 5000]
+        rows[np.isnan(rows)] = 1.0
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(
+        torch.int32 if a.dtype != np.float32 else torch.float32)
+        for a in (data, ids, starts.astype(np.int32), counts)]
+
+
+def _k1_on_card(case, c, cuda):
+    data, ids, starts, counts = _k1_case(case, c)
+    if case == 'unaligned':
+        # a view 4 bytes past a 16-byte boundary: the single-float body
+        base = torch.empty(data.numel() + 1, device=cuda)
+        dev_data = base[1:].view(data.shape)
+        dev_data.copy_(data)
+        assert not segment.vectorized(dev_data)
+    else:
+        dev_data = data.to(cuda)
+        assert segment.vectorized(dev_data) == (c % 4 == 0)
+    return (data, ids, starts, counts), (dev_data, ids.to(cuda),
+                                         starts.to(cuda), counts.to(cuda))
+
+
+def _same(a, b):
+    """Equal, NaN where the other is NaN (+0.0 == -0.0)."""
+    a = a.cpu()
+    return (a.shape == b.shape and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.where(a.isnan(), 0.0, a),
+                            torch.where(b.isnan(), 0.0, b)))
+
+
+def _one_launch(name, before, out):
+    torch.cuda.synchronize()
+    want = 1 if out.numel() else 0
+    assert _cuda.LAUNCHES[name] == before + want
+
+
+@pytest.mark.parametrize('op', ['sum', 'max'])
+@pytest.mark.parametrize('c', K1_WIDTHS)
+@pytest.mark.parametrize('case', K1_CASES)
+def test_segment_reduce_adversarial(cuda, case, c, op):
+    """K1 reduce form against its plain version: max exact, sums within
+    1e-4, one launch (none for V = 0)."""
+    (data, _ids, starts, counts), dev = _k1_on_card(case, c, cuda)
+    want = segment.segment_reduce_plain(data, starts, counts, op)
+    before = _cuda.LAUNCHES['segment_reduce']
+    got = segment.segment_reduce(dev[0], dev[2], dev[3], op)
+    _one_launch('segment_reduce', before, got)
+    if op == 'max':
+        assert _same(got, want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize('op', ['sum', 'max'])
+@pytest.mark.parametrize('c', K1_WIDTHS)
+@pytest.mark.parametrize('case', K1_CASES)
+def test_segment_mapback_adversarial(cuda, case, c, op):
+    """K1 mapback form against its plain version (trash rows 0): max
+    exact, sums within 1e-4, one launch (none for N = 0)."""
+    (data, ids, starts, counts), dev = _k1_on_card(case, c, cuda)
+    want = segment.segment_reduce_mapback_plain(data, ids, starts, counts,
+                                                op)
+    before = _cuda.LAUNCHES['segment_reduce_mapback']
+    got = segment.segment_reduce_mapback(*dev, op)
+    _one_launch('segment_reduce_mapback', before, got)
+    if op == 'max':
+        assert _same(got, want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize('c', K1_WIDTHS)
+@pytest.mark.parametrize('case', K1_CASES)
+def test_segment_max_winner_adversarial(cuda, case, c):
+    """K1 winner form against its plain version: the max and the winner
+    mask exact, one launch (none when V = N = 0)."""
+    (data, ids, starts, counts), dev = _k1_on_card(case, c, cuda)
+    want, want_m = segment.segment_max_winner_plain(data, ids, starts,
+                                                    counts)
+    before = _cuda.LAUNCHES['segment_max_winner']
+    got, got_m = segment.segment_max_winner(*dev)
+    _one_launch('segment_max_winner', before,
+                got if got.numel() else got_m)
+    assert _same(got, want)
+    assert got_m.dtype == torch.bool and torch.equal(got_m.cpu(), want_m)
 
 
 def _bn_layouts(cuda, b=3, c=64, h=37, w=50):
@@ -610,6 +736,81 @@ def test_gd_loss_kernels(cuda, loss_type, fun, tau):
     dwant = gd_loss.gd_loss_bwd_plain(gout, pred, *args)
     torch.testing.assert_close(dgot, dwant, rtol=1e-4, atol=5e-6)
     assert float(dwant.abs().max()) > 0
+
+
+def _gd_case(case, cuda, seed=7):
+    """(pred, tgt, w, anc2, hw, cfg) of the main path's configuration
+    (kld3d, log1p, tau 1): 'zero' every weight 0, 'all' every weight > 0
+    (more weighted anchors a block than the backward stages in shared
+    memory), 'negative' weights of both signs, 'stride48' pred as a channel
+    slice with rows 48 floats apart, 'ragged' M not a multiple of the
+    backward's rows a block, 'unaligned' the weights 4 bytes past a
+    16-byte boundary."""
+    rng = np.random.RandomState(seed)
+    hw = {'ragged': 1001, 'all': 2500}.get(case, 640)
+    a, b = 6, 2
+    m = b * hw
+    anc = np.zeros((hw, a, 7), np.float32)
+    anc[..., :2] = rng.uniform(-30, 60, (hw, a, 2))
+    anc[..., 2] = -1.78
+    anc[..., 3:6] = np.array([1.6, 3.9, 1.56]) * rng.uniform(0.8, 1.2,
+                                                             (hw, a, 3))
+    anc[..., 6] = rng.choice([0.0, np.pi / 2], (hw, a))
+    t = lambda arr: torch.from_numpy(arr).to(cuda)  # noqa: E731
+    width = 48 if case == 'stride48' else 42
+    wide = t(rng.randn(m, width).astype(np.float32) * 0.2)
+    pred = wide[:, :42] if case == 'stride48' else wide
+    tgt = t((rng.randn(m, a * 7) * 0.2).astype(np.float32))
+    mag = rng.uniform(0.5, 2, (m, a)).astype(np.float32)
+    u = rng.rand(m, a)
+    if case == 'zero':
+        w = np.zeros((m, a), np.float32)
+    elif case == 'all':
+        w = mag
+    elif case == 'negative':
+        w = np.where(u < 0.1, mag, np.where(u > 0.8, -mag, 0.0))
+    else:
+        w = np.where(u < 0.05, mag, 0.0)
+    w = w.astype(np.float32)
+    if case == 'unaligned':
+        base = torch.empty(w.size + 1, device=cuda)
+        w_dev = base[1:].view(m, a)
+        w_dev.copy_(torch.from_numpy(w))
+        assert w_dev.data_ptr() % 16 == 4
+    else:
+        w_dev = t(w)
+    cfg = ('kld3d', (0.0, 0.0, 0.5), 'log1p', 1.0, 1.0)
+    return pred, tgt, w_dev, t(anc.reshape(hw, a * 7)), hw, cfg
+
+
+@pytest.mark.parametrize('case', ['zero', 'all', 'negative', 'stride48',
+                                  'ragged', 'unaligned'])
+def test_gd_loss_kernels_adversarial(cuda, case):
+    """K3 forward and backward against the plain version on weights of
+    every kind, one launch each; the forward bitwise equal over 10 calls."""
+    pred, *args = _gd_case(case, cuda)
+    assert pred.stride(0) == (48 if case == 'stride48' else 42)
+    before = dict(_cuda.LAUNCHES)
+    got = gd_loss.gd_loss_fwd(pred, *args)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['gd_loss_fwd'] == before['gd_loss_fwd'] + 1
+    want = gd_loss.anchor_gd_loss_plain(pred, *args)
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    if case == 'zero':
+        assert float(got) == 0.0
+    else:
+        assert float(want) != 0.0
+    assert all(torch.equal(gd_loss.gd_loss_fwd(pred, *args), got)
+               for _ in range(10))
+    gout = torch.tensor(1.3, device=cuda)
+    before = _cuda.LAUNCHES['gd_loss_bwd']
+    dgot = gd_loss.gd_loss_bwd(gout, pred, *args)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['gd_loss_bwd'] == before + 1
+    dwant = gd_loss.gd_loss_bwd_plain(gout, pred, *args)
+    torch.testing.assert_close(dgot, dwant, rtol=1e-4, atol=5e-6)
+    nonzero = int(torch.count_nonzero(dwant.abs().sum(1)))
+    assert (nonzero == 0) == (case == 'zero')
 
 
 def test_train_step_card_vs_cpu(cuda):

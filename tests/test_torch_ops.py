@@ -453,24 +453,61 @@ def test_wrappers_reject_bad_shapes():
 
 # ------------------------------------------------ K1 winner form, backward
 def test_k1_argmax_direct():
-    """Winner form on hand-made segments: the max and the lowest row index
-    holding it, ties included; empty segments give 0 and -1, a NaN gives a
-    NaN max and no winner."""
+    """Winner form on hand-made segments: the max and the per-row winner
+    mask, true at the lowest row index holding the max, ties included;
+    empty segments give 0 and own no row, a NaN gives a NaN max and no
+    winner, the trash row is never a winner."""
     counts = np.array([4, 0, 3, 1, 5], np.int32)
     starts = np.array([0, 4, 4, 7, 8], np.int32)
+    ids = np.array([0, 0, 0, 0, 2, 2, 2, 3, 4, 4, 4, 4, 4, 5], np.int32)
     data = np.array([[1, 2], [3, 2], [3, 0], [0, 2],          # segment 0
                      [5, -1], [5, -1], [4, -2],               # segment 2
                      [-7, 8],                                 # segment 3
                      [0, 1], [2, np.nan], [2, 1], [1, 1], [0, 0],
                      [9, 9]],                                 # trash row
                     np.float32)
-    out, win = tseg.segment_argmax(_t(data), _t(starts), _t(counts))
+    out, mask = tseg.segment_max_winner(_t(data), _t(ids), _t(starts),
+                                        _t(counts))
     want_out = np.array([[3, 2], [0, 0], [5, -1], [-7, 8], [2, np.nan]],
                         np.float32)
-    want_win = np.array([[1, 0], [-1, -1], [4, 4], [7, 7], [9, -1]],
-                        np.int32)
+    want_mask = np.zeros((14, 2), bool)
+    for row, col in ((1, 0), (0, 1), (4, 0), (4, 1), (7, 0), (7, 1),
+                     (9, 0)):
+        want_mask[row, col] = True
     np.testing.assert_array_equal(out.numpy(), want_out)
-    np.testing.assert_array_equal(win.numpy(), want_win)
+    assert mask.dtype == torch.bool
+    np.testing.assert_array_equal(mask.numpy(), want_mask)
+
+
+@pytest.mark.parametrize('seed', [10, 11])
+def test_k1_winner_mask_matches_pallas(pallas_segments, seed):
+    """The plain winner mask bitwise equal to segment_kernel._winner_mask
+    in interpret mode on small integer features (many tied maxima), with a
+    NaN, +-inf and +-0.0 ties; the max equal to its per-row total.  The
+    Pallas kernel also marks winners in the trash segment (their gradient
+    is 0 there); the port marks none."""
+    pts, js, ts, _ = _both_scatters(seed=seed)
+    rng = np.random.RandomState(seed)
+    feats = rng.randint(0, 3, (pts.shape[0], 8)).astype(np.float32)
+    feats[rng.rand(*feats.shape) < 0.02] = np.nan
+    feats[:, 5] = np.where(feats[:, 5] == 2, np.inf, feats[:, 5])
+    feats[:, 6] = np.where(feats[:, 6] == 2, -0.0, 0.0)
+    feats[:, 7] = np.where(feats[:, 7] == 2, -np.inf, feats[:, 7])
+    feats_sorted = feats[np.asarray(js.sort_order)]
+    ids = np.asarray(js.sorted_ids)
+    np.testing.assert_array_equal(ts.sorted_ids.numpy(), ids)
+    total, want = sk._winner_mask(jnp.asarray(feats_sorted),
+                                  jnp.asarray(ids))
+    out, mask = tseg.segment_max_winner(_t(feats_sorted), ts.sorted_ids,
+                                        ts.sorted_starts, ts.voxel_counts)
+    live = ids < js.max_voxels
+    assert (~live).any()
+    np.testing.assert_array_equal(mask.numpy()[live], np.asarray(want)[live])
+    assert not mask.numpy()[~live].any()
+    np.testing.assert_array_equal(out.numpy()[ids[live]],
+                                  np.asarray(total)[live])
+    assert int(mask.sum()) < int((feats_sorted[live]
+                                  == out.numpy()[ids[live]]).sum())
 
 
 @pytest.mark.parametrize('impl', ['pallas', 'xla'])
