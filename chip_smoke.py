@@ -46,7 +46,9 @@ Phases, each printing its own lines (any failure exits non-zero):
   (c) TINY predict and one TINY train step on the card against the same
       port on the CPU, in f32 and in bf16 (card bf16 held to CPU bf16 at
       under half of CPU bf16's distance from CPU f32; the same rule run on
-      the card's f32 must fail);
+      the card's f32 must fail); then the same for the TINY hard model
+      (``voxelize_mode='hard'``) on ``crowded_batch``, where pillars
+      overflow ``max_points`` and live pillars overflow ``max_voxels``;
   (d) the f32 predict path: PointPillars KITTI 3-class at full width
       (dynamic voxelize on the plain canvas, ``s2d_canvas='off'``, batch
       4 x 16384 points, random weights from a seed with a zero cls bias so
@@ -69,8 +71,25 @@ Phases, each printing its own lines (any failure exits non-zero):
       steps;
   (t16) the bf16 train path (s2d canvas, K7) the same way: sparse targets,
       then dense targets (K3 on the f32 cast of the bf16 box map);
-  (e) one JSON line listing the kernels, the card's name and power limit
-      from nvidia-smi, and the result line.
+  (h) the hard paths, the KITTI config's own mode and the entry point's
+      default (``PointPillarsDetector()``: the packed encoder, always the
+      plain canvas, K2): phase (b) on their inputs first (K2 on the pillar
+      rows of an f32 and a bf16 predict and train step, equal to its plain
+      version, the predicts' timed; K1 on the sorted encoder's inputs: the
+      3-channel cluster sum, the 64-channel max of rank-masked rows, the
+      winner form in a step, the bf16 predict's max on the f32 cast of its
+      rows and that cast's time, with the body each call takes); then the
+      f32 predict answering 6 requests (zero cls bias; K2, K5, K6 once
+      each, K1 never) with its profile;
+  (h16) the same in bf16 (K2 on bf16 rows); then in f32 and in bf16 the
+      sorted encoder against the packed one with the same weights (pillar
+      rows, predictions) and the two predicts timed in turns;
+  (ht), (ht16) the hard train step in f32 and bf16: 3 warm-up and 10 timed
+      sparse-target steps (K4 19 + 19, K2 1, K1 never), 3 dense-target
+      steps (K3) and a profile of 3 steps;
+  (e) one JSON line listing the kernels (with their launches on the hard
+      paths and K2's and K1's numbers there), the card's name and power
+      limit from nvidia-smi, and the result line.
 
 f32 runs with TF32 off for matmuls and cuDNN convolutions; the bf16 paths
 compute in bf16 on f32 parameters, as the JAX package's mixed precision.
@@ -196,6 +215,24 @@ DENSE_BF16_LAUNCHES = {**TRAIN_BF16_LAUNCHES, **DENSE_LAUNCHES}
 # the f32 paths' model, and the bf16 one
 F32_MODEL = dict(voxelize_mode='dynamic', s2d_canvas='off')
 BF16_MODEL = dict(voxelize_mode='dynamic', compute_dtype='bfloat16')
+# the hard paths: the KITTI config's own mode and the port's default
+# (PointPillarsDetector() with no model config: the packed encoder), in f32
+# and bf16, and the sorted encoder; always the plain canvas (K2).  K1 runs
+# on the sorted encoder only: a predict reduces twice (the 3-channel
+# cluster sum, the 64-channel max), a train step sums once and takes the
+# max's winner form once
+HARD16_MODEL = dict(compute_dtype='bfloat16')
+SORTED_MODEL = dict(hard_encoder='sorted')
+NO_K1 = {'segment_reduce': 0, 'segment_reduce_mapback': 0,
+         'segment_max_winner': 0}
+HARD_PREDICT_LAUNCHES = {'bev_splat': 1, 'bev_splat_pairs': 0,
+                         'rotated_iou': 1, 'nms_sweep': 1, **NO_K1}
+HARD_TRAIN_LAUNCHES = {'bn_moments': 19, 'bn_grad_moments': 19,
+                       'bev_splat': 1, 'bev_splat_pairs': 0, **NO_K1}
+HARD_DENSE_LAUNCHES = {**HARD_TRAIN_LAUNCHES, **DENSE_LAUNCHES}
+SORTED_PREDICT_LAUNCHES = dict(HARD_PREDICT_LAUNCHES, segment_reduce=2)
+SORTED_TRAIN_LAUNCHES = dict(HARD_TRAIN_LAUNCHES, segment_reduce=1,
+                             segment_max_winner=1)
 
 TINY_MODEL = dict(
     voxel_size=(0.4, 0.4, 4.0),
@@ -214,6 +251,12 @@ TINY_HEAD = dict(test_cfg=dict(use_rotate_nms=True, nms_thr=0.01,
                                score_thr=0.05, nms_pre=128, max_num=32))
 TINY_F32 = dict(TINY_MODEL, s2d_canvas='off')
 TINY_BF16 = dict(TINY_MODEL, compute_dtype='bfloat16')
+TINY_HARD = dict(TINY_MODEL, voxelize_mode='hard')
+TINY_HARD16 = dict(TINY_HARD, compute_dtype='bfloat16')
+# the hard TINY phases' batch (crowded_batch): 12 piles of 40 points a
+# sample against max_points 16, ~1,600 live pillars a sample against
+# max_voxels 1,024
+TINY_HARD_SEED = 6
 # Phase (c) in bf16: the card's bf16 run is held to the CPU's bf16 run.
 # Each head map, loss term and parameter gradient must be nearer to CPU
 # bf16 than GAP_SHARE of CPU bf16's own distance from CPU f32 (the rule of
@@ -224,6 +267,8 @@ TINY_BF16 = dict(TINY_MODEL, compute_dtype='bfloat16')
 GAP_SHARE = 0.5
 BF16_MAP_TOL = 2e-2
 BATCH, POINTS, SEEDS, ROUNDS = 4, 16384, (0, 1, 2), 2
+# passes of a splat and of its yardstick, timed in turns
+YARDSTICK_ROUNDS = 6
 WARM_STEPS, TIMED_STEPS, DENSE_STEPS, LR = 3, 10, 3, 1e-3
 
 
@@ -489,15 +534,17 @@ def kernel_checks(inputs, card, note=''):
         live = lin < ncell
         lin_live, feats_live = lin[live].long(), feats[live]
         canvas = torch.zeros_like(ref)
-        record('bev_splat', lambda: voxelize.bev_splat(feats, lin, ncell),
-               lambda: voxelize.bev_splat_plain(feats, lin, ncell),
-               lambda: canvas.zero_().index_copy_(0, lin_live, feats_live),
+        k2 = lambda: voxelize.bev_splat(feats, lin, ncell)  # noqa: E731
+        lib = lambda: canvas.zero_().index_copy_(  # noqa: E731
+            0, lin_live, feats_live)
+        record('bev_splat', k2,
+               lambda: voxelize.bev_splat_plain(feats, lin, ncell), lib,
                float((out - ref).abs().max()), 0.0,
                feats.numel() * 4 + lin.numel() * 4
                + ncell * feats.shape[1] * 4, 0, 50, 10)
         check(torch.equal(canvas, ref), 'index_copy_ yardstick disagrees')
         print_splat_plan('bev_splat', feats, lin, out, 1, card)
-        check_yardstick(results, 'bev_splat', '')
+        check_yardstick(results, 'bev_splat', '', k2, lib, card)
         print(f'(b) bev_splat: zero fill of the canvas alone '
               f'{cuda_ms(canvas.zero_, 50):.4f} ms '
               f'({ncell * feats.shape[1] * 4} bytes) [{card}]')
@@ -822,30 +869,44 @@ def splat_densities(feats, lin, ncell, card):
 def print_splat_plan(name, feats, ids, out, halves, card, note=''):
     """Phase (b): the grid and store width the splat runs with on this
     card, and its blocks' runs over ``ids`` (``voxelize.splat_runs``): the
-    most tiles and rows a block takes, and the largest block cost (half-rows
-    written plus rows read) against the mean."""
+    most key rows and rows a block takes, and the largest block cost
+    (half-rows written plus rows read) against the mean."""
     from mmdet3d_gaussian_tpu_torch.ops import voxelize
     plan = voxelize.splat_plan(feats, out, halves)
     first, below = voxelize.splat_runs(ids, out.shape[0], halves,
                                        plan['grid'])
-    tiles, got = first.diff(), below.diff()
-    cost = 256 * tiles + got
+    keys, got = first.diff(), below.diff()
+    cost = halves * keys + got
     print(f'(b) {name} plan ({feats.dtype}, {tuple(out.shape)} canvas'
           f'{note}): grid {plan["grid"]} blocks, {plan["tiles"]} tiles of '
           f'256 half-rows, {plan["vector_bytes"]}-byte stores, slot width '
-          f'shift {plan["shift"]}; runs cut by cost: at most '
-          f'{int(tiles.max())} tiles and {int(got.max())} rows a block, '
+          f'shift {plan["shift"]}; runs cut by cost at key rows: at most '
+          f'{int(keys.max())} key rows and {int(got.max())} rows a block, '
           f'largest block cost / mean '
-          f'{float(cost.max() / cost.float().mean()):.3f} [{card}]')
+          f'{float(cost.max() / cost.float().mean()):.4f} [{card}]')
 
 
-def check_yardstick(results, name, note):
+def check_yardstick(results, name, note, kernel, library, card,
+                    rounds=YARDSTICK_ROUNDS):
     """Phase (b): a splat must be no slower than ``zero_`` +
-    ``index_copy_`` on the same inputs."""
-    r = results[name]
-    check(r['ms'] <= r['library_ms'],
-          f'{name}{note}: {r["ms"]:.4f} ms, slower than zero_ + index_copy_ '
-          f'({r["library_ms"]:.4f} ms)')
+    ``index_copy_`` on the same inputs.  The two are timed in turns
+    (kernel, yardstick, yardstick, kernel, ...; ``rounds`` device-time
+    passes of 20 calls each) and compared by their medians, so that a drift
+    of the card's clocks between two passes does not decide; the medians
+    become the entry's ``ms`` and ``library_ms``."""
+    times = {'ms': [], 'library_ms': []}
+    fns = (('ms', kernel), ('library_ms', library))
+    for r in range(rounds):
+        for key, fn in (fns if r % 2 == 0 else fns[::-1]):
+            times[key].append(device_ms(fn, 20))
+    res = results[name]
+    res.update({k: statistics.median(v) for k, v in times.items()})
+    print(f'(b) {name}{note}: kernel {res["ms"]:.4f} ms, zero_ + '
+          f'index_copy_ {res["library_ms"]:.4f} ms (medians of {rounds} '
+          f'passes in turns) [{card}]')
+    check(res['ms'] <= res['library_ms'],
+          f'{name}{note}: {res["ms"]:.4f} ms, slower than zero_ + '
+          f'index_copy_ ({res["library_ms"]:.4f} ms)')
 
 
 def falloff_cells(n, trunk, seed=0):
@@ -866,15 +927,11 @@ def falloff_cells(n, trunk, seed=0):
     return cells.sort().values
 
 
-def splat_falloff(k2_inputs, trunk, card):
-    """Phase (b): K2 and K7, f32 and bf16, on the predict's rows placed at
-    cells whose density falls as 1 / r^2 from the sensor
-    (:func:`falloff_cells`, the K7 ids the same cells on the s2d canvas):
-    equal to their plain versions, and no slower than ``zero_`` +
-    ``index_copy_``."""
-    from mmdet3d_gaussian_tpu_torch.ops import voxelize
-    feats, lin, ncell = k2_inputs
-    n = int((lin < ncell).sum())
+def falloff_ids(n, v, ncell, trunk):
+    """The ids of ``v`` rows, ``n`` of them live at :func:`falloff_cells`
+    and the rest past the canvas: (K2's cell ids on the ``ncell`` plain
+    canvas; K7's paired-cell ids and parities on the s2d canvas of the same
+    cells), int32."""
     cells = falloff_cells(n, trunk)
     nx, ny = trunk.nx, trunk.ny
     b, rem = cells // (nx * ny), cells % (nx * ny)
@@ -883,12 +940,25 @@ def splat_falloff(k2_inputs, trunk, card):
     half = ((b * (ny // 2) + iy // 2) * (nx // 2) + ix // 2) * 4 + parity
     half = half.sort().values                  # half-row ids 2 lin2 + par
     ncell2 = ncell // 2
-    pad = lin.shape[0] - n
+    pad = v - n
     k2_ids = torch.cat([cells, torch.full((pad,), ncell, device='cuda')])
     lin2 = torch.cat([half // 2, torch.full((pad,), ncell2, device='cuda')])
     par = torch.cat([half % 2, torch.zeros(pad, device='cuda',
                                            dtype=torch.long)])
-    k2_ids, lin2, par = k2_ids.int(), lin2.int(), par.int()
+    return k2_ids.int(), lin2.int(), par.int()
+
+
+def splat_falloff(k2_inputs, trunk, card):
+    """Phase (b): K2 and K7, f32 and bf16, on the predict's rows placed at
+    cells whose density falls as 1 / r^2 from the sensor
+    (:func:`falloff_cells`, the K7 ids the same cells on the s2d canvas):
+    equal to their plain versions, and no slower than ``zero_`` +
+    ``index_copy_``."""
+    from mmdet3d_gaussian_tpu_torch.ops import voxelize
+    feats, lin, ncell = k2_inputs
+    k2_ids, lin2, par = falloff_ids(int((lin < ncell).sum()), lin.shape[0],
+                                    ncell, trunk)
+    ncell2 = ncell // 2
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         rows = feats.to(dtype)
@@ -898,29 +968,25 @@ def splat_falloff(k2_inputs, trunk, card):
               f'bev_splat disagrees with its plain version{note}')
         live = k2_ids < ncell
         lin_live, rows_live = k2_ids[live].long(), rows[live]
-        ms = device_ms(lambda: voxelize.bev_splat(rows, k2_ids, ncell), 20)
-        lib = device_ms(lambda: out.zero_().index_copy_(0, lin_live,
-                                                        rows_live), 20)
-        results['bev_splat'] = dict(ms=ms, library_ms=lib)
-        print(f'(b) bev_splat{note}: kernel {ms:.4f} ms, zero_ + '
-              f'index_copy_ {lib:.4f} ms [{card}]')
+        results['bev_splat'] = {}
         print_splat_plan('bev_splat', rows, k2_ids, out, 1, card, note)
-        check_yardstick(results, 'bev_splat', note)
+        check_yardstick(
+            results, 'bev_splat', note,
+            lambda: voxelize.bev_splat(rows, k2_ids, ncell),
+            lambda: out.zero_().index_copy_(0, lin_live, rows_live), card)
         out = voxelize.bev_splat_pairs(rows, lin2, par, ncell2)
         check(torch.equal(out, voxelize.bev_splat_pairs_plain(
             rows, lin2, par, ncell2)),
             f'bev_splat_pairs disagrees with its plain version{note}')
         ids = voxelize.pair_rows(lin2, par, ncell2)[live]
         half_rows = out.view(2 * ncell2, -1)
-        ms = device_ms(lambda: voxelize.bev_splat_pairs(rows, lin2, par,
-                                                        ncell2), 20)
-        lib = device_ms(lambda: half_rows.zero_().index_copy_(0, ids,
-                                                              rows_live), 20)
-        results['bev_splat_pairs'] = dict(ms=ms, library_ms=lib)
-        print(f'(b) bev_splat_pairs{note}: kernel {ms:.4f} ms, zero_ + '
-              f'index_copy_ on the half-row view {lib:.4f} ms [{card}]')
+        results['bev_splat_pairs'] = {}
         print_splat_plan('bev_splat_pairs', rows, lin2, out, 2, card, note)
-        check_yardstick(results, 'bev_splat_pairs', note)
+        check_yardstick(
+            results, 'bev_splat_pairs', note + ' (yardstick on the half-row '
+            'view)',
+            lambda: voxelize.bev_splat_pairs(rows, lin2, par, ncell2),
+            lambda: half_rows.zero_().index_copy_(0, ids, rows_live), card)
 
 
 def splat_pairs_check(results, args, card, note):
@@ -942,16 +1008,18 @@ def splat_pairs_check(results, args, card, note):
     ids, rows_live = voxelize.pair_rows(lin2, par, ncell2)[live], feats[live]
     canvas = torch.zeros_like(ref)
     half_rows = canvas.view(2 * ncell2, c)
+    k7 = lambda: voxelize.bev_splat_pairs(  # noqa: E731
+        feats, lin2, par, ncell2)
+    lib = lambda: half_rows.zero_().index_copy_(  # noqa: E731
+        0, ids, rows_live)
     report(results, 'bev_splat_pairs', card, err, '0, equal',
-           exact and err == 0,
-           lambda: voxelize.bev_splat_pairs(feats, lin2, par, ncell2),
+           exact and err == 0, k7,
            lambda: voxelize.bev_splat_pairs_plain(feats, lin2, par, ncell2),
-           lambda: half_rows.zero_().index_copy_(0, ids, rows_live),
-           50, 10, feats.numel() * esize + 2 * lin2.numel() * 4
+           lib, 50, 10, feats.numel() * esize + 2 * lin2.numel() * 4
            + ncell2 * 2 * c * esize, 0, f' exact_equal={exact}{note}')
     check(torch.equal(canvas, ref), 'index_copy_ yardstick disagrees')
     print_splat_plan('bev_splat_pairs', feats, lin2, out, 2, card)
-    check_yardstick(results, 'bev_splat_pairs', note)
+    check_yardstick(results, 'bev_splat_pairs', note, k7, lib, card)
 
 
 def bf16_kernel_checks(pred_inputs, train_inputs, k2_inputs, card):
@@ -988,15 +1056,16 @@ def bf16_kernel_checks(pred_inputs, train_inputs, k2_inputs, card):
     live = lin < ncell
     lin_live, f16_live = lin[live].long(), f16[live]
     canvas16 = torch.zeros_like(ref)
+    k2 = lambda: voxelize.bev_splat(f16, lin, ncell)  # noqa: E731
+    lib = lambda: canvas16.zero_().index_copy_(  # noqa: E731
+        0, lin_live, f16_live)
     report(bf16, 'bev_splat', card, float((out.float() - ref.float()).abs()
                                             .max()), '0, equal', exact,
-           lambda: voxelize.bev_splat(f16, lin, ncell),
-           lambda: voxelize.bev_splat_plain(f16, lin, ncell),
-           lambda: canvas16.zero_().index_copy_(0, lin_live, f16_live),
+           k2, lambda: voxelize.bev_splat_plain(f16, lin, ncell), lib,
            50, 10, f16.numel() * 2 + lin.numel() * 4
            + ncell * f16.shape[1] * 2, 0, f' exact_equal={exact} (bf16)')
     print_splat_plan('bev_splat', f16, lin, out, 1, card)
-    check_yardstick(bf16, 'bev_splat', ' (bf16)')
+    check_yardstick(bf16, 'bev_splat', ' (bf16)', k2, lib, card)
     bf16.update(kernel_checks(pred_inputs, card, ' (bf16 predict)'))
     bf16.update(train_kernel_checks(train_inputs, card,
                                     ' (bf16 dense step)'))
@@ -1031,18 +1100,40 @@ def bf16_bn_eval(x, card):
           f'(largest relative difference {err:.3g}) [{card}]')
 
 
-def tiny_card_vs_cpu(card):
+def tiny_batch(seed, dev, hard=False):
+    """The TINY phases' batch: ``synthetic_batch`` (2 x 1,024 points), or
+    for the hard paths ``crowded_batch`` (2 x 2,048, seed TINY_HARD_SEED),
+    so that hard voxelize truncates pillars and drops pillars on the
+    card."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import (crowded_batch,
+                                                            synthetic_batch)
+    if hard:
+        return crowded_batch(2, 2048, 8, seed=TINY_HARD_SEED,
+                             pc_range=TINY_MODEL['point_cloud_range'],
+                             voxel_size=TINY_MODEL['voxel_size'], device=dev)
+    return synthetic_batch(2, 1024, 8, seed=seed,
+                           pc_range=TINY_MODEL['point_cloud_range'],
+                           device=dev)
+
+
+def tiny_card_vs_cpu(card, cfg=TINY_F32, hard=False):
     """Phase (c): the same seeded TINY detector on the card and the CPU."""
-    from mmdet3d_gaussian_tpu_torch.engine.detector import (
-        PointPillarsDetector, synthetic_batch)
+    from mmdet3d_gaussian_tpu_torch.engine.detector import PointPillarsDetector
+    tag = 'TINY hard' if hard else 'TINY'
     outs = {}
     for dev in ('cuda', 'cpu'):
-        det = PointPillarsDetector(TINY_F32, TINY_HEAD, device=dev, seed=1)
+        det = PointPillarsDetector(cfg, TINY_HEAD, device=dev, seed=1)
         with torch.no_grad():
             det.trunk.bbox_head.conv_cls.bias.zero_()
-        batch = synthetic_batch(2, 1024, 8, seed=3,
-                                pc_range=TINY_MODEL['point_cloud_range'],
-                                device=dev)
+        batch = tiny_batch(3, dev, hard)
+        if hard:
+            with torch.inference_mode():
+                sc = det.trunk.pillars(batch['points'],
+                                       batch['points_mask'])[2]
+            check(int(sc.num_overflow) > 0
+                  and int(sc.voxel_counts.max())
+                  > cfg['max_points_per_voxel'],
+                  'the hard TINY batch neither drops nor truncates')
         maps = [m.cpu() for m in det.apply_eval(batch)]
         dets = [d.cpu() for d in det.predict(batch)]
         outs[dev] = (maps, dets)
@@ -1051,12 +1142,12 @@ def tiny_card_vs_cpu(card):
     map_err = max(float((a - b).abs().max()) for a, b in zip(gm, cm))
     valid_eq = torch.equal(gd[3], cd[3])
     labels_eq = valid_eq and torch.equal(gd[2][gd[3]], cd[2][cd[3]])
-    print(f'(c) TINY predict card vs CPU: head-map max_abs_err={map_err:.3g} '
-          f'(tol {MAP_TOL:g}) valid_equal={valid_eq} labels_equal={labels_eq} '
-          f'valid={int(gd[3].sum())} [{card}]')
-    check(map_err <= MAP_TOL, 'TINY head maps differ between card and CPU')
-    check(valid_eq and labels_eq, 'TINY detections differ')
-    check(int(gd[3].sum()) > 0, 'TINY predict kept no detection')
+    print(f'(c) {tag} predict card vs CPU: head-map max_abs_err='
+          f'{map_err:.3g} (tol {MAP_TOL:g}) valid_equal={valid_eq} '
+          f'labels_equal={labels_eq} valid={int(gd[3].sum())} [{card}]')
+    check(map_err <= MAP_TOL, f'{tag} head maps differ between card and CPU')
+    check(valid_eq and labels_eq, f'{tag} detections differ')
+    check(int(gd[3].sum()) > 0, f'{tag} predict kept no detection')
     ref = cd[0][cd[3]][:, :7]
     diff = (gd[0][gd[3]][:, :7] - ref).abs()
     diag = float(torch.sqrt(anchors[:, 3] ** 2 + anchors[:, 4] ** 2).max())
@@ -1069,44 +1160,42 @@ def tiny_card_vs_cpu(card):
     tol = MAP_TOL * deriv + ROUND_TOL * ref.abs()
     for col, name in enumerate(('x', 'y', 'z', 'w', 'l', 'h', 'yaw')):
         i = int(diff[:, col].argmax())
-        print(f'(c) TINY box {name}: max_abs_err={float(diff[i, col]):.3g} '
-              f'at |box|={float(ref[i, col].abs()):.4g}, tol there '
+        print(f'(c) {tag} box {name}: max_abs_err='
+              f'{float(diff[i, col]):.3g} at |box|='
+              f'{float(ref[i, col].abs()):.4g}, tol there '
               f'{float(tol[i, col]):.3g}; largest err/tol '
               f'{float((diff[:, col] / tol[:, col]).max()):.3g}')
     score_err = float((gd[1][gd[3]] - cd[1][cd[3]]).abs().max())
-    print(f'(c) TINY scores max_abs_err={score_err:.3g} (tol 1e-5) [{card}]')
-    check(bool((diff <= tol).all()), 'TINY boxes differ')
-    check(score_err <= 1e-5, 'TINY scores differ')
+    print(f'(c) {tag} scores max_abs_err={score_err:.3g} (tol 1e-5) '
+          f'[{card}]')
+    check(bool((diff <= tol).all()), f'{tag} boxes differ')
+    check(score_err <= 1e-5, f'{tag} scores differ')
 
 
-def tiny_predict(cfg, dev):
+def tiny_predict(cfg, dev, hard=False):
     """Head maps and detections of the TINY detector (seed 1, zero cls
     bias) on ``dev``."""
-    from mmdet3d_gaussian_tpu_torch.engine.detector import (
-        PointPillarsDetector, synthetic_batch)
+    from mmdet3d_gaussian_tpu_torch.engine.detector import PointPillarsDetector
     det = PointPillarsDetector(cfg, TINY_HEAD, device=dev, seed=1)
     with torch.no_grad():
         det.trunk.bbox_head.conv_cls.bias.zero_()
-    batch = synthetic_batch(2, 1024, 8, seed=3,
-                            pc_range=TINY_MODEL['point_cloud_range'],
-                            device=dev)
+    batch = tiny_batch(3, dev, hard)
     return dict(maps=[m.cpu() for m in det.apply_eval(batch)],
                 dets=[d.cpu() for d in det.predict(batch)])
 
 
-def tiny_step(cfg, dev, sums=None):
+def tiny_step(cfg, dev, sums=None, hard=False):
     """One TINY train step (seed 2) on ``dev``: loss terms, parameter
     gradients and the output of every leaf module in its forward (in call
     order).  ``sums``: an empty list, which the forward BatchNorm sums of
-    the step (K4's ``moments`` on the card, in call order) are appended to;
-    or such a list, filled, whose sums then stand in for the step's own."""
-    from mmdet3d_gaussian_tpu_torch.engine.detector import (
-        PointPillarsDetector, synthetic_batch)
+    the step (K4's ``moments`` on the card, in call order; on the hard
+    paths the pillar encoder's ``masked_sums`` too) are appended to; or
+    such a list, filled, whose sums then stand in for the step's own."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import PointPillarsDetector
+    from mmdet3d_gaussian_tpu_torch.models import voxel_encoders
     from mmdet3d_gaussian_tpu_torch.ops import bn
     det = PointPillarsDetector(cfg, TINY_HEAD, device=dev, seed=2)
-    batch = synthetic_batch(2, 1024, 8, seed=0,
-                            pc_range=TINY_MODEL['point_cloud_range'],
-                            device=dev)
+    batch = tiny_batch(0, dev, hard)
     acts, originals = {}, {}
     replay = iter(list(sums)) if sums else None
 
@@ -1125,12 +1214,28 @@ def tiny_step(cfg, dev, sums=None):
         check(out[0].shape == x.shape[1:2], 'replayed BatchNorm sums out of '
               'step')
         return out
+
+    def masked_sums(flat, mask=None):
+        # the encoder's statistics are differentiated through: a replayed
+        # sum keeps the gradient of the run's own
+        out = originals['masked_sums'](flat, mask)
+        if replay is None:
+            sums.append(tuple(torch.as_tensor(o).detach().cpu()
+                              for o in out))
+            return out
+        card = next(replay)
+        check(card[1].shape == flat.shape[1:2], 'replayed encoder sums out '
+              'of step')
+        return tuple(o + (c - o).detach() for o, c in zip(out, card))
     hooks = [m.register_forward_hook(keep(n))
              for n, m in det.trunk.named_modules()
              if n and not list(m.children())]
     if sums is not None:
         originals['moments'] = bn.moments
         bn.moments = moments
+        if hard:
+            originals['masked_sums'] = voxel_encoders.masked_sums
+            voxel_encoders.masked_sums = masked_sums
     try:
         total, losses = det.loss(det.apply_train(batch), batch)
         params = dict(det.trunk.named_parameters())
@@ -1139,7 +1244,8 @@ def tiny_step(cfg, dev, sums=None):
         for h in hooks:
             h.remove()
         for name, fn in originals.items():
-            setattr(bn, name, fn)
+            setattr(voxel_encoders if name == 'masked_sums' else bn, name,
+                    fn)
     check(replay is None or next(replay, None) is None,
           'replayed BatchNorm sums left over')
     return dict(acts=acts,
@@ -1172,7 +1278,8 @@ def ratios(rows):
     return [e / max(g, 1e-30) for _, e, g in rows]
 
 
-def tiny_bf16_card_vs_cpu(card):
+def tiny_bf16_card_vs_cpu(card, cfg16=TINY_BF16, cfg32=TINY_MODEL,
+                          hard=False):
     """Phase (c) in bf16: the TINY detector in bf16 (s2d canvas, through
     ``'auto'``) on the card against bf16 on the CPU.
 
@@ -1187,24 +1294,29 @@ def tiny_bf16_card_vs_cpu(card):
     every head map (predict), loss term and gradient of the card must be
     nearer to it than GAP_SHARE of its distance from the CPU's f32 step, and
     within BF16_MAP_TOL.  The same procedure from the card's f32 run must
-    fail that rule: it is what a path that skipped its casts would give."""
+    fail that rule: it is what a path that skipped its casts would give.
+    On the hard paths (``hard``: the TINY hard model on the crowded batch)
+    the pillar encoder's BatchNorm sums are replayed too: its bf16 linear
+    layer's output is normalized with them."""
+    tag = 'TINY hard bf16' if hard else 'TINY bf16'
     runs, sums16, sums32 = {}, [], []
     for name, cfg, dev, sums in (
-            ('card', TINY_BF16, 'cuda', sums16),
-            ('card_f32', TINY_MODEL, 'cuda', sums32),
-            ('cpu', TINY_BF16, 'cpu', None),
-            ('cpu_f32', TINY_MODEL, 'cpu', None),
-            ('cpu_card_sums', TINY_BF16, 'cpu', sums16),
-            ('cpu_card_f32_sums', TINY_BF16, 'cpu', sums32)):
+            ('card', cfg16, 'cuda', sums16),
+            ('card_f32', cfg32, 'cuda', sums32),
+            ('cpu', cfg16, 'cpu', None),
+            ('cpu_f32', cfg32, 'cpu', None),
+            ('cpu_card_sums', cfg16, 'cpu', sums16),
+            ('cpu_card_f32_sums', cfg16, 'cpu', sums32)):
         runs[name] = (runs['cpu'][0] if name.startswith('cpu_card')
-                      else tiny_predict(cfg, dev), tiny_step(cfg, dev, sums))
+                      else tiny_predict(cfg, dev, hard),
+                      tiny_step(cfg, dev, sums, hard))
     g16, c16 = runs['card'], runs['cpu']
     check(all(m.dtype == torch.bfloat16 for m in g16[0]['maps']
               + c16[0]['maps']), 'maps not bf16')
     gd = g16[0]['dets']
     check(int(gd[3].sum()) > 0 and bool(torch.isfinite(gd[0]).all()),
-          'TINY bf16 predict kept no finite detection')
-    print(f'(c) TINY bf16 detections: {int(gd[3].sum())} valid on the card, '
+          f'{tag} predict kept no finite detection')
+    print(f'(c) {tag} detections: {int(gd[3].sum())} valid on the card, '
           f'{int(c16[0]["dets"][3].sum())} on the CPU')
     for ref, what in (('cpu', 'its own sums'),
                       ('cpu_card_sums', "the card's BatchNorm sums")):
@@ -1213,14 +1325,14 @@ def tiny_bf16_card_vs_cpu(card):
                   for n, a in g16[1]['acts'].items()]
         shown = [d for d in differ if d[1] > 0]
         shown = shown[:3] + shown[-1:] if len(shown) > 4 else shown
-        print(f'(c) TINY bf16 train forward, card vs CPU with {what}: '
+        print(f'(c) {tag} train forward, card vs CPU with {what}: '
               f'{sum(d[1] == 0 for d in differ)} of {len(differ)} leaf '
               f'outputs equal; of the others, first and last (max error / '
               f'largest value, share of elements that differ): '
               + '; '.join(f'{n} {e:.3g} {sh:.3g}' for n, e, sh in shown))
     plain = against(g16, c16, runs['cpu_f32'])
     top = max(plain, key=lambda r: r[1])
-    print(f'(c) TINY bf16 card vs CPU with its own BatchNorm sums (recorded, '
+    print(f'(c) {tag} card vs CPU with its own BatchNorm sums (recorded, '
           f'not checked): error / (CPU bf16 vs CPU f32 gap) up to '
           f'{max(ratios(plain)):.3g}, median '
           f'{statistics.median(ratios(plain)):.3g} over {len(plain)} values; '
@@ -1231,19 +1343,19 @@ def tiny_bf16_card_vs_cpu(card):
                       ('gradients', lambda r: r[0] in c16[1]['grads'])):
         part = sorted((r for r in rows if sel(r)),
                       key=lambda r: -r[1] / max(r[2], 1e-30))
-        print(f'(c) TINY bf16 {kind}, card vs CPU bf16 with the card\'s '
+        print(f'(c) {tag} {kind}, card vs CPU bf16 with the card\'s '
               f'BatchNorm sums (error, CPU bf16 vs f32 gap, ratio; limit '
               f'{GAP_SHARE:g}), largest ratios: '
               + '; '.join(f'{n} {e:.3g} {g:.3g} {e / max(g, 1e-30):.3g}'
                           for n, e, g in part[:3]) + f' [{card}]')
     mutant = ratios(against(runs['card_f32'], runs['cpu_card_f32_sums'],
                             runs['cpu_f32']))
-    print(f'(c) TINY f32 on the card by the same procedure: ratios from '
+    print(f'(c) {tag}: f32 on the card by the same procedure: ratios from '
           f'{min(mutant):.3g} to {max(mutant):.3g} over {len(mutant)} values '
           f'(each must reach {GAP_SHARE:g})')
     bad = [r for r in rows if not r[1] < GAP_SHARE * r[2]
            or (not r[0] in c16[1]['grads'] and r[1] > BF16_MAP_TOL)]
-    check(not bad, f'TINY bf16 card and CPU differ: {bad[:5]}')
+    check(not bad, f'{tag} card and CPU differ: {bad[:5]}')
     check(min(mutant) >= GAP_SHARE,
           'the bf16 rule passes the card f32 run: it cannot see a missing '
           'cast')
@@ -1417,7 +1529,7 @@ def train_kernel_checks(inputs, card, note=''):
     return results
 
 
-def tiny_train_card_vs_cpu(card):
+def tiny_train_card_vs_cpu(card, cfg=TINY_F32, hard=False):
     """Phase (c): one TINY train step (sparse targets) from the same seed,
     weights and batch on the card and on the CPU: loss terms, every
     parameter gradient, and after the AdamW step the running statistics,
@@ -1430,14 +1542,12 @@ def tiny_train_card_vs_cpu(card):
     its parameter's largest, far above the gradient tolerance, so card and
     CPU agree on its sign; there a sign flip or a dropped update (lr apart)
     fails a tolerance of 1e-2 lr."""
-    from mmdet3d_gaussian_tpu_torch.engine.detector import (
-        PointPillarsDetector, synthetic_batch)
+    from mmdet3d_gaussian_tpu_torch.engine.detector import PointPillarsDetector
+    tag = 'TINY hard' if hard else 'TINY'
     out = {}
     for dev in ('cuda', 'cpu'):
-        det = PointPillarsDetector(TINY_F32, TINY_HEAD, device=dev, seed=2)
-        batch = synthetic_batch(2, 1024, 8, seed=0,
-                                pc_range=TINY_MODEL['point_cloud_range'],
-                                device=dev)
+        det = PointPillarsDetector(cfg, TINY_HEAD, device=dev, seed=2)
+        batch = tiny_batch(0, dev, hard)
         total, losses = det.loss(det.apply_train(batch), batch)
         params = dict(det.trunk.named_parameters())
         grads = torch.autograd.grad(total, list(params.values()))
@@ -1450,7 +1560,7 @@ def tiny_train_card_vs_cpu(card):
                     {k: (state.opt_state.mu[k].cpu(),
                          state.opt_state.nu[k].cpu()) for k in params})
     (lc, gc, sc, mc), (lp, gp, sp, mp) = out['cuda'], out['cpu']
-    check(min(lp.values()) > 0, f'a TINY loss term is 0: {lp}')
+    check(min(lp.values()) > 0, f'a {tag} loss term is 0: {lp}')
     loss_rel = max(abs(lc[k] - lp[k]) / abs(lp[k]) for k in lp)
     grad_rel = max(float((gc[k] - gp[k]).abs().max() / gp[k].abs().max())
                    for k in gp)
@@ -1468,7 +1578,7 @@ def tiny_train_card_vs_cpu(card):
         w_err = max(w_err, float(diff[sel].max()))
         w_all = max(w_all, float(diff.max()))
         n_sel, n_all = n_sel + int(sel.sum()), n_all + sel.numel()
-    print(f'(c) TINY train step card vs CPU: loss terms {lc} vs {lp}, '
+    print(f'(c) {tag} train step card vs CPU: loss terms {lc} vs {lp}, '
           f'largest relative error {loss_rel:.3g} (tol 1e-4); gradients '
           f'max error / max |grad| per parameter {grad_rel:.3g} (tol 1e-4); '
           f'running statistics max_abs_err {stat_err:.3g} (tol 1e-4); '
@@ -1477,12 +1587,13 @@ def tiny_train_card_vs_cpu(card):
           f'|mu| >= 1e-2 max ({n_sel} of {n_all}) max_abs_err {w_err:.3g} '
           f'(tol {1e-2 * LR:g}), all weights {w_all:.3g} (lr {LR:g}) '
           f'[{card}]')
-    check(loss_rel <= 1e-4, 'TINY train losses differ')
-    check(grad_rel <= 1e-4, 'TINY train gradients differ')
-    check(stat_err <= 1e-4, 'TINY running statistics differ')
-    check(mu_rel <= 1e-4 and nu_rel <= 2e-4, 'TINY Adam moments differ')
-    check(w_err <= 1e-2 * LR, 'TINY weights after the step differ')
-    check(w_all <= 2.5 * LR, 'a TINY weight moved more than one Adam step')
+    check(loss_rel <= 1e-4, f'{tag} train losses differ')
+    check(grad_rel <= 1e-4, f'{tag} train gradients differ')
+    check(stat_err <= 1e-4, f'{tag} running statistics differ')
+    check(mu_rel <= 1e-4 and nu_rel <= 2e-4, f'{tag} Adam moments differ')
+    check(w_err <= 1e-2 * LR, f'{tag} weights after the step differ')
+    check(w_all <= 2.5 * LR,
+          f'a {tag} weight moved more than one Adam step')
 
 
 def timed_steps(det, batch, state, per_step, tag, card):
@@ -1657,6 +1768,313 @@ def nms_counts(det, batch):
     check(int((valid - kept).sum()) > 0, 'the sweep suppressed nothing')
 
 
+def capture_hard(run, per):
+    """Run ``run()`` (one predict or train step of a hard path) recording
+    the calls of K2, K1 (reduce, winner) and K4; each must be called as
+    often as ``per`` says.  -> {kernel name: [args, ...]}."""
+    from mmdet3d_gaussian_tpu_torch.ops import bn, scatter, voxelize
+    patches = [(voxelize, 'bev_splat', 'bev_splat'),
+               (scatter, 'segment_reduce', 'segment_reduce'),
+               (scatter, 'segment_max_winner', 'segment_max_winner'),
+               (bn, 'moments', 'bn_moments'),
+               (bn, 'grad_moments', 'bn_grad_moments')]
+    seen = record_calls(run, patches)
+    got = {k: len(v) for k, v in seen.items()}
+    want = {name: per[name] for _, _, name in patches if per.get(name)}
+    check(got == want, f'hard path called {got}, want {want}')
+    return seen
+
+
+def hard_splat_checks(calls, card):
+    """Phase (b), K2 on the hard paths' pillar rows (``calls``: {what:
+    (feats, lin, ncell)}; f32 and bf16, from a predict and a train step):
+    each equal to its plain version; the predicts' rows timed beside the
+    bound, the plain version and ``zero_`` + ``index_copy_`` (recorded).
+    -> {what: numbers}."""
+    from mmdet3d_gaussian_tpu_torch.ops import voxelize
+    results = {}
+    for what, (feats, lin, ncell) in calls.items():
+        out = voxelize.bev_splat(feats, lin, ncell)
+        ref = voxelize.bev_splat_plain(feats, lin, ncell)
+        exact = bool(torch.equal(out, ref))
+        live = lin < ncell
+        print(f'(b) bev_splat inputs ({what}): {feats.shape[0]} rows x '
+              f'{feats.shape[1]} {feats.dtype}, {int(live.sum())} live onto '
+              f'{ncell} cells, ids ascending '
+              f'{bool((lin[1:] >= lin[:-1]).all())}; exact_equal={exact}')
+        check(exact, f'K2 disagrees with its plain version ({what})')
+        if 'step' in what:
+            continue
+        lin_live, rows_live = lin[live].long(), feats[live]
+        canvas = torch.zeros_like(ref)
+        esize = feats.element_size()
+        report(results, what, card, 0.0, '0, equal', True,
+               lambda: voxelize.bev_splat(feats, lin, ncell),
+               lambda: voxelize.bev_splat_plain(feats, lin, ncell),
+               lambda: canvas.zero_().index_copy_(0, lin_live, rows_live),
+               50, 10, feats.numel() * esize + lin.numel() * 4
+               + ncell * feats.shape[1] * esize, 0,
+               f' exact_equal={exact} ({what})')
+        r = results[what]
+        print(f'(b) bev_splat ({what}): kernel / zero_ + index_copy_ '
+              f'{r["ms"] / r["library_ms"]:.3f} (recorded) [{card}]')
+    return results
+
+
+def sorted_k1_checks(pred, step, pred16, card):
+    """Phase (b), K1 on the sorted hard encoder's inputs: the f32 predict's
+    3-channel cluster sum and 64-channel max of rank-masked rows, the f32
+    train step's sum and winner form, the bf16 predict's max (on the f32
+    cast of its bf16 rows, exact for a max): each against its plain
+    version (max and winner exact, sums within 4 f32 ulps of the largest
+    count times the largest value); the body each call takes (printed, not
+    checked: the 3-channel sum takes the single-float one); device times
+    beside the bound, and the cast's device time.  -> {what: numbers}."""
+    from mmdet3d_gaussian_tpu_torch.ops import segment
+    results = {}
+    cases = [('sum, f32 predict', 'segment_reduce', pred['segment_reduce'][0]),
+             ('max, f32 predict', 'segment_reduce', pred['segment_reduce'][1]),
+             ('sum, f32 step', 'segment_reduce', step['segment_reduce'][0]),
+             ('winner, f32 step', 'segment_max_winner',
+              step['segment_max_winner'][0]),
+             ('max, bf16 predict', 'segment_reduce',
+              pred16['segment_reduce'][1])]
+    for what, kern, args in cases:
+        data, counts = args[0], args[-1] if kern == 'segment_max_winner' \
+            else args[2]
+        vec = segment.vectorized(data)
+        body = 'float4' if vec else 'single-float'
+        if kern == 'segment_max_winner':
+            out, mask = segment.segment_max_winner(*args)
+            ref, ref_m = segment.segment_max_winner_plain(*args)
+            err = float((out - ref).abs().max())
+            ok = bool(torch.equal(out, ref) and torch.equal(mask, ref_m))
+            tol, work = '0, masks equal', k1_work('winner', *args)
+            kernel = lambda a=args: segment.segment_max_winner(*a)
+            plain = lambda a=args: segment.segment_max_winner_plain(*a)
+        else:
+            _, starts, cnt, op = args
+            out = segment.segment_reduce(*args)
+            ref = segment.segment_reduce_plain(*args)
+            err = float((out - ref).abs().max())
+            if op == 'max':
+                ok, tol = bool(torch.equal(out, ref)), '0, equal'
+            else:
+                bound_err = 4 * torch.finfo(torch.float32).eps * float(
+                    cnt.max()) * float(data.abs().max())
+                ok, tol = err <= bound_err, f'{bound_err:.3g}'
+            work = k1_work('reduce', data, None, starts, cnt)
+            kernel = lambda a=args: segment.segment_reduce(*a)
+            plain = lambda a=args: segment.segment_reduce_plain(*a)
+        print(f'(b) {kern} ({what}): {data.shape[0]} rows x {data.shape[1]} '
+              f'channels, {body} body, {int((counts > 0).sum())} live '
+              f'segments, largest {int(counts.max())} rows')
+        report(results, what, card, err, tol, ok, kernel, plain, None, 100, 5,
+               *work, f' ({what})')
+        results[what]['body'] = body
+        if what.endswith('bf16 predict'):
+            rows16 = data.bfloat16()
+            check(torch.equal(rows16.float(), data),
+                  'bf16 rows do not round-trip through their f32 cast')
+            cast = device_ms(lambda: rows16.float(), 50)
+            results[what]['cast_ms'] = cast
+            print(f'(b) segment_reduce ({what}): the cast of the bf16 rows '
+                  f'to f32 {cast:.4f} ms beside K1 {results[what]["ms"]:.4f} '
+                  f'ms [{card}]')
+    return results
+
+
+def pillar_rows(det, batch):
+    with torch.inference_mode():
+        return det.trunk.pillars(batch['points'], batch['points_mask'])[0]
+
+
+def sorted_vs_packed(det_p, det_s, batches, card, tag):
+    """The sorted hard encoder against the packed one with the same
+    weights: pillar rows (f32 within 1e-5; bf16 within one bf16 step) and
+    predictions (equal where the rows are), then the two predicts timed in
+    turns (packed, sorted, sorted, packed; one request of each batch a
+    turn), each turn's launch counts zeroed before and read after (K1
+    reduce twice a sorted predict, never in a packed one); the device time
+    of each encoder (voxelize and pillar rows) with its largest kernels,
+    and a profile of the sorted predict.  -> numbers."""
+    from mmdet3d_gaussian_tpu_torch.ops import _cuda
+    rows_p, rows_s = pillar_rows(det_p, batches[0]), pillar_rows(det_s,
+                                                                 batches[0])
+    f32 = rows_p.dtype == torch.float32
+    err = float((rows_p.float() - rows_s.float()).abs().max())
+    differ = float((rows_p != rows_s).float().mean())
+    tol = 1e-5 if f32 else 2.0 ** -7
+    close = bool(torch.allclose(rows_s.float(), rows_p.float(), rtol=tol,
+                                atol=tol if f32 else 0.0))
+    outs = [(det_p.predict(b), det_s.predict(b)) for b in batches]
+    equal = all(all(torch.equal(a, b) for a, b in zip(p, q)) for p, q in outs)
+    valid_eq = all(torch.equal(p[3], q[3]) for p, q in outs)
+    print(f'{tag} sorted vs packed encoder, same weights: pillar rows '
+          f'{tuple(rows_p.shape)} {rows_p.dtype} max_abs_err {err:.3g} '
+          f'(tol {tol:g}{" relative" if not f32 else ""}), share that '
+          f'differ {differ:.3g}; predictions of {len(batches)} requests '
+          f'equal={equal} (valid equal={valid_eq})')
+    check(close, f'{tag} sorted and packed pillar rows differ')
+    check(equal or differ > 0, f'{tag} equal rows gave other predictions')
+    times = {'packed': [], 'sorted': []}
+    launches = {'packed': {}, 'sorted': {}}
+    for which in ('packed', 'sorted', 'sorted', 'packed'):
+        det = det_s if which == 'sorted' else det_p
+        _cuda.reset_launches()
+        times[which] += predict_requests(det, batches, rounds=1)[0]
+        for name, n in _cuda.LAUNCHES.items():
+            launches[which][name] = launches[which].get(name, 0) + n
+    for which, per in (('sorted', SORTED_PREDICT_LAUNCHES),
+                       ('packed', HARD_PREDICT_LAUNCHES)):
+        n_req = len(times[which])
+        for name, want in per.items():
+            check(launches[which][name] == want * n_req,
+                  f'{tag} {which}: {name} launched {launches[which][name]} '
+                  f'times in {n_req} predicts, want {want} each')
+    encoders = {}
+    for which, det in (('packed', det_p), ('sorted', det_s)):
+        by_name = device_ms_by_name(lambda d=det: pillar_rows(d, batches[0]),
+                                    5)
+        encoders[which] = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f'{tag} {which} encoder (voxelize + pillar rows, '
+              f'{rows_p.dtype}): {encoders[which]:.4f} device ms; most: '
+              + '; '.join(f'{ms:.4f} {name[:60]}' for name, ms in top)
+              + f' [{card}]')
+    busy = device_profile(lambda: det_s.predict(batches[0]), 'predict',
+                          f'{tag} sorted', card, 5)
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    print(f'{tag} predict, sorted encoder {med["sorted"]:.3f} ms vs packed '
+          f'{med["packed"]:.3f} ms (medians of {len(times["sorted"])} '
+          f'requests each, in turns packed, sorted, sorted, packed; zero cls '
+          f'bias); launches with the sorted encoder {launches["sorted"]} '
+          f'[{card}]')
+    return dict(sorted_ms=med['sorted'], packed_ms=med['packed'],
+                encoder_device_ms=encoders, rows_max_abs_err=err,
+                rows_share_differ=differ, predictions_equal=equal,
+                sorted_profile=busy), launches['sorted']
+
+
+def hard_detectors(seed=0, **cfg):
+    """The hard paths' predict detectors from one seed: the packed encoder
+    (the entry point's default) and the sorted one with its weights, both
+    with a zero cls bias so that scores clear the threshold."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import PointPillarsDetector
+    det_p = PointPillarsDetector(cfg or None, device='cuda', seed=seed)
+    det_s = PointPillarsDetector(dict(cfg, **SORTED_MODEL), device='cuda',
+                                 seed=seed)
+    det_s.trunk.load_state_dict(det_p.trunk.state_dict())
+    check(det_p.trunk.voxelize_mode == 'hard' and not det_p.trunk.s2d
+          and det_s.trunk.hard_encoder == 'sorted', 'hard detectors')
+    for det in (det_p, det_s):
+        with torch.no_grad():
+            det.trunk.bbox_head.conv_cls.bias.zero_()
+    return det_p, det_s
+
+
+def hard_phases(batches, card):
+    """Phases (b) on the hard paths' inputs, (h), (h16), sorted against
+    packed, (ht) and (ht16).  -> (K2 numbers, K1 numbers, launches per
+    hard path, end-to-end summaries)."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import PointPillarsDetector
+    det, det_s = hard_detectors()
+    det16, det16_s = hard_detectors(**HARD16_MODEL)
+    with torch.inference_mode():
+        _, _, sc = det.trunk.pillars(batches[0]['points'],
+                                     batches[0]['points_mask'])
+    print(f'(h) voxels {int(sc.num_voxels)} of capacity {sc.max_voxels}, '
+          f'overflow {int(sc.num_overflow)}; pillars over '
+          f'{det.trunk.max_points_per_voxel} points '
+          f'{int((sc.voxel_counts > det.trunk.max_points_per_voxel).sum())}, '
+          f'largest {int(sc.voxel_counts.max())} points')
+    b0 = batches[0]
+    tdet = PointPillarsDetector(device='cuda', seed=0)
+    tdet_s = PointPillarsDetector(SORTED_MODEL, device='cuda', seed=0)
+    tdet16 = PointPillarsDetector(HARD16_MODEL, device='cuda', seed=0)
+    states = {k: d.init_train(LR, total_steps=100)
+              for k, d in (('t', tdet), ('s', tdet_s), ('t16', tdet16))}
+    states['t'], _ = tdet.train_step(b0, states['t'])       # warm-up
+    states['s'], _ = tdet_s.train_step(b0, states['s'])
+    states['t16'], _ = tdet16.train_step(b0, states['t16'])
+    calls = {}
+    with torch.inference_mode():                       # (b) hard
+        calls['f32 predict'] = capture_hard(lambda: det.predict(b0),
+                                            HARD_PREDICT_LAUNCHES)
+        calls['bf16 predict'] = capture_hard(lambda: det16.predict(b0),
+                                             HARD_PREDICT_LAUNCHES)
+        calls['sorted predict'] = capture_hard(lambda: det_s.predict(b0),
+                                               SORTED_PREDICT_LAUNCHES)
+        calls['sorted bf16 predict'] = capture_hard(
+            lambda: det16_s.predict(b0), SORTED_PREDICT_LAUNCHES)
+    holder = {}
+
+    def step(key, d):
+        def run():
+            holder[key] = d.train_step(b0, states[key])[0]
+        return run
+    calls['f32 step'] = capture_hard(step('t', tdet), HARD_TRAIN_LAUNCHES)
+    calls['sorted step'] = capture_hard(step('s', tdet_s),
+                                        SORTED_TRAIN_LAUNCHES)
+    calls['bf16 step'] = capture_hard(step('t16', tdet16),
+                                      HARD_TRAIN_LAUNCHES)
+    states.update(holder)
+    check(calls['bf16 predict']['bev_splat'][0][0].dtype == torch.bfloat16
+          and calls['bf16 step']['bev_splat'][0][0].dtype == torch.bfloat16,
+          'the bf16 hard paths splat non-bf16 rows')
+    with torch.no_grad():
+        k2 = hard_splat_checks({what: calls[what]['bev_splat'][0] for what in
+                                ('f32 predict', 'bf16 predict', 'f32 step',
+                                 'bf16 step')}, card)
+        k1 = sorted_k1_checks(calls['sorted predict'], calls['sorted step'],
+                              calls['sorted bf16 predict'], card)
+    del calls, tdet_s
+    states.pop('s')
+    torch.cuda.empty_cache()
+    launches, e2e = {}, {}
+    for tag, d, key in (('(h)', det, 'predict'),
+                        ('(h16)', det16, 'predict_bf16')):
+        launches[key], e2e[key] = main_path(d, batches,
+                                            HARD_PREDICT_LAUNCHES, tag, card)
+        e2e[key].update(device_profile(lambda d=d: d.predict(b0), 'predict',
+                                       tag, card, 5))
+    for tag, p, q, key in (('(h)', det, det_s, 'sorted'),
+                           ('(h16)', det16, det16_s, 'sorted_bf16')):
+        e2e[key], launches[f'predict_{key}'] = sorted_vs_packed(
+            p, q, batches, card, tag)
+    del det, det_s, det16, det16_s
+    torch.cuda.empty_cache()
+    for tag, d, key, dt in (('(ht)', tdet, 't', None),
+                            ('(ht16)', tdet16, 't16', 'bfloat16')):
+        name = 'train' if dt is None else 'train_bf16'
+        launches[name], states[key], e2e[name] = timed_steps(
+            d, b0, states[key], HARD_TRAIN_LAUNCHES, tag, card)
+        ddet = PointPillarsDetector(dict(compute_dtype=dt), dict(pos_cap=0),
+                                    device='cuda', seed=0)
+        ddet.trunk.load_state_dict(d.trunk.state_dict())
+        dstate = ddet.init_train(LR, total_steps=100)
+        launches[name + '_dense'], _, e2e[name]['dense_step_ms'] = \
+            dense_steps(ddet, b0, dstate, HARD_DENSE_LAUNCHES, tag, card)
+        del ddet, dstate
+        one = [states[key]]
+
+        def one_step(d=d, one=one):
+            one[0] = d.train_step(b0, one[0])[0]
+        e2e[name].update(device_profile(one_step, 'train step', tag, card,
+                                        3))
+        del one
+        torch.cuda.empty_cache()
+    n = {'predict': len(SEEDS) * ROUNDS, 'predict_bf16': len(SEEDS) * ROUNDS,
+         'predict_sorted': 2 * len(SEEDS), 'predict_sorted_bf16':
+         2 * len(SEEDS), 'train': TIMED_STEPS, 'train_bf16': TIMED_STEPS,
+         'train_dense': DENSE_STEPS, 'train_bf16_dense': DENSE_STEPS}
+    per = {path: {k: v / n[path] for k, v in counts.items() if v}
+           for path, counts in launches.items()}
+    print(f'(h) launches per predict or step on the hard paths {per} '
+          f'[{card}]')
+    return k2, k1, per, e2e
+
+
 def device_profile(run, what, tag, card, iters):
     """Where the device time of ``run()`` goes: ``torch.profiler`` over
     ``iters`` back-to-back calls (after the main path's counts were read).
@@ -1785,6 +2203,9 @@ def main() -> int:
     tiny_card_vs_cpu(card)                             # (c)
     tiny_train_card_vs_cpu(card)
     tiny_bf16_card_vs_cpu(card)
+    tiny_card_vs_cpu(card, TINY_HARD, hard=True)       # (c) hard
+    tiny_train_card_vs_cpu(card, TINY_HARD, hard=True)
+    tiny_bf16_card_vs_cpu(card, TINY_HARD16, TINY_HARD, hard=True)
     launches, e2e = main_path(det, batches, PREDICT_LAUNCHES, '(d)',
                               card)                    # (d)
     nms_counts(det, batches[-1])
@@ -1834,6 +2255,9 @@ def main() -> int:
         holder16[0] = tdet16.train_step(tbatch, holder16[0])[0]
     train16.update(device_profile(one_step16, 'train step', '(t16)', card,
                                   3))
+    del tdet16, ddet16, holder16, tstate16, dstate16, det, det16
+    torch.cuda.empty_cache()
+    hard_k2, hard_k1, hard_launches, hard_e2e = hard_phases(batches, card)
 
     kernels = []                                       # (e)
     n_pred = len(SEEDS) * ROUNDS
@@ -1879,11 +2303,25 @@ def main() -> int:
             entry['bf16'] = bf16[name]
             if name != 'bev_splat':
                 entry['bf16'].update(launch_keys(name, *counts16[path]))
+        # the hard paths: launches per predict or step, and K2's and K1's
+        # numbers on their inputs
+        entry['hard'] = dict(launches_per={
+            path: per[name] for path, per in hard_launches.items()
+            if name in per})
+        if name == 'bev_splat':
+            entry['hard'].update(hard_k2)
+        if name in ('segment_reduce', 'segment_max_winner'):
+            entry['hard']['sorted'] = {
+                what: r for what, r in hard_k1.items()
+                if (name == 'segment_max_winner') == what.startswith(
+                    'winner')}
         kernels.append(entry)
     print(f'(e) predict summary {json.dumps(e2e)} [{card}]')
     print(f'(e) bf16 predict summary {json.dumps(e2e16)} [{card}]')
     print(f'(e) train summary {json.dumps(train)} [{card}]')
     print(f'(e) bf16 train summary {json.dumps(train16)} [{card}]')
+    for key, summary in hard_e2e.items():
+        print(f'(e) hard {key} summary {json.dumps(summary)} [{card}]')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

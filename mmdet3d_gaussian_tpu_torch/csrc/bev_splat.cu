@@ -1,4 +1,4 @@
-// K2 and K7 on Hopper: a persistent grid of contiguous runs of 256-half-row tiles, cut by cost (half-rows written plus rows read); each block reads its run's source rows into shared memory first, then streams every element of its tiles once with evict-first 16-byte stores (row width a compile-time shift), each window carried from the last. Bound: bytes (K2 236 MB f32 / 118 MB bf16, 0.0705 / 0.0353 ms at 3.35 TB/s).
+// K2 and K7 on Hopper: a persistent grid of contiguous runs of key rows, cut by cost (half-rows written plus rows read) at key-row granularity; each block copies its run's source rows into shared memory with one bulk (TMA) copy first, then streams every element of its tiles of 256 half-rows once with evict-first 16-byte stores (row width a compile-time shift), each window carried from the last. Bound: bytes (K2 236 MB f32 / 118 MB bf16, 0.0705 / 0.0353 ms at 3.35 TB/s).
 //
 // Sorted voxel rows -> dense BEV canvas: the plain canvas (K2) and the
 // parity-pair canvas of the space-to-depth layout (K7).
@@ -30,18 +30,25 @@
 // Design: a tile is 256 half-rows (256 key rows of K2, 128 of K7), so the
 // ids of a tile's window (at most one per half-row) are one load a thread.
 // The grid is as many blocks as stay resident (two an SM, each with 96 KB of
-// shared memory); each block owns a contiguous run of tiles, cut by cost:
-// a tile costs the 256 half-rows it writes, a row the half-row read for it,
-// and block b's run starts at the first tile where the cost of the tiles
-// before it reaches b / grid of the whole.  A LiDAR sweep is dense near the
-// sensor, so runs cut by tiles alone would leave a few blocks with most of
-// the rows.  Three searches find the run (the live rows, then each end of
-// the run, 256- and 128-wide: 6 dependent loads at V = 64,000), and the
-// block reads its rows into shared memory before it stores anything: all
-// of the kernel's reads come in one burst at its start, and its stores
-// then stream with no reads among them (mixed in, the 16 MB of f32 rows
-// cost K2 ~12 us more, from L2 too).  Each window starts where the last one ended, its length the count
-// of loaded ids below the tile's end, its ids loaded one tile ahead.  The
+// shared memory); each block owns a contiguous run of key rows, cut by
+// cost: a key row costs the half-rows it writes, a row the half-row read
+// for it, and block b's run starts at the first key row where the cost of
+// the key rows before it reaches b / grid of the whole, so its first and
+// last tiles may be partial.  A LiDAR sweep is dense near the sensor, so
+// runs cut by key rows alone would leave a few blocks with most of the
+// rows; runs cut at whole tiles left the costliest block 6-7 % over the
+// mean (a tile is a twelfth of a block's share), and the last block to end
+// sets the kernel's time.  One search finds both ends of the run (each
+// half of the block one end, 256 probes a round: 2 dependent loads at V =
+// 64,000), and the block reads its rows into shared memory (a bulk copy
+// where the rows are 16-byte units) before it stores anything: all of the
+// kernel's reads come in one burst at its start, and its stores then
+// stream with no reads among them (mixed in, the 16 MB of f32 rows cost K2
+// ~12 us more, from L2 too; a grid that takes tiles from a counter as its
+// blocks finish, which streams zeros ~5 % faster than fixed runs, lost
+// more than that to the reads it then mixes in: splat_stream.py).  Each
+// window starts where the last one ended, its length the count of loaded
+// ids below the tile's end in the run, its ids loaded one tile ahead.  The
 // slot of each half-row holds the index of its source row; an entry below
 // the window's start is stale (windows only move forward), so the slots are
 // cleared once per block.  Every element of the canvas is written exactly
@@ -59,22 +66,30 @@ constexpr int kThreads = 256;   // half-rows of a tile; window ids a tile
 
 // First index of [0, n) where less(i) turns false (less holds on a
 // prefix), searched by the kWidth threads of this thread's group (threads
-// [g * kWidth, (g + 1) * kWidth)), each probing one of kWidth evenly
-// spaced indices a round.  Every thread of the block runs the same rounds
-// (barriers inside), so groups search side by side; counts: one int of
-// shared memory a warp.
-template <int kWidth, typename Less>
+// [g * kWidth, (g + 1) * kWidth)), each probing kProbes of kWidth *
+// kProbes evenly spaced indices a round (the loads of a round issued
+// together).  Every thread of the block runs the same rounds (barriers
+// inside), so groups search side by side; counts: one int of shared memory
+// a warp.
+template <int kWidth, int kProbes, typename Less>
 __device__ long long group_search(long long n, Less less, int* counts) {
-  constexpr int kGroupWarps = kWidth / 32;
+  constexpr int kGroupWarps = kWidth / 32, kAll = kWidth * kProbes;
   const int j = threadIdx.x % kWidth, warp = threadIdx.x / 32;
   const int first = warp / kGroupWarps * kGroupWarps;
   long long lo = 0, hi = n;
-  for (long long size = n; size > 0; size = (size + kWidth - 1) / kWidth - 1) {
-    const long long step = lo < hi ? (hi - lo + kWidth - 1) / kWidth : 0;
-    const long long q = lo + (j + 1) * step - 1;
-    const unsigned int ballot =
-        __ballot_sync(0xffffffffu, step > 0 && q < hi && less(q));
-    if ((threadIdx.x & 31) == 0) counts[warp] = __popc(ballot);
+  for (long long size = n; size > 0; size = (size + kAll - 1) / kAll - 1) {
+    const long long step = lo < hi ? (hi - lo + kAll - 1) / kAll : 0;
+    bool below[kProbes];
+#pragma unroll
+    for (int k = 0; k < kProbes; ++k) {
+      const long long q = lo + (k * kWidth + j + 1) * step - 1;
+      below[k] = step > 0 && q < hi && less(q);
+    }
+    int got = 0;
+#pragma unroll
+    for (int k = 0; k < kProbes; ++k)
+      got += __popc(__ballot_sync(0xffffffffu, below[k]));
+    if ((threadIdx.x & 31) == 0) counts[warp] = got;
     __syncthreads();
     int cnt = 0;
     for (int w = 0; w < kGroupWarps; ++w) cnt += counts[first + w];
@@ -85,6 +100,35 @@ __device__ long long group_search(long long n, Less less, int* counts) {
     }
   }
   return lo;
+}
+
+__device__ __forceinline__ unsigned int smem_addr(const void* p) {
+  return static_cast<unsigned int>(__cvta_generic_to_shared(p));
+}
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
+// shared memory with the TMA, completing on the mbarrier `bar` (one
+// arrival, this one)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned int bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// until the phase of parity `parity` of `bar` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar,
+                                          unsigned int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 __device__ __forceinline__ void store_stream(uint4* p, uint4 v) {
@@ -100,8 +144,8 @@ __device__ __forceinline__ void store_stream(uint16_t* p, uint16_t v) {
 
 // W: the unit of one load / store (uint4 = 16 bytes, or one element); a
 // slot (C elements) is cw units, cw = 1 << kShift, or any cw when kShift
-// is -1; rows: key rows of the output; tiles: ceil(rows / kTile); stage:
-// the units of dynamic shared memory that hold the block's source rows.
+// is -1; rows: key rows of the output; stage: the units of dynamic shared
+// memory that hold the block's source rows.
 //
 // Reads first, then writes: the block loads the source rows of its whole
 // run (contiguous in feats) into shared memory before its first store; the
@@ -113,66 +157,82 @@ template <typename W, int kHalves, int kShift>
 __global__ void __launch_bounds__(kThreads) splat_kernel(
     const W* __restrict__ feats, const int* __restrict__ ids,
     const int* __restrict__ par, W* __restrict__ out, int V, int cw,
-    long long rows, long long tiles, int stage) {
+    long long rows, int stage) {
   constexpr int kTile = kThreads / kHalves;   // key rows a tile
   extern __shared__ uint4 dynamic_smem[];
   W* staged_rows = reinterpret_cast<W*>(dynamic_smem);
   __shared__ int src[kThreads];
   __shared__ int counts[kThreads / 32];
-  __shared__ long long span[2];                // the run's tiles
+  __shared__ long long span[2];                // the run's key rows
   __shared__ int run[2];                       // ... and its rows
   const int tid = threadIdx.x;
-  // The run: live rows (ids below the canvas's end; the others sort last);
-  // the cost of tiles [0, t), t * kThreads half-rows written plus R(t)
-  // rows read (R(t): live rows with an id below t * kTile); block b owns
-  // tiles [t_b, t_b+1), t_b the least t whose cost reaches b * total /
-  // grid.  Half the block finds t_b, the other half t_b+1.
-  const long long live = group_search<kThreads>(
-      V, [&](long long i) { return (long long)__ldg(ids + i) < rows; },
-      counts);
-  const int side = tid / (kThreads / 2), j = tid % (kThreads / 2);
-  const long long goal = (tiles * kThreads + live)
+  // The run: the cost of key rows [0, k) is kHalves * k half-rows written
+  // plus R(k) rows read (R(k): live rows, ids below the canvas's end, with
+  // an id below k); block b owns key rows [k_b, k_b+1), k_b the least k
+  // whose cost reaches b * total / grid, so no block's cost is over its
+  // share by more than a key row's.  Half the block finds k_b, the other
+  // half k_b+1.  The total counts all V rows, live or not (ids past the
+  // canvas sort last), so that no search for the live count comes first:
+  // the shares then run (V - live) / grid over the live cost, and the last
+  // block ends early by V - live.
+  const int side = tid / (kThreads / 2);
+  const long long goal = (rows * kHalves + V)
       * (blockIdx.x + side) / gridDim.x;
-  // r: the least row with kThreads * tile(r) + r >= goal (or live); the
-  // boundary tb is the least t past row r - 1's tile with t * kThreads + r
-  // >= goal
-  const long long r = group_search<kThreads / 2>(
-      live, [&](long long q) {
-        return (long long)(__ldg(ids + q) / kTile) * kThreads + q < goal;
+  // r: the least row with kHalves * id(r) + r >= goal, or the first row
+  // past the canvas (ids >= rows sort last); then k_b is the least key
+  // past row r - 1's with kHalves * k + r >= goal, and R(k_b) is r, or
+  // r + 1 where row r shares row r - 1's key (K7's pair)
+  const long long r = group_search<kThreads / 2, 2>(
+      V, [&](long long q) {
+        const long long id = __ldg(ids + q);
+        return id < rows && id * kHalves + q < goal;
       }, counts);
-  long long tb = (goal - r + kThreads - 1) / kThreads;
-  if (r > 0) tb = max(tb, (long long)(__ldg(ids + r - 1) / kTile) + 1);
-  tb = min(tb, tiles);
-  // R(tb) = r + the rows from r on that share row r - 1's tile (fewer
-  // than kThreads: one tile's rows)
-  unsigned int below = 0;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const long long q = r + 2 * j + e;
-    below += q < live && (long long)__ldg(ids + q) < tb * kTile;
-  }
-  below = __reduce_add_sync(0xffffffffu, below);
-  if ((tid & 31) == 0) counts[tid / 32] = (int)below;
-  __syncthreads();
-  if (j == 0) {
-    constexpr int kHalfWarps = kThreads / 64;
-    int n = 0;
-    for (int w = 0; w < kHalfWarps; ++w) n += counts[side * kHalfWarps + w];
-    span[side] = tb;
-    run[side] = (int)(r + n);
+  long long kb = (goal - r + kHalves - 1) / kHalves;
+  if (r > 0) kb = max(kb, (long long)__ldg(ids + r - 1) + 1);
+  kb = min(kb, rows);
+  const bool pair_below = r < V && (long long)__ldg(ids + r) < kb;
+  if (tid % (kThreads / 2) == 0) {
+    span[side] = kb;
+    run[side] = (int)r + pair_below;
   }
   __syncthreads();
-  const long long t_begin = span[0], t_end = span[1];
-  if (t_begin >= t_end) return;
+  const long long k_begin = span[0], k_end = span[1];
+  if (k_begin >= k_end) return;
+  const long long t_begin = k_begin / kTile;
+  const long long t_end = (k_end + kTile - 1) / kTile;
   if constexpr (kShift >= 0) cw = 1 << kShift;
   src[tid] = -1;
-  // the stage holds rows [first, first + staged / cw) of the run
+  // the stage holds rows [first, first + staged / cw) of the run; 16-byte
+  // units come in one bulk copy (issued by thread 0, waited for by all:
+  // restage_wait), others a unit a thread
+  __shared__ uint64_t stage_bar;
+  unsigned int stage_phase = 0;
   int first = 0, staged = 0;
+  if (sizeof(W) == 16 && tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(smem_addr(&stage_bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
   auto restage = [&](int from) {
     first = from;
     staged = (int)min((long long)(run[1] - from) * cw, (long long)stage);
-    for (int e = tid; e < staged; e += kThreads)
-      staged_rows[e] = __ldg(feats + (long long)from * cw + e);
+    if constexpr (sizeof(W) == 16) {
+      if (tid == 0 && staged > 0)
+        bulk_load(staged_rows, feats + (long long)from * cw,
+                  (unsigned int)staged * 16u, &stage_bar);
+    } else {
+      for (int e = tid; e < staged; e += kThreads)
+        staged_rows[e] = __ldg(feats + (long long)from * cw + e);
+    }
+  };
+  auto restage_wait = [&]() {
+    if constexpr (sizeof(W) == 16) {
+      if (staged > 0) {
+        mbar_wait(&stage_bar, stage_phase);
+        stage_phase ^= 1u;
+      }
+    }
   };
   restage(run[0]);
 
@@ -186,9 +246,10 @@ __global__ void __launch_bounds__(kThreads) splat_kernel(
     }
   };
   // count of window t's ids (sorted, so the first ones) below tile t's end
+  // in the run
   auto window = [&](long long t, int key, bool& in) {
     const long long base = t * kTile;
-    in = key >= base && key < base + min((long long)kTile, rows - base);
+    in = key >= base && key < min(base + kTile, k_end);
     return __syncthreads_count(in);
   };
   auto fill = [&](long long t, int at, bool in, int key, int half) {
@@ -202,6 +263,7 @@ __global__ void __launch_bounds__(kThreads) splat_kernel(
   int s1 = s0 + cnt0, key1, half1;
   load_key(s1, t_begin + 1, key1, half1);
   fill(t_begin, s0, in0, key0, half0);
+  restage_wait();
   __syncthreads();
   for (long long t = t_begin; t < t_end; ++t) {
     bool in1;
@@ -210,12 +272,13 @@ __global__ void __launch_bounds__(kThreads) splat_kernel(
     int key2, half2;
     load_key(s2, t + 2, key2, half2);
 
+    // the tile's key rows in the run
     const long long base = t * kTile;
-    const int n = (int)min((long long)kTile, rows - base);
     W* o = out + base * kHalves * cw;
-    const int units = n * kHalves * cw;
+    const int u0 = (int)(max(k_begin, base) - base) * kHalves * cw;
+    const int u1 = (int)(min(k_end, base + kTile) - base) * kHalves * cw;
 #pragma unroll 4
-    for (int e = tid; e < units; e += kThreads) {
+    for (int e = u0 + tid; e < u1; e += kThreads) {
       int h;
       if constexpr (kShift >= 0) h = e >> kShift; else h = e / cw;
       const int s = src[h];
@@ -230,8 +293,13 @@ __global__ void __launch_bounds__(kThreads) splat_kernel(
     __syncthreads();                    // slots and stage read
     if (t + 1 < t_end) {
       // a run denser than the stage: read its next rows in one burst
-      if ((long long)(s2 - first) * cw > staged) restage(s1);
-      fill(t + 1, s1, in1, key1, half1);
+      if ((long long)(s2 - first) * cw > staged) {
+        restage(s1);
+        fill(t + 1, s1, in1, key1, half1);
+        restage_wait();
+      } else {
+        fill(t + 1, s1, in1, key1, half1);
+      }
     }
     __syncthreads();
     s0 = s1;
@@ -304,7 +372,7 @@ void run(const Plan& p, const void* feats, const int* ids, const int* par,
   splat_kernel<W, kHalves, kShift><<<p.grid, kThreads, kStageBytes,
                                      stream>>>(
       static_cast<const W*>(feats), ids, par, static_cast<W*>(out), V, cw,
-      rows, p.tiles, kStageBytes / (int)sizeof(W));
+      rows, kStageBytes / (int)sizeof(W));
 }
 
 template <int kHalves>

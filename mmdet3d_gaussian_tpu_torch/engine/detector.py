@@ -103,12 +103,14 @@ def init_weights(trunk: nn.Module, seed: int) -> None:
 
 class PointPillarsDetector:
     """PointPillars + GD anchor head (reference
-    ``hv_pointpillars_secfpn_kld5tau1_12x4_160e_kitti-3d-3class``).  Only
-    ``voxelize_mode='dynamic'`` is ported so far, on the space-to-depth
-    canvas (the default for this config, ``s2d_canvas='auto'``) or the plain
-    one (``'off'``), in f32 or with ``compute_dtype='bfloat16'``.  In bf16
-    the parameters, their gradients and AdamW's moments stay f32, and there
-    is no loss scaling, as in the JAX package's train step."""
+    ``hv_pointpillars_secfpn_kld5tau1_12x4_160e_kitti-3d-3class``).  With
+    no ``model_cfg`` it runs that config's own ``voxelize_mode='hard'``
+    (the packed pillar encoder, ``hard_encoder='packed'``; ``'sorted'`` is
+    the same function through K1) on the plain canvas; ``'dynamic'`` takes
+    the space-to-depth canvas (``s2d_canvas='auto'``) or the plain one
+    (``'off'``).  Each runs in f32 or with ``compute_dtype='bfloat16'``.  In
+    bf16 the parameters, their gradients and AdamW's moments stay f32, and
+    there is no loss scaling, as in the JAX package's train step."""
 
     def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
                  head_cfg: Optional[Dict[str, Any]] = None,
@@ -212,3 +214,34 @@ def synthetic_batch(batch_size: int = 2, num_points: int = 8192,
     arrays = dict(points=points, points_mask=mask, gt_bboxes=gt,
                   gt_labels=labels, gt_valid=valid)
     return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def crowded_batch(batch_size: int = 2, num_points: int = 2048,
+                  num_gt: int = 8, seed: int = 0,
+                  pc_range=(0., -39.68, -3., 69.12, 39.68, 1.),
+                  voxel_size=(0.16, 0.16, 4.0), pillars: int = 12,
+                  per_pillar: int = 40, copies: int = 8,
+                  device: Optional[Union[str, torch.device]] = None):
+    """:func:`synthetic_batch` with the first ``pillars * per_pillar``
+    points of each sample piled into ``pillars`` random pillars,
+    ``per_pillar`` points each, inside the cell away from its edges; the
+    first ``copies`` points of a pile are one point repeated.  Piles over
+    ``max_points_per_voxel`` exercise hard voxelize's truncation, the
+    copies ties in the pillar max.  The same arrays for equal arguments."""
+    dev = resolve_device(device)
+    batch = synthetic_batch(batch_size, num_points, num_gt, seed, pc_range,
+                            device='cpu')
+    pts = batch['points'].numpy().copy()
+    rng = np.random.RandomState(seed + 1)
+    lo = np.asarray(pc_range[:2], np.float64)
+    vs = np.asarray(voxel_size[:2], np.float64)
+    grid = np.round((np.asarray(pc_range[3:5]) - lo) / vs).astype(int)
+    for s in range(batch_size):
+        cells = rng.randint(0, grid, (pillars, 2))
+        for j, cell in enumerate(cells):
+            pile = slice(j * per_pillar, (j + 1) * per_pillar)
+            frac = rng.uniform(0.05, 0.95, (per_pillar, 2))
+            pts[s, pile, :2] = lo + (cell + frac) * vs
+            pts[s, pile][:copies] = pts[s, j * per_pillar]
+    batch['points'] = torch.from_numpy(pts)
+    return {k: v.to(dev) for k, v in batch.items()}

@@ -1,18 +1,30 @@
-"""PointPillars trunk (dynamic voxelize): points -> pillar features -> BEV
-canvas -> SECOND -> SECONDFPN -> head maps.
+"""PointPillars trunk: points -> pillar features -> BEV canvas -> SECOND
+-> SECONDFPN -> head maps.
 
 Port of ``mmdet3d_gaussian_tpu/models/detectors/voxelnet.py::
-PointPillarsNet``, dynamic branch.  The batch is flattened to one point axis
-with a batch-id coord column, so voxelization of the whole batch is one sort
-and one K1 pass per reduction.  The canvas is the space-to-depth canvas
-(``s2d_canvas``, on under ``'auto'`` for a stride-2 first stage on an even
-grid, as in the JAX package: voxels compacted on the s2d key, splat by K7,
-read by the folded stage-0 conv) or the plain canvas (voxels compacted in
-canvas raster order, ``CANVAS_KEY_ORDER``, splat by K2).
+PointPillarsNet``, hard and dynamic branches.  The batch is flattened to
+one point axis with a batch-id coord column, so voxelization of the whole
+batch is one sort.
+
+* ``voxelize_mode='hard'`` (the default, the KITTI configs' mode): each
+  pillar keeps its first ``max_points_per_voxel`` points, encoded by
+  :class:`PillarFeatureNet` on the packed ``(V, P, C)`` table
+  (``hard_encoder='packed'``) or by :class:`SortedPillarFeatureNet` on the
+  rank-masked sorted rows through K1 (``'sorted'``), the same function.
+  Pillars are compacted in canvas raster order and always splat onto the
+  plain canvas (K2), as in the JAX package.
+* ``voxelize_mode='dynamic'``: every point counts, one K1 pass per
+  reduction.  The canvas is the space-to-depth canvas (``s2d_canvas``, on
+  under ``'auto'`` for a stride-2 first stage on an even grid, as in the JAX
+  package: voxels compacted on the s2d key, splat by K7, read by the folded
+  stage-0 conv) or the plain canvas (voxels compacted in canvas raster
+  order, ``CANVAS_KEY_ORDER``, splat by K2).
 
 ``compute_dtype='bfloat16'`` is the JAX package's mixed precision: the
-pillar encoder stays f32, the pillar rows are cast to bf16 before the splat,
-and the backbone, neck and head compute in bf16 on f32 parameters.
+backbone, neck and head compute in bf16 on f32 parameters; the hard
+encoders' linear layers compute in bf16 too (their rows come out bf16),
+the dynamic encoder stays f32 and its rows are cast to bf16 before the
+splat.
 """
 from __future__ import annotations
 
@@ -22,11 +34,13 @@ import torch
 from torch import nn
 
 from ...ops.scatter import batch_coords, build_scatter, compute_voxel_coords
-from ...ops.voxelize import CANVAS_KEY_ORDER, bev_scatter, bev_scatter_s2d
+from ...ops.voxelize import (CANVAS_KEY_ORDER, bev_scatter, bev_scatter_s2d,
+                             hard_kept_rows, hard_voxelize)
 from ...registry import MODELS
 from ..backbones import SECOND, SECONDFPN, compute_dtype as _compute_dtype
 from ..dense_heads.anchor3d_head import Anchor3DHeadConvs
-from ..voxel_encoders import DynamicPillarFeatureNet
+from ..voxel_encoders import (DynamicPillarFeatureNet, PillarFeatureNet,
+                              SortedPillarFeatureNet)
 
 
 @MODELS.register_module()
@@ -34,14 +48,15 @@ class PointPillarsNet(nn.Module):
     """Learned trunk; ``forward(points, points_mask)`` returns NHWC
     (cls_score, bbox_pred, dir_pred, packed).
 
-    ``voxelize_mode`` defaults to ``'hard'``, as in the JAX package, which
-    raises until hard voxelize is ported; ``'dynamic'`` is the ported mode.
-    ``s2d_canvas``: ``'auto'`` (on when the first stage has stride 2 and
-    the grid is even), ``'on'`` or ``'off'``.  ``fold_w2`` (the JAX
-    package's W-folded stage 0 after the s2d canvas, a layout of the same
-    function) and ``hard_encoder`` (``'packed'`` or ``'sorted'``, two forms
-    of the hard branch's encoder) are accepted so that a JAX config builds,
-    and have no effect.  ``axis_name`` (cross-replica BatchNorm) must be
+    ``voxelize_mode``: ``'hard'`` (the default, as in the JAX package) or
+    ``'dynamic'``; ``'mvf'`` is not ported.  ``hard_encoder``
+    (``'packed'``, the default, or ``'sorted'``) picks the hard branch's
+    encoder.  ``s2d_canvas``: ``'auto'`` (on when the first stage has
+    stride 2 and the grid is even), ``'on'`` or ``'off'``; it applies to
+    the dynamic branch only, the hard branch always takes the plain canvas.
+    ``fold_w2`` (the JAX package's W-folded stage 0 after the s2d canvas, a
+    layout of the same function) is accepted so that a JAX config builds,
+    and has no effect.  ``axis_name`` (cross-replica BatchNorm) must be
     None: multi-device is not ported."""
 
     def __init__(self, voxel_size: Sequence[float] = (0.16, 0.16, 4.0),
@@ -61,10 +76,13 @@ class PointPillarsNet(nn.Module):
                  hard_encoder: str = 'packed',
                  axis_name: Optional[str] = None):
         super().__init__()
-        if voxelize_mode != 'dynamic':
+        if voxelize_mode == 'mvf':
             raise NotImplementedError(
-                f'voxelize_mode={voxelize_mode!r} is not ported yet; only '
-                f"'dynamic' is")
+                "voxelize_mode='mvf' is not ported yet; 'hard' and "
+                "'dynamic' are")
+        if voxelize_mode not in ('hard', 'dynamic'):
+            raise ValueError(f'voxelize_mode must be hard or dynamic, got '
+                             f'{voxelize_mode!r}')
         if hard_encoder not in ('packed', 'sorted'):
             raise ValueError(f'hard_encoder must be packed or sorted, got '
                              f'{hard_encoder!r}')
@@ -80,8 +98,11 @@ class PointPillarsNet(nn.Module):
                              f'{s2d_canvas!r}')
         dt = _compute_dtype(compute_dtype)
         self.compute_dtype = dt
+        self.voxelize_mode = voxelize_mode
+        self.hard_encoder = hard_encoder
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
+        self.max_points_per_voxel = max_points_per_voxel
         self.max_voxels_per_sample = max_voxels_per_sample
         self.nx, self.ny = self.grid()
         nz = max(1, int(round((self.point_cloud_range[5]
@@ -92,13 +113,19 @@ class PointPillarsNet(nn.Module):
                              f'got {nz}')
         bb_cfg = dict(backbone_cfg or {})
         first_stride = tuple(bb_cfg.get('layer_strides', (2, 2, 2)))[0]
-        self.s2d = (s2d_canvas == 'on'
-                    or (s2d_canvas == 'auto' and first_stride == 2
-                        and self.nx % 2 == 0 and self.ny % 2 == 0))
+        self.s2d = voxelize_mode == 'dynamic' and (
+            s2d_canvas == 'on'
+            or (s2d_canvas == 'auto' and first_stride == 2
+                and self.nx % 2 == 0 and self.ny % 2 == 0))
         enc_cfg = dict(encoder_cfg or {})
         enc_cfg.setdefault('voxel_size', self.voxel_size)
         enc_cfg.setdefault('point_cloud_range', self.point_cloud_range)
-        self.voxel_encoder = DynamicPillarFeatureNet(**enc_cfg)
+        if voxelize_mode == 'hard':
+            encoder = (SortedPillarFeatureNet if hard_encoder == 'sorted'
+                       else PillarFeatureNet)
+            self.voxel_encoder = encoder(dtype=dt, **enc_cfg)
+        else:
+            self.voxel_encoder = DynamicPillarFeatureNet(**enc_cfg)
         self.backbone = SECOND(input_s2d=self.s2d, dtype=dt, **bb_cfg)
         neck_kw = dict(neck_cfg or {})
         neck_kw.setdefault('concat_out', False)
@@ -113,10 +140,11 @@ class PointPillarsNet(nn.Module):
 
     def pillars(self, points: torch.Tensor, points_mask: torch.Tensor):
         """points (B, N, C), points_mask (B, N) -> (pillar features
-        (max_voxels, C_out) f32, voxel coords (max_voxels, 4), the
-        Scatter).  Coords are (b, ix, iy, iz) on the plain canvas and
-        (b, iy // 2, ix // 2, (iy & 1) * 2 + (ix & 1)) on the s2d canvas,
-        voxels compacted in that canvas's raster order."""
+        (max_voxels, C_out), voxel coords (max_voxels, 4), the Scatter).
+        Coords are (b, ix, iy, iz) on the plain canvas and (b, iy // 2,
+        ix // 2, (iy & 1) * 2 + (ix & 1)) on the s2d canvas, voxels
+        compacted in that canvas's raster order.  The features are f32, or
+        bf16 from a hard encoder computing in bf16."""
         b, n, cdim = points.shape
         max_voxels = self.max_voxels_per_sample * b
         flat = points.reshape(b * n, cdim)
@@ -126,6 +154,8 @@ class PointPillarsNet(nn.Module):
                                           self.voxel_size)
         coords3 = torch.where(points_mask.reshape(-1, 1), coords3, -1)
         coords4 = batch_coords(coords3, batch_idx)
+        if self.voxelize_mode == 'hard':
+            return self._hard_pillars(flat, coords4, b, max_voxels)
         if self.s2d:
             # s2d cell raster order, parity minor: the pair splat's ids are
             # then non-decreasing; the key is bijective with the pillars
@@ -145,11 +175,32 @@ class PointPillarsNet(nn.Module):
         feats = self.voxel_encoder(flat_sorted, scatter.sorted_view())
         return feats, scatter.voxel_coords, scatter
 
+    def _hard_pillars(self, flat, coords4, b, max_voxels):
+        """The hard branch of :meth:`pillars`, pillars compacted in canvas
+        raster order."""
+        spatial = (b, self.nx, self.ny, 1)
+        max_points = self.max_points_per_voxel
+        if self.hard_encoder == 'sorted':
+            scatter = build_scatter(coords4, spatial, max_voxels,
+                                    key_order=CANVAS_KEY_ORDER)
+            sv = scatter.sorted_view()
+            kept = hard_kept_rows(sv.point_voxel_ids, max_voxels, max_points)
+            kept_cnt = scatter.voxel_counts.clamp(max=max_points)
+            feats = self.voxel_encoder(flat[scatter.sort_order], sv, kept,
+                                       kept_cnt, max_points)
+            return feats, scatter.voxel_coords, scatter
+        # mask_slots=False: the encoder multiplies its input by the slot
+        # mask, so what the table holds past num_points never counts
+        hv = hard_voxelize(flat, coords4, spatial, max_points, max_voxels,
+                           key_order=CANVAS_KEY_ORDER, mask_slots=False)
+        feats = self.voxel_encoder(hv.voxels, hv.coords, hv.num_points)
+        return feats, hv.coords, hv.scatter
+
     def forward(self, points: torch.Tensor, points_mask: torch.Tensor):
         pillar_feats, coords_v, _ = self.pillars(points, points_mask)
         if self.compute_dtype is not None:
             # every live cell receives one row, so casting the rows is
-            # casting the canvas
+            # casting the canvas (a no-op for a hard encoder's bf16 rows)
             pillar_feats = pillar_feats.to(self.compute_dtype)
         b = points.shape[0]
         if self.s2d:

@@ -1,8 +1,12 @@
-"""Dense BEV canvas scatters: the plain canvas (kernel K2) and the
-space-to-depth canvas (kernel K7), both in ``csrc/bev_splat.cu``.
+"""Hard voxelization and the dense BEV canvas scatters: the plain canvas
+(kernel K2) and the space-to-depth canvas (kernel K7), both in
+``csrc/bev_splat.cu``.
 
-Port of ``mmdet3d_gaussian_tpu/ops/voxelize.py::bev_scatter`` and
-``::bev_scatter_s2d``.  Pillar rows compacted in the canvas's raster order
+Port of ``mmdet3d_gaussian_tpu/ops/voxelize.py::hard_voxelize``,
+``::bev_scatter`` and ``::bev_scatter_s2d``.  :func:`hard_voxelize` packs
+each voxel's first ``max_points`` points (ascending point index) into a
+``(max_voxels, max_points, C)`` table by one row gather from the
+voxel-sorted points.  Pillar rows compacted in the canvas's raster order
 (``build_scatter`` with ``key_order=CANVAS_KEY_ORDER`` for the plain canvas,
 with the s2d key for the s2d canvas) have non-decreasing cell ids, so each
 splat is an exact row placement into a zeroed canvas.  Rows and canvas are
@@ -16,14 +20,81 @@ Pallas.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from . import _cuda
+from .scan import cummax_i32
+from .scatter import Scatter, build_scatter
 
 CANVAS_KEY_ORDER = (0, 2, 1, 3)   # (b, iy, ix, iz): build_scatter key order
                                   # that compacts voxels in canvas raster
                                   # order -> sorted BEV cell ids
+
+
+class HardVoxels(NamedTuple):
+    voxels: torch.Tensor      # (max_voxels, max_points, C) padded points
+    coords: torch.Tensor      # (max_voxels, K) int32, -1 rows unused
+    num_points: torch.Tensor  # (max_voxels,) int32, clipped to max_points
+    scatter: Scatter          # the underlying point -> voxel mapping
+
+
+def hard_voxelize(points: torch.Tensor, coords: torch.Tensor,
+                  spatial_shape: Sequence[int], max_points: int,
+                  max_voxels: int,
+                  key_order: Optional[Sequence[int]] = None,
+                  mask_slots: bool = True) -> HardVoxels:
+    """Pack points into ``(max_voxels, max_points, C)`` slots.
+
+    points (N, C) float; coords (N, K) int voxel coords (-1 rows invalid;
+    K = 4 is batched, batch first); ``spatial_shape`` and ``key_order`` as
+    :func:`build_scatter`.  Each voxel keeps its first ``max_points`` points
+    by ascending point index, ``num_points = min(count, max_points)``; live
+    voxels past ``max_voxels`` are dropped.
+
+    The table is a gather from the voxel-sorted points: ``voxels[v, p] =
+    pts_sorted[base[v] + min(p, last[v])]``, ``base`` the voxel's first
+    sorted row, and an empty voxel's base the last row of the live voxels
+    before it (``cummax(starts + counts) - 1``), so the flattened gather
+    indices are non-decreasing.  ``mask_slots=False`` leaves the slots at
+    and past ``num_points`` holding a neighbouring row instead of zeros,
+    for a consumer that masks by ``num_points`` itself."""
+    scatter = build_scatter(coords, spatial_shape, max_voxels,
+                            key_order=key_order)
+    n, c = points.shape
+    counts = scatter.voxel_counts
+    num_points = counts.clamp(max=max_points)
+    starts = scatter.sorted_starts
+    pts_sorted = points[scatter.sort_order]
+    slot = torch.arange(max_points, dtype=torch.int32,
+                        device=points.device)[None, :]
+    last = (num_points[:, None] - 1).clamp(min=0)
+    ends_mono = (cummax_i32(starts + counts) - 1).clamp(min=0)
+    base = torch.where(num_points > 0, starts, ends_mono)
+    src = (base[:, None] + torch.minimum(slot, last)).clamp(
+        max=max(n - 1, 0))
+    voxels = pts_sorted[src.reshape(-1).long()].reshape(
+        max_voxels, max_points, c)
+    if mask_slots:
+        voxels = torch.where((slot < num_points[:, None])[..., None],
+                             voxels, 0.0)
+    return HardVoxels(voxels=voxels, coords=scatter.voxel_coords,
+                      num_points=num_points, scatter=scatter)
+
+
+def hard_kept_rows(sorted_ids: torch.Tensor, max_voxels: int,
+                   max_points: int) -> torch.Tensor:
+    """(N,) bool over voxel-sorted point rows (``sorted_ids`` ascending, the
+    trash id ``max_voxels`` last): true where the row is live and among the
+    first ``max_points`` rows of its voxel, the points hard voxelize
+    keeps."""
+    pos = torch.arange(sorted_ids.shape[0], dtype=torch.int32,
+                       device=sorted_ids.device)
+    first = torch.ones_like(sorted_ids, dtype=torch.bool)
+    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    rank = pos - cummax_i32(torch.where(first, pos, 0))
+    return (sorted_ids < max_voxels) & (rank < max_points)
 
 
 def _check_rows(feats: torch.Tensor, ids: torch.Tensor, nrows: int):
@@ -124,19 +195,19 @@ def splat_plan(feats: torch.Tensor, out: torch.Tensor, halves: int = 1):
 def splat_runs(ids: torch.Tensor, rows: int, halves: int, grid: int):
     """The runs the splat kernel's ``grid`` blocks take over a canvas of
     ``rows`` key rows (``halves`` 1: K2's ``lin``, 2: K7's ``lin2``):
-    -> (first tile, first row) of each block and of the end, each
-    ``(grid + 1,)`` int64.  A tile is ``256 // halves`` key rows; the tiles
-    before t cost ``256 t + R(t)`` (half-rows written, plus rows read: R(t)
-    live rows with an id below the tile's first), and block b starts at the
-    least t whose cost reaches ``b * total // grid``, as in the kernel."""
-    tile = 256 // halves
-    tiles = -(-rows // tile)
+    -> (first key row, first row) of each block and of the end, each
+    ``(grid + 1,)`` int64.  The key rows before k cost ``halves * k +
+    R(k)`` (half-rows written, plus rows read: R(k) live rows with an id
+    below k), and block b starts at the least k whose cost reaches ``b *
+    total // grid`` (or at the end), total ``halves * rows + len(ids)``
+    (every row counted, live or not), as in the kernel."""
     ids = ids.long()
-    starts = torch.arange(tiles + 1, device=ids.device) * tile
-    below = torch.searchsorted(ids, starts.clamp(max=rows))
-    cost = 256 * torch.arange(tiles + 1, device=ids.device) + below
-    goals = cost[-1] * torch.arange(grid + 1, device=ids.device) // grid
-    first = torch.searchsorted(cost, goals)
+    keys = torch.arange(rows + 1, device=ids.device)
+    below = torch.searchsorted(ids, keys)
+    cost = halves * keys + below
+    total = halves * rows + ids.shape[0]
+    goals = total * torch.arange(grid + 1, device=ids.device) // grid
+    first = torch.searchsorted(cost, goals).clamp(max=rows)
     return first, below[first]
 
 

@@ -12,7 +12,7 @@ import torch
 
 from mmdet3d_gaussian_tpu_torch.engine import detector
 from mmdet3d_gaussian_tpu_torch.ops import _cuda, bn, gd_loss
-from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, segment
+from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, scatter, segment
 from mmdet3d_gaussian_tpu_torch.ops import voxelize
 
 from .torch_k5_boxes import adversarial_boxes, cluster_boxes
@@ -607,21 +607,22 @@ def _splat_ids(kind, rows, tile, v, rng):
     return np.unique(keys).astype(np.int32)
 
 
-def _around_runs(keys, ids_of, rows, halves, grid):
-    """``keys`` with the key rows on both sides of every block's first tile
-    added, the blocks' runs (``voxelize.splat_runs`` over ``ids_of(keys)``)
-    taken again after each addition until no key is new."""
-    tile = 256 // halves
-    for _ in range(8):
-        first, _ = voxelize.splat_runs(torch.from_numpy(ids_of(keys)), rows,
-                                       halves, grid)
-        starts = first[1:-1].numpy() * tile
-        starts = starts[(starts > 0) & (starts < rows)]
-        more = np.unique(np.concatenate([keys, starts - 1, starts]))
-        if more.size == keys.size:
-            return keys
-        keys = more.astype(np.int32)
-    raise AssertionError('block runs did not settle')
+def _around_runs(keys, ids_of, v, rows, halves, grid):
+    """``keys`` with every key row of a band of the canvas added (its rows
+    about half of ``v``), so that block runs start inside the band, with
+    rows on both sides of their first key row: at least 10 of them, by the
+    blocks' runs (``voxelize.splat_runs``) over ``ids_of(keys)`` padded to
+    the ``v`` ids the kernel gets."""
+    band = np.arange(rows // 3, rows // 3 + v // (2 * halves))
+    keys = np.union1d(keys, band).astype(np.int32)
+    ids = ids_of(keys)
+    ids = np.concatenate([ids, np.full(v - ids.size, rows, ids.dtype)])
+    first, _ = voxelize.splat_runs(torch.from_numpy(ids), rows, halves,
+                                   grid)
+    starts = first[1:-1].numpy()
+    inside = np.isin(starts, keys) & np.isin(starts - 1, keys)
+    assert int(inside.sum()) >= 10, int(inside.sum())
+    return keys
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
@@ -645,7 +646,8 @@ def test_bev_splat_kernel_persistent(cuda, kind, dtype):
     keys = _splat_ids(kind, ncell, 256, 64000 if kind == 'main' else 20000,
                       rng)
     if kind == 'boundaries':
-        keys = _around_runs(keys, lambda k: k, ncell, 1, plan['grid'])
+        keys = _around_runs(keys, lambda k: k, feats.shape[0], ncell, 1,
+                            plan['grid'])
     lin = np.full(feats.shape[0], ncell + 5, np.int32)
     lin[:keys.size] = keys
     lin = torch.from_numpy(lin).to(cuda)
@@ -684,8 +686,8 @@ def test_bev_splat_pairs_kernel_persistent(cuda, kind, dtype):
     assert plan['tiles'] > plan['grid'] and plan['vector_bytes'] == 16
     keys = _splat_ids(kind, ncell2, 128, 15000, rng)
     if kind == 'boundaries':
-        keys = _around_runs(keys, lambda k: _pairs(k)[0], ncell2, 2,
-                            plan['grid'])
+        keys = _around_runs(keys, lambda k: _pairs(k)[0], feats.shape[0],
+                            ncell2, 2, plan['grid'])
     lin2, par = _pairs(keys)
     tail = feats.shape[0] - lin2.size
     lin2 = np.concatenate([lin2, ncell2 + np.arange(tail) // 2])
@@ -867,3 +869,97 @@ def test_train_step_card_vs_cpu(cuda):
         sel = (mu.abs() >= 1e-2 * mu.abs().max()) & (mu.abs() > 1e-6)
         assert bool(sel.any()), k
         torch.testing.assert_close(sc[k][sel], sp[k][sel], rtol=0, atol=1e-5)
+
+
+HARD_TINY = dict(voxel_size=(0.4, 0.4, 4.0),
+                 point_cloud_range=(0., -12.8, -3., 25.6, 12.8, 1.),
+                 max_points_per_voxel=16, max_voxels_per_sample=1024,
+                 voxelize_mode='hard',
+                 encoder_cfg=dict(in_channels=4, feat_channels=(16,)),
+                 backbone_cfg=dict(in_channels=16, out_channels=(16, 32, 64),
+                                   layer_nums=(1, 1, 1),
+                                   layer_strides=(2, 2, 2)),
+                 neck_cfg=dict(in_channels=(16, 32, 64),
+                               out_channels=(16, 16, 16),
+                               upsample_strides=(1, 2, 4)),
+                 head_cfg=dict(num_classes=3, num_anchors=6,
+                               feat_channels=48))
+
+
+def _crowded(dev):
+    """Pillars over max_points and live pillars over max_voxels."""
+    return detector.crowded_batch(2, 2048, 8, seed=6,
+                                  pc_range=HARD_TINY['point_cloud_range'],
+                                  voxel_size=HARD_TINY['voxel_size'],
+                                  device=dev)
+
+
+@pytest.mark.parametrize('dtype', [None, 'bfloat16'], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('encoder', ['packed', 'sorted'])
+def test_bev_splat_kernel_hard_rows(cuda, encoder, dtype):
+    """K2 on the pillar rows of a TINY hard predict (f32 or bf16 rows, in
+    canvas raster order, truncated and dropped pillars) equals its plain
+    version, in one launch."""
+    det = detector.PointPillarsDetector(
+        dict(HARD_TINY, hard_encoder=encoder, compute_dtype=dtype),
+        device=cuda, seed=3)
+    batch = _crowded(cuda)
+    with torch.inference_mode():
+        feats, coords, scatter = det.trunk.pillars(batch['points'],
+                                                   batch['points_mask'])
+    assert int(scatter.num_overflow) > 0
+    assert feats.dtype == (torch.bfloat16 if dtype else torch.float32)
+    b, nx, ny = 2, det.trunk.nx, det.trunk.ny
+    ncell = b * ny * nx
+    valid = (coords >= 0).all(-1)
+    lin = torch.where(valid, (coords[:, 0] * ny + coords[:, 2]) * nx
+                      + coords[:, 1], ncell).to(torch.int32)
+    assert bool((lin[1:] >= lin[:-1]).all())
+    before = dict(_cuda.LAUNCHES)
+    got = voxelize.bev_splat(feats.contiguous(), lin, ncell)
+    _one_launch('bev_splat', before['bev_splat'], got)
+    want = voxelize.bev_splat_plain(feats.cpu(), lin.cpu(), ncell)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_segment_kernels_rank_masked(cuda):
+    """K1 on the sorted hard encoder's inputs: the 3-channel cluster sum of
+    the kept rows, the 64-channel max of rank-masked rows (-1e4 past each
+    pillar's max_points; ties among copies of one point) and its winner
+    mask, each against its plain version."""
+    det = detector.PointPillarsDetector(
+        dict(HARD_TINY, hard_encoder='sorted'), device=cuda, seed=3)
+    batch = _crowded(cuda)
+    trunk = det.trunk
+    b, n, _ = batch['points'].shape
+    flat = batch['points'].reshape(b * n, -1)
+    coords3, _ = scatter.compute_voxel_coords(
+        flat[:, :3], trunk.point_cloud_range, trunk.voxel_size)
+    coords4 = scatter.batch_coords(
+        coords3, torch.arange(b, device=cuda).repeat_interleave(n))
+    max_voxels = trunk.max_voxels_per_sample * b
+    sc = scatter.build_scatter(coords4, (b, trunk.nx, trunk.ny, 1),
+                               max_voxels,
+                               key_order=voxelize.CANVAS_KEY_ORDER)
+    sv = sc.sorted_view()
+    kept = voxelize.hard_kept_rows(sv.point_voxel_ids, max_voxels, 16)
+    assert int((~kept & (sv.point_voxel_ids < max_voxels)).sum()) > 0
+    rows = flat[sc.sort_order]
+    xyz = (rows[:, :3] * kept[:, None]).contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.randn((4, 64), device=cuda, generator=gen)
+    # rows of copies of one point are equal, rounding ties others
+    y = torch.where(kept[:, None], (rows @ w).round(), -1e4).contiguous()
+    args = (sv.point_voxel_ids, sc.sorted_starts, sc.voxel_counts)
+    assert not segment.vectorized(xyz) and segment.vectorized(y)
+    got = segment.segment_reduce(xyz, args[1], args[2], 'sum')
+    want = segment.segment_reduce_plain(xyz.cpu(), args[1].cpu(),
+                                        args[2].cpu(), 'sum')
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-4)
+    got = segment.segment_reduce(y, args[1], args[2], 'max')
+    assert torch.equal(got.cpu(), segment.segment_reduce_plain(
+        y.cpu(), args[1].cpu(), args[2].cpu(), 'max'))
+    out, mask = segment.segment_max_winner(y, *args)
+    ref, ref_m = segment.segment_max_winner_plain(*(t.cpu() for t in
+                                                    (y,) + args))
+    assert torch.equal(out.cpu(), ref) and torch.equal(mask.cpu(), ref_m)

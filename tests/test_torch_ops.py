@@ -756,18 +756,18 @@ def test_k4_kernel_plan_paths(case, path):
 
 def _splat_runs_brute(ids, rows, halves, grid):
     """The splat's block runs by their definition: block b starts at the
-    least tile t with 256 t + R(t) >= b * total // grid."""
-    tile = 256 // halves
-    tiles = -(-rows // tile)
+    least key row k with halves * k + R(k) >= b * total // grid, or at the
+    end; total = halves * rows + len(ids)."""
     ids = np.asarray(ids)
+    total = halves * rows + ids.size
 
-    def below(t):
-        return int((ids < min(t * tile, rows)).sum())
-    cost = [256 * t + below(t) for t in range(tiles + 1)]
-    first = [next(t for t in range(tiles + 1)
-                  if cost[t] >= cost[-1] * b // grid)
+    def below(k):
+        return int((ids < k).sum())
+    cost = [halves * k + below(k) for k in range(rows + 1)]
+    first = [next((k for k in range(rows + 1)
+                   if cost[k] >= total * b // grid), rows)
              for b in range(grid + 1)]
-    return first, [below(t) for t in first], cost
+    return first, [below(k) for k in first], cost
 
 
 @pytest.mark.parametrize('kind,rows,halves,grid', [
@@ -779,9 +779,9 @@ def _splat_runs_brute(ids, rows, halves, grid):
     ('one_tile', 100, 1, 1)])
 def test_splat_runs_cut_by_cost(kind, rows, halves, grid):
     """The runs the splat kernel's blocks take (``splat_runs``, the
-    kernel's formula): equal to their definition, covering every tile and
-    every live row once in order, and no block's cost (half-rows written
-    plus rows read) over its share by more than one tile's."""
+    kernel's formula): equal to their definition, covering every key row
+    and every live row once in order, and no block's cost (half-rows
+    written plus rows read) over its share by more than one key row's."""
     rng = np.random.RandomState(21)
     n = rows // 5
     keys = {'uniform': lambda: rng.choice(rows, n, replace=False),
@@ -799,12 +799,13 @@ def test_splat_runs_cut_by_cost(kind, rows, halves, grid):
     want_first, want_below, cost = _splat_runs_brute(ids, rows, halves, grid)
     assert first.tolist() == want_first
     assert below.tolist() == want_below
-    tiles = -(-rows // (256 // halves))
-    assert first[0] == 0 and first[-1] == tiles
+    assert first[0] == 0 and first[-1] == rows
     assert bool((first.diff() >= 0).all())
     assert below[-1] == int((ids < rows).sum())
     block = np.diff(np.asarray(cost)[first.numpy()])
-    assert block.max() <= cost[-1] / grid + 512
+    # a key row costs its halves plus at most two rows read; the shares
+    # count the rows past the canvas too
+    assert block.max() <= (halves * rows + ids.size) / grid + 1 + halves + 2
 
 
 @pytest.mark.parametrize('layout', ['channels_last', 'nchw'])

@@ -22,8 +22,11 @@ from mmdet3d_gaussian_tpu.engine import detector as jdet
 from mmdet3d_gaussian_tpu_torch.engine import detector as tdet
 from mmdet3d_gaussian_tpu_torch.models.detectors.voxelnet import \
     PointPillarsNet
+from mmdet3d_gaussian_tpu_torch.models.voxel_encoders import (
+    DynamicPillarFeatureNet, PillarFeatureNet, SortedPillarFeatureNet)
 from mmdet3d_gaussian_tpu_torch.ops import rotated_iou as tiou
-from mmdet3d_gaussian_tpu_torch.weights import jax_variables_to_torch
+from mmdet3d_gaussian_tpu_torch.weights import (jax_grads_to_torch,
+                                                jax_variables_to_torch)
 
 torch.set_num_threads(2)
 
@@ -156,12 +159,43 @@ def test_predict(jax_run, port):
     np.testing.assert_allclose(got[0][got[3]], want[0][want[3]], atol=1e-4)
 
 
+def _leaf_count(tree):
+    return sum(_leaf_count(v) if hasattr(v, 'items') else 1
+               for v in tree.values())
+
+
 def test_converter_maps_each_leaf(jax_run):
     """Spot checks of the mapping: BN stats land in running_mean /
     running_var, scale / bias in weight / bias, and the ConvTranspose kernel
-    is flipped."""
+    is flipped; a hard-mode tree's ``pfn_0/linear`` and ``pfn_0/norm``
+    (statistics too) land in the same port names and load into the hard
+    trunk; every leaf of both trees becomes one tensor."""
+    hard = jdet.PointPillarsDetector(
+        model_cfg=dict(TINY_MODEL, voxelize_mode='hard'), head_cfg=TINY_HEAD)
+    hv = randomize(jax.tree_util.tree_map(np.asarray, jax.jit(hard.init)(
+        jax.random.PRNGKey(1), jax_run['batch'])), np.random.RandomState(1))
+    hsd = jax_variables_to_torch(hv)
+    enc, enc_s = hv['params']['voxel_encoder'], hv['batch_stats'][
+        'voxel_encoder']
+    assert set(enc) == {'pfn_0'}
+    np.testing.assert_array_equal(
+        hsd['voxel_encoder.pfn_layers.0.linear.weight'],
+        enc['pfn_0']['linear']['kernel'].T)
+    for port, jax_name, tree in (('weight', 'scale', enc),
+                                 ('bias', 'bias', enc),
+                                 ('running_mean', 'mean', enc_s),
+                                 ('running_var', 'var', enc_s)):
+        np.testing.assert_array_equal(
+            hsd[f'voxel_encoder.pfn_layers.0.norm.{port}'],
+            tree['pfn_0']['norm'][jax_name])
+    net = PointPillarsNet(**dict(TINY_MODEL, voxelize_mode='hard'))
+    net.load_state_dict(hsd, strict=True)
     v = jax_run['variables']
     sd = jax_variables_to_torch(v)
+    for tree, state in ((hv, hsd), (v, sd)):
+        tracked = sum(k.endswith('num_batches_tracked') for k in state)
+        assert len(state) - tracked == (_leaf_count(tree['params'])
+                                        + _leaf_count(tree['batch_stats']))
     p, s = v['params'], v['batch_stats']
     np.testing.assert_array_equal(
         sd['voxel_encoder.pfn_layers.0.norm.running_var'],
@@ -180,13 +214,33 @@ def test_converter_maps_each_leaf(jax_run):
                                   p['bbox_head']['conv_cls']['bias'])
 
 
+@pytest.mark.parametrize('where', ['params', 'batch_stats', 'grads'])
+def test_converter_raises_on_unknown_leaf(jax_run, where):
+    """A leaf that maps to no port parameter (here an encoder layer the
+    port lacks) raises instead of loading into nothing."""
+    v = jax.tree_util.tree_map(np.asarray, jax_run['variables'])
+    tree = v['params'] if where == 'grads' else v[where]
+    extra = np.zeros((3,), np.float32)
+    tree = dict(tree, voxel_encoder=dict(tree['voxel_encoder'],
+                                         mvf_0={'kernel': extra}))
+    with pytest.raises(KeyError, match='mvf_0'):
+        if where == 'grads':
+            jax_grads_to_torch(tree)
+        else:
+            jax_variables_to_torch(dict(v, **{where: tree}))
+
+
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        tdet.PointPillarsDetector(dict(TINY_MODEL, voxelize_mode='hard'),
+    """'mvf' voxelize is not ported, float16 compute is not supported; an
+    unknown voxelize mode is a config error."""
+    with pytest.raises(NotImplementedError, match='mvf'):
+        tdet.PointPillarsDetector(dict(TINY_MODEL, voxelize_mode='mvf'),
                                   TINY_HEAD, device='cpu')
     with pytest.raises(ValueError):
         tdet.PointPillarsDetector(dict(TINY_MODEL, compute_dtype='float16'),
                                   TINY_HEAD, device='cpu')
+    with pytest.raises(ValueError, match='voxelize_mode'):
+        PointPillarsNet(**dict(TINY_MODEL, voxelize_mode='dense'))
 
 
 def test_bf16_detector_builds():
@@ -222,14 +276,26 @@ def _with_layout_fields(cfg, fields):
     dict(s2d_canvas='on', fold_w2=True),
     dict(s2d_canvas='auto', hard_encoder='packed', axis_name=None,
          neck_cfg=dict(jdet.KITTI_3CLASS_MODEL['neck_cfg'],
-                       deconv_impl='d2s'))],
-    ids=['auto_bf16', 'off', 'on', 'layout_fields'])
+                       deconv_impl='d2s')),
+    dict(voxelize_mode='hard', s2d_canvas='auto', compute_dtype='bfloat16'),
+    dict(voxelize_mode='hard', s2d_canvas='on', hard_encoder='sorted'),
+    dict(voxelize_mode='hard', s2d_canvas='off', fold_w2=False)],
+    ids=['auto_bf16', 'off', 'on', 'layout_fields', 'hard_auto_bf16',
+         'hard_on_sorted', 'hard_off'])
 def test_jax_config_builds(extra):
     """A JAX package model config naming the canvas, precision and layout
-    fields builds in the port, with the JAX package's canvas choice."""
-    cfg = dict(jdet.KITTI_3CLASS_MODEL, voxelize_mode='dynamic', **extra)
+    fields builds in the port, with the JAX package's canvas choice: the
+    dynamic branch takes the s2d canvas unless it is off, the hard branch
+    never does."""
+    cfg = dict(jdet.KITTI_3CLASS_MODEL, voxelize_mode='dynamic')
+    cfg.update(extra)
     det = tdet.PointPillarsDetector(cfg, device='cpu')
-    assert det.trunk.s2d == (extra['s2d_canvas'] != 'off')
+    hard = cfg['voxelize_mode'] == 'hard'
+    assert det.trunk.s2d == (not hard and extra['s2d_canvas'] != 'off')
+    encoder = {'packed': PillarFeatureNet, 'sorted': SortedPillarFeatureNet}[
+        cfg.get('hard_encoder', 'packed')] if hard else \
+        DynamicPillarFeatureNet
+    assert type(det.trunk.voxel_encoder) is encoder
 
 
 @pytest.mark.parametrize('fields', JAX_LAYOUT_FIELDS, ids=['sorted_convt',
@@ -247,15 +313,18 @@ def test_layout_fields_predict_the_same(port, fields):
 
 
 def test_voxelize_mode_defaults_to_hard():
-    """The trunk's default is the JAX package's 'hard', which is not ported:
-    it raises, and so does a config without the key, JAX's or the port's,
-    instead of building the dynamic trunk."""
-    with pytest.raises(NotImplementedError, match='hard'):
-        PointPillarsNet()
-    for model in (jdet.KITTI_3CLASS_MODEL, tdet.KITTI_3CLASS_MODEL):
-        cfg = {k: v for k, v in model.items() if k != 'voxelize_mode'}
-        with pytest.raises(NotImplementedError, match='hard'):
-            PointPillarsNet(**cfg)
+    """The trunk's default is the JAX package's 'hard': the trunk with no
+    arguments but its head's classes, and a config without the key, JAX's
+    or the port's, build the hard trunk (packed encoder) on the plain
+    canvas, not the dynamic one."""
+    head = tdet.KITTI_3CLASS_MODEL['head_cfg']
+    for net in [PointPillarsNet(head_cfg=head)] + [
+            PointPillarsNet(**{k: v for k, v in model.items()
+                               if k != 'voxelize_mode'})
+            for model in (jdet.KITTI_3CLASS_MODEL, tdet.KITTI_3CLASS_MODEL)]:
+        assert net.voxelize_mode == 'hard' and not net.s2d
+        assert type(net.voxel_encoder) is PillarFeatureNet
+        assert not net.backbone.input_s2d
 
 
 def test_unported_fields_raise():

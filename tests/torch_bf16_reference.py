@@ -1,7 +1,7 @@
 """JAX reference numbers for ``tests/test_torch_bf16.py``, computed in a
 process of their own.
 
-    python -m tests.torch_bf16_reference OUT.npz
+    python -m tests.torch_bf16_reference OUT.npz [hard]
 
 XLA on the CPU keeps some bf16 values in f32 between operations
 (``--xla_allow_excess_precision``, on by default), so its bf16 program
@@ -12,7 +12,13 @@ batch: the weights as the port's state_dict, the head maps of a bf16 and
 an f32 predict, the bf16 detections, the loss terms, gradients and new
 running statistics of one sparse-target train step in bf16 and in f32, and
 the loss terms and gradients of one dense-target step (``pos_cap=0``, the
-decoded-box loss through K3) in bf16 and in f32.
+decoded-box loss through K3) in bf16 and in f32.  With ``hard``, the same
+for the hard-voxelize model on ``tests/test_torch_hard.py``'s crowded
+batch, with its bf16 pillar rows (eval), and for each hard encoder alone in
+bf16 (one layer, training mode, on that file's batched encoder inputs):
+its weights,
+output, the gradient of a weighted sum of the output and the new running
+statistics.
 """
 import os
 import sys
@@ -22,20 +28,19 @@ os.environ['XLA_FLAGS'] = (os.environ.get('XLA_FLAGS', '')
                            + ' --xla_allow_excess_precision=false')
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 jax.config.update('jax_platforms', 'cpu')
 
 from mmdet3d_gaussian_tpu.engine import detector as jdet  # noqa: E402
+from mmdet3d_gaussian_tpu.models import voxel_encoders as jve  # noqa: E402
 
 from mmdet3d_gaussian_tpu_torch.weights import (  # noqa: E402
     jax_grads_to_torch, jax_variables_to_torch)
 
 from .test_torch_train import (TINY_HEAD, TINY_MODEL, _np_tree,  # noqa: E402
                                randomize)
-
-BF16_MODEL = dict(TINY_MODEL, compute_dtype='bfloat16')
-
 
 def _f32(x):
     return np.asarray(x).astype(np.float32)
@@ -55,16 +60,73 @@ def _step(jd, variables, batch):
     return losses, grads, stats
 
 
-def main(out: str) -> None:
+def _hard_encoders(arrays) -> None:
+    """Each hard encoder alone in bf16, training mode."""
+    from .test_torch_hard import (ENC_CASES, PCR, VOXEL, _enc_inputs,
+                                  _encoder_sd, _jax_sorted)
+    inp = _enc_inputs(4)
+    kw = dict(ENC_CASES['one_layer'], voxel_size=VOXEL,
+              point_cloud_range=PCR, dtype='bfloat16')
+    for form, cls in (('packed', jve.PillarFeatureNet),
+                      ('sorted', jve.SortedPillarFeatureNet)):
+        if form == 'sorted':
+            rows, extra = _jax_sorted(inp)
+            args = (rows,) + extra
+        else:
+            args = (inp['voxels'], inp['vcoords'], inp['num_points'])
+        mod = cls(**kw)
+        variables = randomize(
+            _np_tree(mod.init(jax.random.PRNGKey(0), *args)),
+            np.random.RandomState(1))
+        g = np.random.RandomState(2).randn(inp['max_voxels'], 16).astype(
+            np.float32)
+
+        def f(params):
+            out, upd = mod.apply(
+                {'params': params, 'batch_stats': variables['batch_stats']},
+                *args, train=True, mutable=['batch_stats'])
+            return jnp.sum(out.astype(jnp.float32) * g), (out, upd)
+
+        (_, (out, upd)), grads = jax.jit(jax.value_and_grad(
+            f, has_aux=True))(variables['params'])
+        for name, tree in (('sd', variables),
+                           ('state', {'params': variables['params'],
+                                      'batch_stats': _np_tree(
+                                          upd['batch_stats'])}),
+                           ('grad', {'params': _np_tree(grads),
+                                     'batch_stats': variables[
+                                         'batch_stats']})):
+            for k, v in _encoder_sd(tree).items():
+                if name != 'grad' or 'running_' not in k:
+                    arrays[f'enc_{form}_{name}/{k}'] = v.numpy()
+        arrays[f'enc_{form}_out/rows'] = _f32(out)
+        arrays[f'enc_{form}_out/dtype'] = np.asarray(str(out.dtype))
+
+
+def main(out: str, mode: str = 'dynamic') -> None:
     batch = jdet.synthetic_batch(batch_size=2, num_points=1024, num_gt=8,
                                  pc_range=TINY_MODEL['point_cloud_range'])
-    j16 = jdet.PointPillarsDetector(model_cfg=BF16_MODEL, head_cfg=TINY_HEAD)
+    model = TINY_MODEL
+    if mode == 'hard':
+        from .test_torch_hard import HARD_MODEL as model, jax_batch
+        batch = jax_batch()
+    bf16_model = dict(model, compute_dtype='bfloat16')
+    j16 = jdet.PointPillarsDetector(model_cfg=bf16_model, head_cfg=TINY_HEAD)
     variables = jax.jit(j16.init)(jax.random.PRNGKey(0), batch)
     variables = randomize(variables, np.random.RandomState(0))
     arrays = {f'sd/{k}': v.numpy()
               for k, v in jax_variables_to_torch(variables).items()}
+    if mode == 'hard':
+        _, inter = jax.jit(lambda v, p, m: j16.trunk.apply(
+            v, p, m, train=False, capture_intermediates=lambda mdl, _:
+            mdl.name == 'voxel_encoder'))(variables, batch['points'],
+                                          batch['points_mask'])
+        rows = inter['intermediates']['voxel_encoder']['__call__'][0]
+        arrays['pillars16/rows'] = _f32(rows)
+        arrays['pillars16/dtype'] = np.asarray(str(rows.dtype))
+        _hard_encoders(arrays)
 
-    for name, cfg in (('16', BF16_MODEL), ('32', TINY_MODEL)):
+    for name, cfg in (('16', bf16_model), ('32', model)):
         jd = jdet.PointPillarsDetector(model_cfg=cfg, head_cfg=TINY_HEAD)
         maps = jax.jit(jd.apply_eval)(variables, batch)
         for i, m in enumerate(maps[:4]):
@@ -98,4 +160,4 @@ def main(out: str) -> None:
 
 
 if __name__ == '__main__':
-    main(sys.argv[1])
+    main(*sys.argv[1:3])
