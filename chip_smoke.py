@@ -112,10 +112,40 @@ Phases, each printing its own lines (any failure exits non-zero):
       ``nms_normal_bev``'s IoU of it, held to their plain versions and
       timed; the step wall's median, the wait on the prefetch queue, peak
       memory, eval frames/s and the phase's wall (under ``L_LIMIT_S``);
+  (n) CenterPoint on nuScenes, the gwd5 config
+      (``configs/nuscenes/centerpoint_02pillar_second_secfpn_gwd5_8x4_
+      cyclic_20e_nus.py``: dynamic pillars on the 512 x 512 s2d canvas,
+      SECOND, the neck at strides 0.5, 1, 2, the 6-task CenterGDHead) at
+      full width, random weights from a seed with the heatmap biases
+      zeroed: ``synthetic_nus_batch`` (4 x 60,000 five-channel points
+      falling off with range, 20,000-30,000 live pillars a sample, printed
+      with the truncated count); K1, K7, K5 and K6 on one predict's inputs
+      held to their plain versions and timed beside their bounds, circle
+      NMS (a radius a task) on the same candidates through K6 equal to the
+      plain sweep; 6 requests with launch counts; a profile, the head's
+      share of the device time; the predict with circle NMS (one K6 launch
+      a radius);
+  (n16) the same predict in bf16, launches and latency;
+  (nt) the gwd5 train step (its config's code_weights list has one entry
+      too many and fails the loss in both packages: the step takes
+      ``CP_CODE_WEIGHTS``) on one repeated batch of 30-40 GT boxes a sample
+      of the 10 classes with velocities: K1's winner form and K4 on every
+      BatchNorm of a step (62 + 62) held to their plain versions, 3
+      warm-up and 10 timed steps with every loss term, launches, step time
+      and peak memory, a 3-step profile; one step of the plain CenterHead
+      config;
+  (N) the gwd5 config through the CLIs on a nuScenes-format tree written
+      in a temporary directory (8 + 8 frames of a key frame and 9 sweeps,
+      ``CBGSDataset`` as configured; data paths and code_weights moved):
+      ``tools.train`` 3 steps at B = 4, ``tools.test --metric nds`` and
+      ``--metric iou3d_err`` on its checkpoint, every metric finite,
+      launches per CLI run, the step wall and the wait on the queue;
   (e) one JSON line listing the kernels (with their launches on the hard
-      paths and K2's and K1's numbers there, and under ``loop`` the
-      launches of each CLI run and the numbers on the loop's inputs), the
-      card's name and power limit from nvidia-smi, and the result line.
+      paths and K2's and K1's numbers there, under ``loop`` the launches
+      of each CLI run and the numbers on the loop's inputs, and under
+      ``centerpoint`` the launches of each CenterPoint path and the
+      numbers on its inputs), the card's name and power limit from
+      nvidia-smi, and the result line.
 
 f32 runs with TF32 off for matmuls and cuDNN convolutions; the bf16 paths
 compute in bf16 on f32 parameters, as the JAX package's mixed precision.
@@ -134,6 +164,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, 700 W limit): HBM3
@@ -1623,11 +1654,12 @@ def tiny_train_card_vs_cpu(card, cfg=TINY_F32, hard=False):
           f'a {tag} weight moved more than one Adam step')
 
 
-def timed_steps(det, batch, state, per_step, tag, card):
-    """WARM_STEPS then TIMED_STEPS train steps on one repeated batch; the
-    launch counts are zeroed before the timed steps and every kernel of
-    ``per_step`` must run that often per step; the loss must be finite and
-    go down.  -> (launches, state, summary)."""
+def timed_steps(det, batch, state, per_step, tag, card, points=POINTS):
+    """WARM_STEPS then TIMED_STEPS train steps on one repeated batch of
+    ``points`` points a sample; the launch counts are zeroed before the
+    timed steps and every kernel of ``per_step`` must run that often per
+    step; the loss must be finite and go down.  -> (launches, state,
+    summary)."""
     from mmdet3d_gaussian_tpu_torch.ops import _cuda
     rows, times = [], []
     for i in range(WARM_STEPS + TIMED_STEPS):
@@ -1656,15 +1688,16 @@ def timed_steps(det, batch, state, per_step, tag, card):
               f'{name} launched {launches[name]} times in {TIMED_STEPS} '
               f'steps, want {per} per step')
     med = statistics.median(times)
+    b = batch['points'].shape[0]
     print(f'{tag} train step median {med * 1e3:.3f} ms (min '
           f'{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) over '
-          f'{TIMED_STEPS} steps of {BATCH}x{POINTS} points; '
-          f'{BATCH * POINTS / med:.0f} points/s; max_memory_allocated '
+          f'{TIMED_STEPS} steps of {b}x{points} points; '
+          f'{b * points / med:.0f} points/s; max_memory_allocated '
           f'{peak / 2**20:.1f} MiB; loss {rows[0]["loss"]:.4f} -> '
           f'{rows[-1]["loss"]:.4f} [{card}]')
     return launches, state, dict(
         step_ms=med * 1e3, step_min_ms=min(times) * 1e3,
-        step_max_ms=max(times) * 1e3, points_per_s=BATCH * POINTS / med,
+        step_max_ms=max(times) * 1e3, points_per_s=b * points / med,
         peak_mib=peak / 2**20, loss_first=rows[0]['loss'],
         loss_last=rows[-1]['loss'])
 
@@ -1709,10 +1742,12 @@ def predict_requests(det, batches, rounds=ROUNDS):
     return times, outs
 
 
-def main_path(det, batches, per_request, tag, card):
-    """Phase (d) or (d16): the full-width predict path answering
-    requests; every kernel of ``per_request`` must run that often per
-    request."""
+def main_path(det, batches, per_request, tag, card, out_rows=100,
+              num_classes=3, box_dim=7, points=POINTS):
+    """Phase (d) or (d16) (or (n), (n16)): the full-width predict path
+    answering requests; every kernel of ``per_request`` must run that
+    often per request; each answer is ``out_rows`` boxes of ``box_dim``
+    a sample with labels below ``num_classes``."""
     from mmdet3d_gaussian_tpu_torch.ops import _cuda
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1725,19 +1760,21 @@ def main_path(det, batches, per_request, tag, card):
     for name, per in per_request.items():
         check(launches[name] == per * n_req, f'{name} launched '
               f'{launches[name]} times in {n_req} predicts, want {per} each')
+    b = batches[0]['points'].shape[0]
     for boxes, scores, labels, valid in outs:
-        check(tuple(boxes.shape) == (BATCH, 100, 7), 'boxes shape')
+        check(tuple(boxes.shape) == (b, out_rows, box_dim), 'boxes shape')
         check(bool(torch.isfinite(boxes).all()
                    and torch.isfinite(scores).all()), 'non-finite output')
         check(bool(valid.any(dim=1).all()), 'a sample kept no detection')
-        check(bool(((labels >= 0) & (labels < 3)).all()), 'labels range')
+        check(bool(((labels >= 0) & (labels < num_classes)).all()),
+              'labels range')
     med = statistics.median(times)
     print(f'{tag} predict latency median {med * 1e3:.3f} ms '
           f'(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) over '
-          f'{n_req} requests of {BATCH}x{POINTS} points; '
-          f'{BATCH * POINTS / med:.0f} points/s; max_memory_allocated '
+          f'{n_req} requests of {b}x{points} points; '
+          f'{b * points / med:.0f} points/s; max_memory_allocated '
           f'{peak / 2**20:.1f} MiB [{card}]')
-    return launches, dict(latency_ms=med * 1e3, points_per_s=BATCH * POINTS
+    return launches, dict(latency_ms=med * 1e3, points_per_s=b * points
                           / med, peak_mib=peak / 2**20)
 
 
@@ -2704,6 +2741,509 @@ def loop_phase(repo, card):
     return results, launches, summary
 
 
+# ------------------------------------------------- phases (n) to (N)
+# CenterPoint on nuScenes: the gwd5 config (CenterGDHead) at its full
+# width, and the plain CenterHead config for one step
+CP_CONFIG = ('configs/nuscenes/'
+             'centerpoint_02pillar_second_secfpn_gwd5_8x4_cyclic_20e_nus.py')
+CP_PLAIN_CONFIG = ('configs/nuscenes/'
+                   'centerpoint_02pillar_second_secfpn_8x4_cyclic_20e_nus.py')
+CP_DEVICE = 'cuda'
+# B samples of N five-channel points padded to G GT rows (the dataset
+# config's samples_per_gpu and Pad3D), requests from three seeds
+CP_BATCH, CP_POINTS, CP_GT, CP_SEEDS = 4, 60000, 128, (0, 1, 2)
+# the gwd5 config's code_weights has 12 entries for its 11-channel box code
+# (yaw mode, velocity on): the loss raises in the JAX package (a broadcast
+# error) and in the port (ValueError).  The train phases use its evident
+# intent, the plain config's weights with the yaw channel: 1 for the box
+# and the direction, 0.2 for the velocity
+CP_CODE_WEIGHTS = [1.0] * 7 + [1.0, 1.0, 0.2, 0.2]
+# mmdet3d's nuScenes CenterPoint test_cfg min_radius, one a task
+CP_CIRCLE_RADII = [4.0, 12.0, 10.0, 1.0, 0.85, 0.175]
+# a predict: K1 reduce and mapback once (the dynamic encoder), K7 (the s2d
+# canvas), K5 and K6 once over every (sample, task) problem
+CP_PREDICT_LAUNCHES = {'segment_reduce': 1, 'segment_reduce_mapback': 1,
+                       'bev_splat_pairs': 1, 'rotated_iou': 1,
+                       'nms_sweep': 1}
+# a train step: every BatchNorm's moments both ways (19 in the trunk, the
+# shared conv's, 6 tasks x 7 towers in yaw mode, x 6 in the plain head),
+# the encoder's winner and mapback, one splat
+CP_STEP_LAUNCHES = {'bn_moments': 62, 'bn_grad_moments': 62,
+                    'segment_max_winner': 1, 'segment_reduce_mapback': 1,
+                    'bev_splat_pairs': 1}
+CP_PLAIN_STEP_LAUNCHES = dict(CP_STEP_LAUNCHES, bn_moments=56,
+                              bn_grad_moments=56)
+# phase (N): a nuScenes-format tree of train and val frames, each a key
+# frame and the sweeps the config loads, of CP_SWEEP_POINTS points each
+CP_TRAIN_FRAMES, CP_VAL_FRAMES, CP_CLI_STEPS = 8, 8, 3
+CP_SWEEPS, CP_SWEEP_POINTS = 9, 6000
+NUS_CLASSES = ('car', 'truck', 'trailer', 'bus', 'construction_vehicle',
+               'bicycle', 'motorcycle', 'pedestrian', 'traffic_cone',
+               'barrier')
+
+
+def cp_configs(repo):
+    """(model, head) of the gwd5 config and of the plain config."""
+    from mmdet3d_gaussian_tpu_torch.utils.config import Config
+    out = []
+    for path in (CP_CONFIG, CP_PLAIN_CONFIG):
+        cfg = Config.fromfile(os.path.join(repo, path)).to_dict()
+        out.append((cfg['model'], cfg['head']))
+    return out
+
+
+def cp_batches(seeds=CP_SEEDS):
+    from mmdet3d_gaussian_tpu_torch.engine.detector import synthetic_nus_batch
+    return [synthetic_nus_batch(CP_BATCH, CP_POINTS, CP_GT, seed=s,
+                                device=CP_DEVICE) for s in seeds]
+
+
+def cp_detector(model, head, **model_over):
+    """A CenterPoint detector from a seed with the heatmap biases zeroed,
+    so that the candidates clear the score threshold and NMS has work."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import CenterPointDetector
+    from mmdet3d_gaussian_tpu_torch.models.dense_heads.centerpoint_head \
+        import SeparateHead
+    det = CenterPointDetector(dict(model, **model_over), head,
+                              device=CP_DEVICE, seed=0)
+    check(det.trunk.s2d, 'the CenterPoint config did not take the s2d canvas')
+    with torch.no_grad():
+        for m in det.trunk.bbox_head.modules():
+            if isinstance(m, SeparateHead):
+                m.heatmap[-1].bias.zero_()
+    return det
+
+
+def cp_kernel_checks(inputs, card):
+    """K1 (reduce, mapback), K7, K5 and K6 on one full-width CenterPoint
+    predict's inputs, each held to its plain version at phase (b)'s
+    tolerance, timed beside its bound and, where PyTorch has one, its
+    one-call yardstick (printed, not held: a first measurement at these
+    shapes)."""
+    from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, segment
+    from mmdet3d_gaussian_tpu_torch.ops import voxelize
+    results, note = {}, ' (centerpoint predict)'
+
+    def record(name, kernel, plain, library, err, tol, ok, work, iters,
+               plain_iters):
+        report(results, name, card, err, tol, ok, kernel, plain, library,
+               iters, plain_iters, *work, note)
+
+    data, starts, counts, op = inputs['segment_reduce']
+    out = segment.segment_reduce(data, starts, counts, op)
+    ref = segment.segment_reduce_plain(data, starts, counts, op)
+    n_live = int(torch.count_nonzero(counts))
+    rows, lengths = int(counts.sum()), counts[:n_live].long()
+    err = float((out - ref).abs().max())
+    record('segment_reduce',
+           lambda: segment.segment_reduce(data, starts, counts, op),
+           lambda: segment.segment_reduce_plain(data, starts, counts, op),
+           lambda: torch.segment_reduce(data[:rows], op, lengths=lengths,
+                                        unsafe=True), err, '0', err == 0,
+           k1_work('reduce', data, None, starts, counts), 100, 5)
+    print(f'(n) segment_reduce inputs: {data.shape[0]} rows x '
+          f'{data.shape[1]} channels into {n_live} live of '
+          f'{counts.shape[0]} voxels')
+
+    # the cluster sums of nuScenes xyz reach ~1e3 m near the sensor, where
+    # phase (b)'s absolute 1e-4 is an f32 summation-order difference: the
+    # sum is held, as K4's are, to 1e-5 of its segment's sum of magnitudes
+    data, ids, starts, counts, op = inputs['segment_reduce_mapback']
+    out = segment.segment_reduce_mapback(data, ids, starts, counts, op)
+    ref = segment.segment_reduce_mapback_plain(data, ids, starts, counts, op)
+    mags = segment.segment_reduce_mapback_plain(data.abs(), ids, starts,
+                                                counts, op)
+    err = float((out - ref).abs().max())
+    rel = float(((out - ref).abs() / mags.clamp(min=1e-30)).max())
+    print(f'(n) segment_reduce_mapback: max error {err:.3g}, of the '
+          f'segment\'s sum of magnitudes {rel:.3g}; largest sum of '
+          f'magnitudes {float(mags.max()):.1f}')
+    record('segment_reduce_mapback',
+           lambda: segment.segment_reduce_mapback(data, ids, starts, counts,
+                                                  op),
+           lambda: segment.segment_reduce_mapback_plain(data, ids, starts,
+                                                        counts, op),
+           None, err, '1e-5 of the sum of magnitudes', rel <= 1e-5,
+           k1_work('mapback', data, ids, starts, counts), 100, 5)
+
+    feats, lin2, par, ncell2 = inputs['bev_splat_pairs']
+    out = voxelize.bev_splat_pairs(feats, lin2, par, ncell2)
+    ref = voxelize.bev_splat_pairs_plain(feats, lin2, par, ncell2)
+    c = feats.shape[1]
+    live = lin2 < ncell2
+    ids_l, rows_l = voxelize.pair_rows(lin2, par, ncell2)[live], feats[live]
+    canvas = torch.zeros_like(ref)
+    half_rows = canvas.view(2 * ncell2, c)
+    lib = lambda: half_rows.zero_().index_copy_(  # noqa: E731
+        0, ids_l, rows_l)
+    lib()
+    check(torch.equal(canvas, ref), 'index_copy_ yardstick disagrees')
+    print(f'(n) bev_splat_pairs inputs: {feats.shape[0]} rows x {c} '
+          f'{feats.dtype} ({int(live.sum())} live) onto {ncell2} x {2 * c}')
+    record('bev_splat_pairs',
+           lambda: voxelize.bev_splat_pairs(feats, lin2, par, ncell2),
+           lambda: voxelize.bev_splat_pairs_plain(feats, lin2, par, ncell2),
+           lib, float((out.float() - ref.float()).abs().max()), '0, equal',
+           bool(torch.equal(out, ref)),
+           (feats.numel() * feats.element_size() + 2 * lin2.numel() * 4
+            + ncell2 * 2 * c * feats.element_size(), 0), 50, 5)
+
+    (boxes,) = inputs['rotated_iou']
+    p, k = boxes.shape[:2]
+    out = rotated_iou.iou_bev_pairwise(boxes)
+    ref = rotated_iou.iou_bev_pairwise_plain(boxes)
+    print(f'(n) rotated_iou inputs: {p} problems (samples x tasks) x {k} '
+          f'candidates, share of pairs with IoU > 0.01: '
+          f'{float((ref > 0.01).float().mean()):.4f}')
+    n_near = k5_cull(boxes, out, ref, card, 'centerpoint predict inputs')
+    err = float((out - ref).abs().max())
+    record('rotated_iou', lambda: rotated_iou.iou_bev_pairwise(boxes),
+           lambda: rotated_iou.iou_bev_pairwise_plain(boxes), None, err,
+           '1e-5', err <= 1e-5, k5_work(boxes, n_near), 50, 3)
+    results['rotated_iou']['near_share'] = n_near / (p * k * k)
+
+    iou, valid, thr = inputs['nms_sweep']
+    keep = nms.suppress_sweep(iou, valid, thr)
+    ref = nms.suppress_sweep_plain(iou, valid, thr)
+    exact = bool(torch.equal(keep, ref))
+    share = float(ref.sum() / valid.sum().clamp(min=1))
+    print(f'(n) nms_sweep inputs: {p} problems x {k}, thr {thr}; valid '
+          f'{int(valid.sum())} of {valid.numel()}, kept share of the valid '
+          f'{share:.4f}')
+    record('nms_sweep', lambda: nms.suppress_sweep(iou, valid, thr),
+           lambda: nms.suppress_sweep_plain(iou, valid, thr), None,
+           float((keep.int() - ref.int()).abs().max()), '0, equal', exact,
+           k6_work(valid, ref), 50, 3)
+    results['nms_sweep']['kept_share'] = share
+
+    # circle NMS (the sweep on -d^2 with threshold -min_radius) on the same
+    # candidates, each task at its radius: the kernel's keep equal to the
+    # plain sweep's
+    centers = boxes[..., :2].contiguous()
+    n_task = len(CP_CIRCLE_RADII)
+    kept, total = 0, 0
+    for t, r in enumerate(CP_CIRCLE_RADII):
+        c_t, v_t = centers[t::n_task].contiguous(), valid[t::n_task]
+        got = nms.circle_nms(c_t, r, v_t)
+        d2 = ((c_t[:, :, None] - c_t[:, None]) ** 2).sum(-1)
+        want = nms.suppress_sweep_plain(-d2, v_t, -r)
+        check(torch.equal(got, want), f'circle NMS task {t}: the K6 keep '
+              f'differs from the plain sweep')
+        kept, total = kept + int(want.sum()), total + int(v_t.sum())
+    print(f'(n) circle NMS on the same candidates (min_radius a task '
+          f'{CP_CIRCLE_RADII}): K6 keep equal to the plain sweep in every '
+          f'task, kept {kept} of {total} valid [{card}]')
+    results['nms_sweep']['circle_kept_share'] = kept / max(total, 1)
+    return results
+
+
+def cp_predict_phase(det, batches, tag, card):
+    """(n) or (n16): the predict answering len(batches) x ROUNDS
+    requests with launch counts, its profile and the head's share of it.
+    -> (launches, summary)."""
+    launches, e2e = main_path(
+        det, batches, CP_PREDICT_LAUNCHES, tag, card,
+        out_rows=det.head.test_cfg['post_max_size'], num_classes=10,
+        box_dim=9, points=CP_POINTS)
+    e2e.update(device_profile(lambda: det.predict(batches[0]), 'predict',
+                              tag, card, 5))
+    seen = []
+    hook = det.trunk.bbox_head.register_forward_hook(
+        lambda mod, args, out: seen.append(args[0]))
+    det.predict(batches[0])
+    hook.remove()
+    with torch.inference_mode():
+        head_ms = device_ms(lambda: det.trunk.bbox_head(seen[0]), 5)
+    e2e['head_ms'] = head_ms
+    if e2e.get('device_busy_ms'):
+        e2e['head_share'] = head_ms / e2e['device_busy_ms']
+        print(f'{tag} the head (shared conv and the 6 tasks\' towers, '
+              f'{tuple(seen[0].shape)} in) takes {head_ms:.3f} device ms '
+              f'a predict, {100 * e2e["head_share"]:.1f}% of the device '
+              f'busy time [{card}]')
+    return launches, e2e
+
+
+def cp_step_checks(det, batch, state, card):
+    """(nt): K1's winner form and K4 on every BatchNorm of one full-width
+    step, held to their plain versions and timed.  -> (results, state)."""
+    from mmdet3d_gaussian_tpu_torch.ops import segment
+    capture = {k: v for k, v in CP_STEP_LAUNCHES.items()
+               if k != 'segment_reduce_mapback'}
+    inputs, state = capture_train_inputs(det, batch, state, capture)
+    results, note = {}, ' (centerpoint step)'
+    with torch.no_grad():
+        ((data, ids, starts, counts),) = inputs['segment_max_winner']
+        out, mask = segment.segment_max_winner(data, ids, starts, counts)
+        ref, ref_m = segment.segment_max_winner_plain(data, ids, starts,
+                                                      counts)
+        exact = bool(torch.equal(out, ref) and torch.equal(mask, ref_m))
+        report(results, 'segment_max_winner', card,
+               float((out - ref).abs().max()), '0, masks equal', exact,
+               lambda: segment.segment_max_winner(data, ids, starts, counts),
+               lambda: segment.segment_max_winner_plain(data, ids, starts,
+                                                        counts), None,
+               100, 3, *k1_work('winner', data, ids, starts, counts),
+               f' exact_equal={exact}{note}')
+        check_k4(results, inputs, card, note)
+    return results, state
+
+
+def write_nus_tree(root, seed=0):
+    """A nuScenes-format tree (mmdet3d's info schema): CP_TRAIN_FRAMES +
+    CP_VAL_FRAMES frames, each a key frame of CP_SWEEP_POINTS five-channel
+    points (x, y, z, intensity, ring) and CP_SWEEPS earlier sweeps, turned
+    and shifted a little a sweep with their timestamps 0.05 s apart, and
+    30-40 GT boxes of the 10 classes with velocities (synthetic_nus_batch's
+    scenes).  -> {split: info pickle path}."""
+    import pickle
+    from mmdet3d_gaussian_tpu_torch.engine.detector import synthetic_nus_batch
+    os.makedirs(os.path.join(root, 'samples'), exist_ok=True)
+    paths = {}
+    frame = 0
+    for split, n in (('train', CP_TRAIN_FRAMES), ('val', CP_VAL_FRAMES)):
+        infos = []
+        for _ in range(n):
+            scene = synthetic_nus_batch(1 + CP_SWEEPS, CP_SWEEP_POINTS, 40,
+                                        seed=seed + frame, sweeps=1,
+                                        device='cpu')
+            pts = scene['points'].numpy()
+            pts[..., 4] = np.random.RandomState(frame).randint(
+                0, 32, pts.shape[:2])
+            g = int(scene['gt_valid'][0].sum())
+            gt = scene['gt_bboxes'][0, :g].numpy()
+            names = np.asarray(NUS_CLASSES)[scene['gt_labels'][0, :g]
+                                            .numpy()]
+            stamp = 1_000_000 * (100 + frame)
+            key = os.path.join(root, 'samples', f'{frame:05d}.bin')
+            pts[0].tofile(key)
+            sweeps = []
+            for s in range(1, 1 + CP_SWEEPS):
+                path = os.path.join(root, 'samples', f'{frame:05d}_{s}.bin')
+                pts[s].tofile(path)
+                ang = 0.01 * s
+                sweeps.append(dict(
+                    data_path=path,
+                    sensor2lidar_rotation=np.array(
+                        [[np.cos(ang), -np.sin(ang), 0],
+                         [np.sin(ang), np.cos(ang), 0], [0, 0, 1]],
+                        np.float32),
+                    sensor2lidar_translation=np.array([0.4 * s, 0, 0],
+                                                      np.float32),
+                    timestamp=stamp - 50_000 * s))
+            infos.append(dict(lidar_path=key, timestamp=stamp,
+                              sweeps=sweeps, gt_boxes=gt[:, :7],
+                              gt_names=names, gt_velocity=gt[:, 7:9]))
+            frame += 1
+        paths[split] = os.path.join(root, f'nuscenes_infos_{split}.pkl')
+        with open(paths[split], 'wb') as f:
+            pickle.dump(dict(infos=infos), f)
+    return paths
+
+
+def cp_derived_config(tmp, root, paths, repo):
+    """Write ``tmp/centerpoint_local.py``: ``_base_`` the gwd5 config by
+    absolute path, its data paths moved under ``root`` and its
+    code_weights set to CP_CODE_WEIGHTS; check that it loads to the gwd5
+    config with those changed and nothing else.  -> (path, config)."""
+    from mmdet3d_gaussian_tpu_torch.utils.config import Config
+    base = os.path.join(repo, CP_CONFIG)
+    want = Config.fromfile(base).to_dict()
+    want['data']['train']['dataset'].update(data_root=root,
+                                            ann_file=paths['train'])
+    want['data']['val'].update(data_root=root, ann_file=paths['val'])
+    want['head']['code_weights'] = CP_CODE_WEIGHTS
+    text = (f'_base_ = [{base!r}]\n'
+            f'head = dict(code_weights={CP_CODE_WEIGHTS!r})\n'
+            f'data = dict(\n'
+            f'    train=dict(dataset=dict(data_root={root!r}, '
+            f'ann_file={paths["train"]!r})),\n'
+            f'    val=dict(data_root={root!r}, ann_file={paths["val"]!r}))\n')
+    path = os.path.join(tmp, 'centerpoint_local.py')
+    with open(path, 'w') as f:
+        f.write(text)
+    cfg = Config.fromfile(path)
+    check(cfg.to_dict() == want, 'the derived config differs from the gwd5 '
+          'config beyond its data paths and code_weights')
+    return path, cfg
+
+
+def cp_cli_phase(repo, card):
+    """(N): the gwd5 config through the port's CLIs on a nuScenes-format
+    tree written here: train CP_CLI_STEPS steps, then test under both
+    nuScenes metrics.  -> (launches per CLI run, summary)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    summary, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_nus_') as tmp:
+        root = os.path.join(tmp, 'nuscenes')
+        paths = write_nus_tree(root)
+        cfg_path, cfg = cp_derived_config(tmp, root, paths, repo)
+        b = cfg.data['samples_per_gpu']
+        print(f'(N) nuScenes-format tree: {CP_TRAIN_FRAMES} train and '
+              f'{CP_VAL_FRAMES} val frames of 1 + {CP_SWEEPS} sweeps x '
+              f'{CP_SWEEP_POINTS} points; config {CP_CONFIG} with its data '
+              f'paths moved and code_weights {CP_CODE_WEIGHTS} (B {b}, '
+              f'{cfg.data["train"]["type"]}) '
+              f'[{time.perf_counter() - t_phase:.1f} s]')
+        work = os.path.join(tmp, 'work')
+        out, runs, secs = run_cli('train', [
+            cfg_path, '--work-dir', work, '--max-steps', str(CP_CLI_STEPS),
+            '--log-interval', '1'], tmp, repo)
+        check_launches('(N) train CLI', runs, CP_STEP_LAUNCHES, CP_CLI_STEPS)
+        launches['train'] = runs
+        log = read_log(work)
+        check([r['step'] for r in log] == list(range(1, CP_CLI_STEPS + 1)),
+              f'train log steps {[r["step"] for r in log]}')
+        terms = [k for k in log[0] if k.startswith('task')]
+        check(len(terms) == 18 and all(
+            math.isfinite(r[k]) for r in log for k in terms + ['loss']),
+            'a missing or non-finite loss term in the train log')
+        walls = [bb['time'] - a['time'] for a, bb in zip(log, log[1:])]
+        waits = [r['data_time'] for r in log]
+        summary.update(
+            train_cli_s=secs, step_wall_ms=[w * 1e3 for w in walls],
+            data_wait_ms=[w * 1e3 for w in waits],
+            peak_mib=log[-1].get('memory', float('nan')),
+            loss=[r['loss'] for r in log])
+        print(f'(N) train CLI: {CP_CLI_STEPS} steps at B = {b} in '
+              f'{secs:.1f} s; step wall (between log lines) '
+              f'{[round(w * 1e3, 1) for w in walls]} ms; wait on the '
+              f'prefetch queue {[round(w * 1e3, 1) for w in waits]} ms; loss '
+              f'{[round(r["loss"], 4) for r in log]}; peak '
+              f'{summary["peak_mib"]:.1f} MiB; launches {runs} [{card}]')
+
+        ckpt = os.path.join(work, f'ckpt_{CP_CLI_STEPS}.pt')
+        n_batches = -(-CP_VAL_FRAMES // b)
+        jobs = {'nds': ('NDS', ['--metric', 'nds']),
+                'iou3d_err': ('mAIE', ['--metric', 'iou3d_err'])}
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            futs = {k: pool.submit(run_cli, 'test', [cfg_path, ckpt] + a,
+                                   tmp, repo)
+                    for k, (_, a) in jobs.items()}
+            done = {k: f.result() for k, f in futs.items()}
+        for k, (out, runs, secs) in done.items():
+            check_launches(f'(N) test CLI {k}', runs, CP_PREDICT_LAUNCHES,
+                           n_batches)
+            launches[f'test_{k}'] = runs
+            check(f'frames {CP_VAL_FRAMES},' in out,
+                  f'{k}: not {CP_VAL_FRAMES} frames')
+            rep = report_json(out)
+            check(jobs[k][0] in rep and all(map(math.isfinite,
+                                                rep.values())),
+                  f'{k}: no {jobs[k][0]} or a non-finite metric: {rep}')
+            summary[f'test_{k}'] = {m: rep[m] for m in rep
+                                    if '_' not in m or m == jobs[k][0]}
+            summary[f'test_{k}_s'] = secs
+            print(f'(N) test CLI --metric {k}: {out.splitlines()[0]}; '
+                  f'{secs:.1f} s (two runs at once); launches {runs}; '
+                  f'{json.dumps(summary[f"test_{k}"])}')
+    wall = time.perf_counter() - t_phase
+    summary['phase_s'] = wall
+    print(f'(N) phase wall {wall:.1f} s [{card}]')
+    return launches, summary
+
+
+def centerpoint_phases(repo, card):
+    """Phases (n), (n16), (nt) and (N).  -> (kernel numbers, launches by
+    path, summaries)."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import CenterPointDetector
+    t0 = time.perf_counter()
+    (model, head), (pmodel, phead) = cp_configs(repo)
+    batches = cp_batches()
+    det = cp_detector(model, head)
+    with torch.inference_mode():
+        _, coords, sc = det.trunk.pillars(batches[0]['points'],
+                                          batches[0]['points_mask'])
+        per = torch.bincount(coords[:int(sc.num_voxels), 0].long(),
+                             minlength=CP_BATCH).tolist()
+    print(f'(n) gwd5 CenterPoint, {CP_BATCH} x {CP_POINTS} points a '
+          f'request: live pillars a sample {per} (capacity '
+          f'{det.trunk.max_voxels_per_sample} a sample, {sc.max_voxels} '
+          f'for the batch), truncated {int(sc.num_overflow)}; canvas '
+          f'{det.trunk.nx} x {det.trunk.ny}, feature map '
+          f'{det.featmap_size}')
+    check(all(20000 <= n <= 30000 for n in per),
+          f'live pillars a sample {per}, want 20,000-30,000')
+    inputs = capture_inputs(det, batches[0], CP_PREDICT_LAUNCHES)
+    with torch.inference_mode():
+        results = cp_kernel_checks(inputs, card)
+    del inputs
+    launches, summary = {}, {}
+    launches['predict'], summary['predict'] = cp_predict_phase(
+        det, batches, '(n)', card)
+    # circle NMS through the whole predict: one K6 launch a distinct radius
+    from mmdet3d_gaussian_tpu_torch.ops import _cuda
+    rotate_cfg = dict(det.head.test_cfg)
+    det.head.test_cfg.update(nms_type='circle', min_radius=CP_CIRCLE_RADII)
+    _cuda.reset_launches()
+    boxes, scores, labels, valid = det.predict(batches[0])
+    torch.cuda.synchronize()
+    circle = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    det.head.test_cfg = rotate_cfg
+    check(circle.get('nms_sweep') == len(set(CP_CIRCLE_RADII))
+          and 'rotated_iou' not in circle, f'circle predict launches '
+          f'{circle}')
+    check(bool(torch.isfinite(boxes).all() and valid.any(1).all()),
+          'circle predict: non-finite boxes or a sample kept nothing')
+    launches['predict_circle'] = circle
+    print(f'(n) the predict with circle NMS: launches {circle}, '
+          f'{int(valid.sum())} boxes kept [{card}]')
+    del det
+    torch.cuda.empty_cache()
+
+    det16 = cp_detector(model, head, compute_dtype='bfloat16')
+    launches['predict_bf16'], summary['predict_bf16'] = cp_predict_phase(
+        det16, batches, '(n16)', card)
+    del det16
+    torch.cuda.empty_cache()
+
+    # (nt): the gwd5 train step at full width on one repeated batch
+    thead = dict(head, code_weights=CP_CODE_WEIGHTS)
+    tdet = CenterPointDetector(model, thead, device=CP_DEVICE, seed=0)
+    tbatch = batches[0]
+    n_gt = tbatch['gt_valid'].sum(1).tolist()
+    print(f'(nt) gwd5 train step, {CP_BATCH} x {CP_POINTS} points, GT boxes '
+          f'a sample {n_gt} of {len(NUS_CLASSES)} classes with velocities; '
+          f'code_weights {CP_CODE_WEIGHTS}')
+    state = tdet.init_train(LR, total_steps=100)
+    state, _ = tdet.train_step(tbatch, state)          # warm-up
+    step_k, state = cp_step_checks(tdet, tbatch, state, card)
+    results.update(step_k)
+    launches['train'], state, summary['train'] = timed_steps(
+        tdet, tbatch, state, CP_STEP_LAUNCHES, '(nt)', card,
+        points=CP_POINTS)
+    holder = [state]
+
+    def one_step():
+        holder[0] = tdet.train_step(tbatch, holder[0])[0]
+    summary['train'].update(device_profile(one_step, 'train step', '(nt)',
+                                           card, 3))
+    del tdet, holder, state
+    torch.cuda.empty_cache()
+    pdet = CenterPointDetector(pmodel, phead, device=CP_DEVICE, seed=0)
+    _cuda.reset_launches()
+    _, metrics = pdet.train_step(tbatch)
+    torch.cuda.synchronize()
+    row = {k: float(v) for k, v in metrics.items()}
+    check(all(map(math.isfinite, row.values())) and len(row) == 14,
+          f'plain CenterHead step: {row}')
+    launches['train_plain'] = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    check(launches['train_plain'] == CP_PLAIN_STEP_LAUNCHES,
+          f'plain CenterHead step launches {launches["train_plain"]}')
+    print(f'(nt) one step of the plain CenterHead config '
+          f'({CP_PLAIN_CONFIG}): {json.dumps(row)}; launches '
+          f'{launches["train_plain"]} [{card}]')
+    del pdet, batches, tbatch
+    torch.cuda.empty_cache()
+
+    cli_launches, summary['cli'] = cp_cli_phase(repo, card)
+    launches.update({f'cli_{k}': v for k, v in cli_launches.items()})
+    summary['phases_s'] = time.perf_counter() - t0
+    print(f'(n)-(N) wall {summary["phases_s"]:.1f} s [{card}]')
+    return results, launches, summary
+
+
 def union_us(intervals):
     """Length of the union of (start, end) intervals."""
     total, cur_start, cur_end = 0.0, None, None
@@ -2893,6 +3433,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hard_k2, hard_k1, hard_launches, hard_e2e = hard_phases(batches, card)
     torch.cuda.empty_cache()
+    cp_k, cp_launches, cp_e2e = centerpoint_phases(root, card)  # (n)-(N)
+    torch.cuda.empty_cache()
     loop_k, loop_launches, loop_e2e = loop_phase(root, card)   # (L)
 
     kernels = []                                       # (e)
@@ -2961,6 +3503,11 @@ def main() -> int:
             entry['loop'].update(loop_k[loop_key])
         if name == 'bev_splat':
             entry['loop']['bf16'] = loop_k['loop bf16 predict']
+        # phases (n)-(N): launches per CenterPoint path, numbers on its
+        # inputs
+        entry['centerpoint'] = dict(cp_k.get(name, {}), launches={
+            path: runs[name] for path, runs in cp_launches.items()
+            if runs.get(name)})
         kernels.append(entry)
     print(f'(e) predict summary {json.dumps(e2e)} [{card}]')
     print(f'(e) bf16 predict summary {json.dumps(e2e16)} [{card}]')
@@ -2969,6 +3516,7 @@ def main() -> int:
     for key, summary in hard_e2e.items():
         print(f'(e) hard {key} summary {json.dumps(summary)} [{card}]')
     print(f'(e) loop summary {json.dumps(loop_e2e)} [{card}]')
+    print(f'(e) centerpoint summary {json.dumps(cp_e2e)} [{card}]')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

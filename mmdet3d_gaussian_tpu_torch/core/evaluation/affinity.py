@@ -11,8 +11,12 @@ from . import native
 
 
 def _geom():
-    """The native library where it builds, else the numpy versions."""
-    return native if native.available() else G
+    """The native library where it builds, else the numpy versions (which
+    ``MMDET3D_TPU_REQUIRE_NATIVE=1`` refuses)."""
+    if native.available():
+        return native
+    native.refuse_fallback('box geometry')
+    return G
 
 
 @EVAL_AFFINITY_CALS.register_module()

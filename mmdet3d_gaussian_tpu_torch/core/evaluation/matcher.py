@@ -55,8 +55,12 @@ def match_coco_np(cost_mat: np.ndarray, cost_thrs: np.ndarray,
 
 
 def _match_impl():
-    """The native matcher where the library builds, else the numpy one."""
-    return native.match_coco_native if native.available() else match_coco_np
+    """The native matcher where the library builds, else the numpy one
+    (which ``MMDET3D_TPU_REQUIRE_NATIVE=1`` refuses)."""
+    if native.available():
+        return native.match_coco_native
+    native.refuse_fallback('matcher')
+    return match_coco_np
 
 
 class BaseMatcher:

@@ -5,7 +5,10 @@ of the C++ source.  At first use ``g++`` compiles it into the checkout's
 ``build/`` directory (named by a hash of the source and flags, so a later
 process reuses it).  Where there is no toolchain, :func:`available` is
 false and the callers take the numpy versions (``geometry_np``,
-``matcher.match_coco_np``): this is host code, not a device kernel.
+``matcher.match_coco_np``): this is host code, not a device kernel.  With
+``MMDET3D_TPU_REQUIRE_NATIVE=1`` in the environment the affinity
+calculators and the matcher raise instead (:func:`refuse_fallback`), as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / 'build'
 # library built on one x86-64 host loads on another (ISO C++17 mode keeps
 # floating-point contraction off either way)
 CXX_FLAGS = ['-O3', '-fPIC', '-shared', '-std=c++17']
+# set to 1: the evaluators raise where they would fall back to numpy
+REQUIRE_ENV = 'MMDET3D_TPU_REQUIRE_NATIVE'
 
 _lib: Optional[ctypes.CDLL] = None
 _error: Optional[BaseException] = None
@@ -100,6 +105,17 @@ def available() -> bool:
     except (OSError, subprocess.SubprocessError):
         return False
     return True
+
+
+def refuse_fallback(what: str) -> None:
+    """Raise ``RuntimeError`` where ``MMDET3D_TPU_REQUIRE_NATIVE=1`` asks
+    for the native library and the caller is about to take its numpy
+    version of ``what`` instead."""
+    if os.environ.get(REQUIRE_ENV) == '1':
+        raise RuntimeError(
+            f'{REQUIRE_ENV}=1 but the eval ops library ({SOURCE.name}) failed '
+            f'to build or load; refusing the numpy {what}, orders of '
+            f'magnitude slower at val-set scale')
 
 
 def iou_bev(det: np.ndarray, gt: np.ndarray) -> np.ndarray:

@@ -1,14 +1,17 @@
-"""PointPillars detector engine: train step and predict.
+"""Detector engines: train step and predict.
 
 Port of ``mmdet3d_gaussian_tpu/engine/detector.py``: the KITTI 3-class
-configuration, :class:`PointPillarsDetector` (construction, ``apply_train``,
-``loss``, ``apply_eval``, ``predict``, and the ``train_step`` entry around
-``parallel/train_state.py``) and :func:`synthetic_batch`.  The detector
-owns its weights (an ``nn.Module`` trunk on one device); load JAX weights
-with ``det.trunk.load_state_dict(jax_variables_to_torch(variables))``.
+configuration and :class:`PointPillarsDetector`, the nuScenes CenterPoint
+configuration and :class:`CenterPointDetector` (construction,
+``apply_train``, ``loss``, ``apply_eval``, ``predict``, and the
+``train_step`` entry around ``parallel/train_state.py``),
+:func:`synthetic_batch` and :func:`synthetic_nus_batch`.  A detector owns
+its weights (an ``nn.Module`` trunk on one device); load JAX weights with
+``det.trunk.load_state_dict(jax_variables_to_torch(variables,
+upsample_strides=...))``.
 
 Batch dict: points (B, N, C) f32, points_mask (B, N) bool, gt_bboxes
-(B, G, 7) f32, gt_labels (B, G) int, gt_valid (B, G) bool (the gt entries
+(B, G, 7+) f32, gt_labels (B, G) int, gt_valid (B, G) bool (the gt entries
 are read by the loss only).
 """
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..models.dense_heads.anchor3d_head import PRIOR_PROB, GDAnchor3DHead
+from ..models.dense_heads.centerpoint_head import CenterHead, SeparateHead
 from ..models.detectors.voxelnet import PointPillarsNet
 from ..models.voxel_encoders import MaskedBatchNorm
 from ..parallel.train_state import (AdamW, TrainState, init_state,
@@ -77,8 +81,9 @@ KITTI_3CLASS_HEAD = dict(
 def init_weights(trunk: nn.Module, seed: int) -> None:
     """Seeded initialization, the same on every device: lecun-normal conv
     and linear weights (flax's default), BN identity with zero running
-    mean and unit variance, zero biases except the cls bias at the focal
-    prior.  Drawn on the CPU from one ``torch.Generator``."""
+    mean and unit variance, zero biases except the anchor head's cls bias
+    at the focal prior and the center head's heatmap biases at its
+    ``init_bias``.  Drawn on the CPU from one ``torch.Generator``."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in trunk.modules():
@@ -97,61 +102,27 @@ def init_weights(trunk: nn.Module, seed: int) -> None:
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
-        trunk.bbox_head.conv_cls.bias.fill_(
-            -math.log((1 - PRIOR_PROB) / PRIOR_PROB))
+        if trunk.head_type == 'anchor':
+            trunk.bbox_head.conv_cls.bias.fill_(
+                -math.log((1 - PRIOR_PROB) / PRIOR_PROB))
+            return
+        for m in trunk.bbox_head.modules():
+            if isinstance(m, SeparateHead):
+                m.heatmap[-1].bias.fill_(m.init_bias)
 
 
-class PointPillarsDetector:
-    """PointPillars + GD anchor head (reference
-    ``hv_pointpillars_secfpn_kld5tau1_12x4_160e_kitti-3d-3class``).  With
-    no ``model_cfg`` it runs that config's own ``voxelize_mode='hard'``
-    (the packed pillar encoder, ``hard_encoder='packed'``; ``'sorted'`` is
-    the same function through K1) on the plain canvas; ``'dynamic'`` takes
-    the space-to-depth canvas (``s2d_canvas='auto'``) or the plain one
-    (``'off'``).  Each runs in f32 or with ``compute_dtype='bfloat16'``.  In
-    bf16 the parameters, their gradients and AdamW's moments stay f32, and
-    there is no loss scaling, as in the JAX package's train step."""
-
-    def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
-                 head_cfg: Optional[Dict[str, Any]] = None,
-                 device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0):
-        self.device = resolve_device(device)
-        mc = copy.deepcopy(KITTI_3CLASS_MODEL)
-        mc.update(model_cfg or {})
-        hc = copy.deepcopy(KITTI_3CLASS_HEAD)
-        hc.update(head_cfg or {})
-        self.model_cfg = mc
-        self.trunk = PointPillarsNet(**mc)
-        init_weights(self.trunk, seed)
-        self.trunk.to(self.device).eval()
-        self.head = GDAnchor3DHead(**hc)
-        nx, ny = self.trunk.grid()
-        stride = mc['backbone_cfg']['layer_strides'][0]
-        self.featmap_size = (ny // stride, nx // stride)
-        self.anchors = torch.from_numpy(
-            self.head.anchors_for(self.featmap_size)).to(self.device)
+class _Detector:
+    """What both detectors share: the trunk's forward in training and in
+    eval mode, and the train step around ``parallel/train_state.py``."""
 
     def apply_train(self, batch: Dict[str, torch.Tensor]):
-        """-> NHWC (cls_score, bbox_pred, dir_pred, packed), differentiable
-        in the trunk's parameters.  The trunk runs in training mode: its
-        BatchNorms use batch statistics and update their running statistics
-        in place (the JAX package returns them as new ``batch_stats``)."""
+        """-> the trunk's NHWC head outputs, differentiable in its
+        parameters.  The trunk runs in training mode: its BatchNorms use
+        batch statistics and update their running statistics in place (the
+        JAX package returns them as new ``batch_stats``)."""
         self.trunk.train()
         return self.trunk(batch['points'].to(self.device),
                           batch['points_mask'].to(self.device))
-
-    def loss(self, outputs, batch: Dict[str, torch.Tensor]):
-        """Head outputs -> (total loss, {loss_cls, loss_bbox, loss_dir});
-        targets for the whole batch at once."""
-        cls, bbox, dirp, packed = outputs
-        targets = self.head.get_targets(
-            self.anchors, batch['gt_bboxes'].to(self.device),
-            batch['gt_labels'].to(self.device),
-            batch['gt_valid'].to(self.device))
-        losses = self.head.loss(cls, bbox, dirp, self.anchors, targets,
-                                packed=packed)
-        return sum(losses.values()), losses
 
     def init_train(self, base_lr: float = 1e-3, total_steps: int = 1000,
                    optimizer: Optional[AdamW] = None,
@@ -178,10 +149,56 @@ class PointPillarsDetector:
 
     @torch.inference_mode()
     def apply_eval(self, batch: Dict[str, torch.Tensor]):
-        """-> NHWC (cls_score, bbox_pred, dir_pred, packed)."""
+        """-> the trunk's NHWC head outputs in eval mode."""
         self.trunk.eval()
         return self.trunk(batch['points'].to(self.device),
                           batch['points_mask'].to(self.device))
+
+
+class PointPillarsDetector(_Detector):
+    """PointPillars + GD anchor head (reference
+    ``hv_pointpillars_secfpn_kld5tau1_12x4_160e_kitti-3d-3class``).  With
+    no ``model_cfg`` it runs that config's own ``voxelize_mode='hard'``
+    (the packed pillar encoder, ``hard_encoder='packed'``; ``'sorted'`` is
+    the same function through K1) on the plain canvas; ``'dynamic'`` takes
+    the space-to-depth canvas (``s2d_canvas='auto'``) or the plain one
+    (``'off'``).  Each runs in f32 or with ``compute_dtype='bfloat16'``.  In
+    bf16 the parameters, their gradients and AdamW's moments stay f32, and
+    there is no loss scaling, as in the JAX package's train step.
+    ``apply_train`` and ``apply_eval`` return NHWC (cls_score, bbox_pred,
+    dir_pred, packed)."""
+
+    def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
+                 head_cfg: Optional[Dict[str, Any]] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 seed: int = 0):
+        self.device = resolve_device(device)
+        mc = copy.deepcopy(KITTI_3CLASS_MODEL)
+        mc.update(model_cfg or {})
+        hc = copy.deepcopy(KITTI_3CLASS_HEAD)
+        hc.update(head_cfg or {})
+        self.model_cfg = mc
+        self.trunk = PointPillarsNet(**mc)
+        init_weights(self.trunk, seed)
+        self.trunk.to(self.device).eval()
+        self.head = GDAnchor3DHead(**hc)
+        nx, ny = self.trunk.grid()
+        stride = mc['backbone_cfg']['layer_strides'][0]
+        self.featmap_size = (ny // stride, nx // stride)
+        self.anchors = torch.from_numpy(
+            self.head.anchors_for(self.featmap_size)).to(self.device)
+
+    def loss(self, outputs, batch: Dict[str, torch.Tensor]):
+        """Head outputs -> (total loss, {loss_cls, loss_bbox, loss_dir});
+        targets for the whole batch at once."""
+        cls, bbox, dirp, packed = outputs
+        targets = self.head.get_targets(
+            self.anchors, batch['gt_bboxes'].to(self.device),
+            batch['gt_labels'].to(self.device),
+            batch['gt_valid'].to(self.device))
+        losses = self.head.loss(cls, bbox, dirp, self.anchors, targets,
+                                packed=packed)
+        return sum(losses.values()), losses
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]):
@@ -189,6 +206,91 @@ class PointPillarsDetector:
         (B, max_num) int32, valid (B, max_num) bool)."""
         cls, bbox, dirp = self.apply_eval(batch)[:3]
         return self.head.get_bboxes(cls, bbox, dirp, self.anchors)
+
+
+# the CenterPoint pillar model (reference configs/_base_/models/
+# centerpoint_02pillar_second_secfpn_nus.py) and its head
+NUS_CENTERPOINT_MODEL = dict(
+    voxel_size=(0.2, 0.2, 8.0),
+    point_cloud_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
+    max_points_per_voxel=20,
+    max_voxels_per_sample=30000,
+    voxelize_mode='dynamic',
+    head_type='center',
+    encoder_cfg=dict(in_channels=5, feat_channels=(64,)),
+    backbone_cfg=dict(in_channels=64, out_channels=(64, 128, 256),
+                      layer_nums=(3, 5, 5), layer_strides=(2, 2, 2)),
+    neck_cfg=dict(in_channels=(64, 128, 256), out_channels=(128, 128, 128),
+                  upsample_strides=(0.5, 1, 2)),
+)
+
+NUS_CENTERPOINT_HEAD = dict(
+    tasks=[
+        dict(num_classes=1), dict(num_classes=2), dict(num_classes=2),
+        dict(num_classes=1), dict(num_classes=2), dict(num_classes=2),
+    ],
+    out_size_factor=4,
+    with_vel=True,
+    code_weights=[1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.2, 0.2],
+    loss_cls=dict(type='GaussianFocalLoss', loss_weight=1.0),
+    loss_bbox=dict(type='L1Loss', loss_weight=0.25),
+    max_objs=100,
+    gaussian_overlap=0.1, min_radius=2.0,
+    test_cfg=dict(post_center_limit_range=[-61.2, -61.2, -10.0, 61.2, 61.2,
+                                           10.0],
+                  max_per_img=128, score_threshold=0.1, nms_type='rotate',
+                  nms_thr=0.2, post_max_size=83),
+)
+
+
+class CenterPointDetector(_Detector):
+    """CenterPoint (pillars): dynamic pillars on the space-to-depth canvas
+    (K1, K7) -> SECOND -> SECONDFPN concatenated -> the multi-task center
+    head.  ``yaw_mode=True`` with ``loss_gd`` is the CenterGDHead variant.
+    ``apply_train`` and ``apply_eval`` return a list of per-task dicts of
+    NHWC maps; ``compute_dtype='bfloat16'`` as on
+    :class:`PointPillarsDetector`."""
+
+    def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
+                 head_cfg: Optional[Dict[str, Any]] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 seed: int = 0):
+        self.device = resolve_device(device)
+        mc = copy.deepcopy(NUS_CENTERPOINT_MODEL)
+        mc.update(model_cfg or {})
+        hc = copy.deepcopy(NUS_CENTERPOINT_HEAD)
+        hc.update(head_cfg or {})
+        hc.setdefault('pc_range', mc['point_cloud_range'])
+        hc.setdefault('voxel_size', mc['voxel_size'])
+        self.head = CenterHead(**hc)
+        mc.setdefault('head_cfg', dict(
+            tasks=[dict(num_classes=t['num_classes'])
+                   for t in self.head.tasks],
+            in_channels=sum(mc['neck_cfg']['out_channels']),
+            common_heads=self.head.common_heads))
+        self.model_cfg = mc
+        self.trunk = PointPillarsNet(**mc)
+        init_weights(self.trunk, seed)
+        self.trunk.to(self.device).eval()
+        nx, ny = self.trunk.grid()
+        f = self.head.out_size_factor
+        self.featmap_size = (ny // f, nx // f)
+
+    def loss(self, preds, batch: Dict[str, torch.Tensor]):
+        """Per-task maps -> (total loss, {task{t}.loss_*}); targets for
+        the whole batch at once."""
+        targets = self.head.get_targets(
+            batch['gt_bboxes'].to(self.device),
+            batch['gt_labels'].to(self.device),
+            batch['gt_valid'].to(self.device), self.featmap_size)
+        losses = self.head.loss(preds, targets)
+        return sum(losses.values()), losses
+
+    @torch.inference_mode()
+    def predict(self, batch: Dict[str, torch.Tensor]):
+        """-> (boxes (B, M, 7+), scores (B, M), labels (B, M) int32, valid
+        (B, M) bool), M = min(post_max_size, tasks x max_per_img)."""
+        return self.head.get_bboxes(self.apply_eval(batch))
 
 
 def synthetic_batch(batch_size: int = 2, num_points: int = 8192,
@@ -249,3 +351,73 @@ def crowded_batch(batch_size: int = 2, num_points: int = 2048,
             pts[s, pile][:copies] = pts[s, j * per_pillar]
     batch['points'] = torch.from_numpy(pts)
     return {k: v.to(dev) for k, v in batch.items()}
+
+
+# nuScenes class sizes (dx, dy, dz) and speeds (m/s) for synthetic_nus_batch,
+# in the dataset config's class order
+NUS_SIZES = ((4.6, 1.95, 1.73), (6.9, 2.5, 2.8), (12.3, 2.9, 3.9),
+             (11.0, 2.9, 3.5), (6.4, 2.7, 3.2), (1.7, 0.6, 1.3),
+             (2.1, 0.8, 1.5), (0.7, 0.7, 1.8), (0.4, 0.4, 1.1),
+             (0.5, 2.5, 1.0))
+NUS_SPEEDS = (10.0, 8.0, 5.0, 8.0, 2.0, 4.0, 8.0, 1.5, 0.0, 0.0)
+
+
+def synthetic_nus_batch(batch_size: int = 4, num_points: int = 60000,
+                        num_gt: int = 128, seed: int = 0,
+                        num_objects=(30, 40), sweeps: int = 10,
+                        pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
+                        device: Optional[Union[str, torch.device]] = None):
+    """A nuScenes-like batch from a seed (numpy): ``num_points`` points of
+    five channels (x, y, z, intensity in [0, 255], the sweep's time lag in
+    {0, 0.05, ...}) a sample, whose density falls with range as a LiDAR
+    sweep's (log-uniform range from the sensor, so ~1/r^2 a square metre)
+    over a ground plane at -1.8 m with a tenth of the points on the
+    objects; ``num_objects`` (lo, hi) GT boxes a sample over the 10 classes
+    with their sizes and a velocity each, padded to ``num_gt`` rows of
+    (x, y, z, dx, dy, dz, yaw, vx, vy)."""
+    dev = resolve_device(device)
+    if num_objects[1] > num_gt:
+        raise ValueError(f'up to {num_objects[1]} objects do not fit '
+                         f'num_gt={num_gt} rows')
+    rng = np.random.RandomState(seed)
+    lo, hi = np.asarray(pc_range[:3]), np.asarray(pc_range[3:])
+    span = float(min(hi[:2] - lo[:2])) / 2
+    points = np.zeros((batch_size, num_points, 5), np.float32)
+    gt = np.zeros((batch_size, num_gt, 9), np.float32)
+    labels = np.zeros((batch_size, num_gt), np.int32)
+    valid = np.zeros((batch_size, num_gt), bool)
+    sizes = np.asarray(NUS_SIZES)
+    for b in range(batch_size):
+        g = rng.randint(num_objects[0], num_objects[1] + 1)
+        cls = rng.randint(0, len(NUS_SIZES), g)
+        r = np.exp(rng.uniform(np.log(3.0), np.log(span - 2), g))
+        phi = rng.uniform(-np.pi, np.pi, g)
+        dims = sizes[cls] * rng.uniform(0.9, 1.1, (g, 3))
+        yaw = rng.uniform(-np.pi, np.pi, g)
+        speed = np.asarray(NUS_SPEEDS)[cls] * rng.uniform(0, 1, g)
+        gt[b, :g] = np.c_[r * np.cos(phi), r * np.sin(phi),
+                          np.full(g, -1.8), dims, yaw,
+                          speed * np.cos(yaw), speed * np.sin(yaw)]
+        labels[b, :g] = cls
+        valid[b, :g] = True
+        # a tenth of the points inside the boxes, the rest on the ground
+        n_obj = num_points // 10
+        owner = rng.randint(0, g, n_obj)
+        local = rng.uniform(-0.5, 0.5, (n_obj, 3)) * gt[b, owner, 3:6]
+        c, s = np.cos(gt[b, owner, 6]), np.sin(gt[b, owner, 6])
+        obj = np.c_[gt[b, owner, 0] + c * local[:, 0] - s * local[:, 1],
+                    gt[b, owner, 1] + s * local[:, 0] + c * local[:, 1],
+                    gt[b, owner, 2] + gt[b, owner, 5] / 2 + local[:, 2]]
+        n_gnd = num_points - n_obj
+        rr = np.exp(rng.uniform(np.log(1.0), np.log(span * 1.3), n_gnd))
+        pp = rng.uniform(-np.pi, np.pi, n_gnd)
+        gnd = np.c_[rr * np.cos(pp), rr * np.sin(pp),
+                    rng.normal(-1.8, 0.05, n_gnd)]
+        xyz = np.concatenate([obj, gnd])
+        points[b, :, :3] = xyz
+        points[b, :, 3] = rng.uniform(0, 255, num_points)
+        points[b, :, 4] = rng.randint(0, sweeps, num_points) * 0.05
+    mask = np.ones((batch_size, num_points), bool)
+    arrays = dict(points=points, points_mask=mask, gt_bboxes=gt,
+                  gt_labels=labels, gt_valid=valid)
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}

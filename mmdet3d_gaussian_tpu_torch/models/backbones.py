@@ -79,7 +79,9 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype`` (None: the parameters'
-    f32): input and weights cast where they are used."""
+    f32): input and weights cast where they are used.  In a compute dtype
+    the bias (if any) is cast too and added to the rounded convolution, as
+    the JAX package's ``nn.Conv`` adds it."""
 
     def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
                  **kwargs):
@@ -93,7 +95,10 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = self._cast(x, self.weight)
-        return self._conv_forward(x, w, self.bias)
+        if self.bias is None or self.compute_dtype is None:
+            return self._conv_forward(x, w, self.bias)
+        return (self._conv_forward(x, w, None)
+                + self.bias.to(self.compute_dtype)[:, None, None])
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -230,8 +235,10 @@ class SECOND(nn.Module):
 
 @MODELS.register_module()
 class SECONDFPN(nn.Module):
-    """Per level: ConvTranspose(k = stride) for stride > 1, or a 1x1 conv
-    for stride 1, then BN and ReLU; levels concatenated on channels (or
+    """Per level: ConvTranspose(k = stride) for stride > 1, a 1x1 conv for
+    stride 1, or for a fractional stride 1/k a k x k conv at stride k (the
+    nuScenes configs' 0.5), then BN and ReLU; levels concatenated on
+    channels (or
     returned as a tuple with ``concat_out=False``).  The transposed conv is
     always the JAX package's ``'d2s'`` form (matmul + depth-to-space);
     ``deconv_impl`` (None, ``'d2s'`` or ``'convt'``) is accepted so that a
@@ -239,7 +246,7 @@ class SECONDFPN(nn.Module):
 
     def __init__(self, in_channels: Sequence[int] = (64, 128, 256),
                  out_channels: Sequence[int] = (128, 128, 128),
-                 upsample_strides: Sequence[int] = (1, 2, 4),
+                 upsample_strides: Sequence[float] = (1, 2, 4),
                  concat_out: bool = True,
                  deconv_impl: Optional[str] = None,
                  dtype: Optional[Union[str, torch.dtype]] = None):
@@ -248,17 +255,17 @@ class SECONDFPN(nn.Module):
             raise ValueError(f'deconv_impl must be None, d2s or convt, got '
                              f'{deconv_impl!r}')
         self.concat_out = concat_out
+        self.upsample_strides = tuple(upsample_strides)
         dt = compute_dtype(dtype)
         deblocks = []
         for cin, ch, s in zip(in_channels, out_channels, upsample_strides):
             if s > 1:
                 up = ConvTranspose2d(cin, ch, s, stride=s, bias=False,
                                      compute_dtype=dt)
-            elif s == 1:
-                up = Conv2d(cin, ch, 1, bias=False, compute_dtype=dt)
-            else:
-                raise NotImplementedError(
-                    f'upsample stride {s} < 1 is not ported yet')
+            else:   # stride 1: a 1x1 conv; 1/k: a k x k conv at stride k
+                k = max(1, int(round(1 / s)))
+                up = Conv2d(cin, ch, k, stride=k, bias=False,
+                            compute_dtype=dt)
             deblocks.append(nn.Sequential(up, BatchNorm2d(ch, eps=1e-3),
                                           nn.ReLU()))
         self.deblocks = nn.ModuleList(deblocks)

@@ -39,14 +39,17 @@ from ...ops.voxelize import (CANVAS_KEY_ORDER, bev_scatter, bev_scatter_s2d,
 from ...registry import MODELS
 from ..backbones import SECOND, SECONDFPN, compute_dtype as _compute_dtype
 from ..dense_heads.anchor3d_head import Anchor3DHeadConvs
+from ..dense_heads.centerpoint_head import CenterHeadConvs
 from ..voxel_encoders import (DynamicPillarFeatureNet, PillarFeatureNet,
                               SortedPillarFeatureNet)
 
 
 @MODELS.register_module()
 class PointPillarsNet(nn.Module):
-    """Learned trunk; ``forward(points, points_mask)`` returns NHWC
-    (cls_score, bbox_pred, dir_pred, packed).
+    """Learned trunk; ``forward(points, points_mask)`` returns the head's
+    NHWC maps: (cls_score, bbox_pred, dir_pred, packed) for
+    ``head_type='anchor'``, a list of per-task dicts for ``'center'``
+    (:class:`CenterHeadConvs` on the concatenated neck output).
 
     ``voxelize_mode``: ``'hard'`` (the default, as in the JAX package) or
     ``'dynamic'``; ``'mvf'`` is not ported.  ``hard_encoder``
@@ -78,8 +81,8 @@ class PointPillarsNet(nn.Module):
         super().__init__()
         if voxelize_mode == 'mvf':
             raise NotImplementedError(
-                "voxelize_mode='mvf' is not ported yet; 'hard' and "
-                "'dynamic' are")
+                "voxelize_mode='mvf' is not ported yet (ROADMAP section 1, "
+                "item 4); 'hard' and 'dynamic' are")
         if voxelize_mode not in ('hard', 'dynamic'):
             raise ValueError(f'voxelize_mode must be hard or dynamic, got '
                              f'{voxelize_mode!r}')
@@ -90,9 +93,9 @@ class PointPillarsNet(nn.Module):
             raise NotImplementedError(
                 f'axis_name={axis_name!r}: multi-device BatchNorm is not '
                 f'ported yet')
-        if head_type != 'anchor':
-            raise NotImplementedError(f'head_type={head_type!r} is not '
-                                      f'ported yet')
+        if head_type not in ('anchor', 'center'):
+            raise ValueError(f'head_type must be anchor or center, got '
+                             f'{head_type!r}')
         if s2d_canvas not in ('auto', 'on', 'off'):
             raise ValueError(f's2d_canvas must be auto, on or off, got '
                              f'{s2d_canvas!r}')
@@ -127,10 +130,16 @@ class PointPillarsNet(nn.Module):
         else:
             self.voxel_encoder = DynamicPillarFeatureNet(**enc_cfg)
         self.backbone = SECOND(input_s2d=self.s2d, dtype=dt, **bb_cfg)
+        self.head_type = head_type
         neck_kw = dict(neck_cfg or {})
-        neck_kw.setdefault('concat_out', False)
+        if head_type == 'anchor':
+            # the anchor head's 1x1 convs read the branches unconcatenated
+            neck_kw.setdefault('concat_out', False)
+            head = Anchor3DHeadConvs
+        else:
+            head = CenterHeadConvs
         self.neck = SECONDFPN(dtype=dt, **neck_kw)
-        self.bbox_head = Anchor3DHeadConvs(dtype=dt, **(head_cfg or {}))
+        self.bbox_head = head(dtype=dt, **(head_cfg or {}))
 
     def grid(self) -> Tuple[int, int]:
         pcr, vs = self.point_cloud_range, self.voxel_size

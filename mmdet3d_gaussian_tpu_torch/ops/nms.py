@@ -2,7 +2,7 @@
 ``csrc/nms_sweep.cu``).
 
 Port of ``mmdet3d_gaussian_tpu/ops/nms.py`` (``nms_bev``,
-``nms_normal_bev``, ``_suppress_sweep``) and of the TPU
+``nms_normal_bev``, ``circle_nms``, ``_suppress_sweep``) and of the TPU
 kernel ``ops/pallas/nms_kernel.py``.  Candidates arrive sorted by
 descending score; a batch of P independent problems runs as one launch of
 K5 (rotated only) and one of K6 (whose launcher enqueues its pack and its
@@ -116,6 +116,23 @@ def nms_normal_bev(boxes: torch.Tensor, thr: float,
                            device=boxes.device)
     iou = aligned_iou_bev(boxes).contiguous()
     return suppress_sweep(iou, valid.contiguous(), thr)
+
+
+def circle_nms(centers: torch.Tensor, min_radius: float,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CenterPoint circle NMS of P problems through K6: centers (P, K, 2)
+    BEV (x, y), each problem sorted by descending score; valid (P, K) bool.
+    -> keep (P, K).  As mmdet3d's ``circle_nms`` (and the JAX package), a
+    later centre is suppressed when its *squared* distance is under the
+    config's ``min_radius``, which is not squared: the sweep runs on -d^2
+    with threshold -min_radius."""
+    if valid is None:
+        valid = torch.ones(centers.shape[:2], dtype=torch.bool,
+                           device=centers.device)
+    c = centers.float()
+    d2 = ((c[..., :, None, :] - c[..., None, :, :]) ** 2).sum(-1)
+    return suppress_sweep((-d2).contiguous(), valid.contiguous(),
+                          -float(min_radius))
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -28,17 +28,17 @@ def load_config(path: str, cfg_options: Sequence[str] = ()) -> Config:
 def build_detector(cfg, device: Optional[str], seed: int = 0,
                    model_overrides: Optional[Dict] = None):
     """The config's ``model`` and ``head`` dicts -> a
-    ``PointPillarsDetector`` on ``device`` (``cuda`` unless given).
-    CenterPoint and PV-RCNN models raise until they are ported."""
-    from ..engine.detector import PointPillarsDetector
+    ``CenterPointDetector`` (``head_type='center'``) or else a
+    ``PointPillarsDetector``, on ``device`` (``cuda`` unless given).
+    PV-RCNN models raise until they are ported."""
+    from ..engine.detector import CenterPointDetector, PointPillarsDetector
     mcfg = dict(cfg.get('model') or {})
     mtype = mcfg.pop('type', None)
     if mtype == 'PVRCNN':
         raise NotImplementedError('PV-RCNN is not ported yet (ROADMAP '
                                   'section 1, item 5)')
-    if mcfg.get('head_type') == 'center':
-        raise NotImplementedError('CenterPoint (head_type="center") is not '
-                                  'ported yet (ROADMAP section 1, item 3)')
     mcfg.update(model_overrides or {})
-    return PointPillarsDetector(model_cfg=mcfg, head_cfg=cfg.get('head'),
-                                device=device, seed=seed)
+    cls = (CenterPointDetector if mcfg.get('head_type') == 'center'
+           else PointPillarsDetector)
+    return cls(model_cfg=mcfg, head_cfg=cfg.get('head'), device=device,
+               seed=seed)

@@ -1,8 +1,9 @@
 """JAX variable tree -> the port's ``state_dict``.
 
 ``jax_variables_to_torch`` takes the JAX package's ``{'params',
-'batch_stats'}`` tree of a ``PointPillarsNet`` (hard or dynamic encoder) as
-nested dicts of numpy arrays and returns a ``state_dict`` for
+'batch_stats'}`` tree of a ``PointPillarsNet`` (hard or dynamic encoder,
+anchor or center head) as nested dicts of numpy arrays and returns a
+``state_dict`` for
 :class:`~mmdet3d_gaussian_tpu_torch.models.detectors.voxelnet.PointPillarsNet`
 with mmdet3d-style names; ``jax_grads_to_torch`` maps a gradient tree (the
 shape of ``params``) the same way, to one tensor per parameter name:
@@ -14,13 +15,24 @@ shape of ``params``) the same way, to one tensor per parameter name:
   ``backbone.blocks.{s}.{0 | 3 (j + 1)}`` (conv) and ``+1`` (BN);
 * ``neck/deblock{i}_conv``, ``deblock{i}_bn`` -> ``neck.deblocks.{i}.0`` /
   ``.1``;
-* ``bbox_head/conv_{cls,reg,dir_cls}`` -> ``bbox_head.conv_*``.
+* ``bbox_head/conv_{cls,reg,dir_cls}`` -> ``bbox_head.conv_*`` (anchor
+  head);
+* ``bbox_head/shared_conv``, ``shared_bn`` -> ``bbox_head.shared_conv.conv``
+  / ``.bn``, and ``bbox_head/task{t}/{name}_conv{j}``, ``{name}_bn{j}``,
+  ``{name}_out`` -> ``bbox_head.task_heads.{t}.{name}.{j}.conv`` /
+  ``.{j}.bn`` and ``.{n}`` for a tower of ``n`` conv layers (center head;
+  a depthwise-separable ``{name}_conv{j}`` holds ``chn_conv`` and
+  ``dep_conv``, mapped to ``.{j}.conv.chn_conv`` / ``.dep_conv``).
 
 Layouts: conv kernels HWIO -> OIHW (``transpose(3, 2, 0, 1)``), dense
 kernels transposed, and a flax ``ConvTranspose`` kernel ``(s, s, cin,
 cout)`` is spatially flipped to become a torch ``ConvTranspose2d`` weight
 ``(cin, cout, s, s)``: flax places ``K[r, q]`` at output offset
-``(s-1-r, s-1-q)`` of each ``s x s`` block, torch at ``(r, q)``.
+``(s-1-r, s-1-q)`` of each ``s x s`` block, torch at ``(r, q)``.  A neck
+level of stride 1/k is a plain ``k x k`` conv whose kernel has the shape of
+a stride-k transposed conv's, so the neck's ``upsample_strides`` decide
+which a level is; a center-head tree (the nuScenes configs' fractional
+strides) must come with them.
 
 Every leaf of the JAX tree is mapped or named in :data:`IGNORED_LEAVES`;
 any other leaf raises ``KeyError``, so a tree of a module the port lacks
@@ -29,7 +41,7 @@ never loads into nothing.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,8 +66,14 @@ class _Tree:
         self._used.add('/'.join(path))
         return v
 
+    def __contains__(self, key):
+        return key in self._tree
+
     def get(self, key, default):
         return self[key] if key in self._tree else default
+
+    def keys(self):
+        return list(self._tree)
 
     def items(self):
         return [(k, self[k]) for k in self._tree]
@@ -85,18 +103,31 @@ def _bn(sd, prefix, p, s, tracked: bool):
         sd[prefix + '.num_batches_tracked'] = torch.tensor(0)
 
 
-def jax_variables_to_torch(variables: Dict[str, Any]
+def jax_variables_to_torch(variables: Dict[str, Any],
+                           upsample_strides: Optional[Sequence[float]] = None
                            ) -> Dict[str, torch.Tensor]:
-    return _convert(variables['params'], variables['batch_stats'])
+    """``upsample_strides``: the neck's (``neck_cfg['upsample_strides']``);
+    without them a neck kernel larger than 1 x 1 is a transposed conv,
+    which a center-head tree refuses."""
+    return _convert(variables['params'], variables['batch_stats'],
+                    upsample_strides)
 
 
-def jax_grads_to_torch(grads: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def jax_grads_to_torch(grads: Dict[str, Any],
+                       upsample_strides: Optional[Sequence[float]] = None
+                       ) -> Dict[str, torch.Tensor]:
     """Gradient tree of ``params`` -> {parameter name: gradient}, laid out
     as the port's parameters (every map above is linear)."""
-    return _convert(grads, None)
+    return _convert(grads, None, upsample_strides)
 
 
-def _convert(params, stats) -> Dict[str, torch.Tensor]:
+def _conv(k) -> torch.Tensor:
+    """flax conv kernel HWIO -> torch OIHW."""
+    return _t(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+
+
+def _convert(params, stats, upsample_strides=None
+             ) -> Dict[str, torch.Tensor]:
     used = set()
     trees = [('params', params)] + ([] if stats is None
                                     else [('batch_stats', stats)])
@@ -137,11 +168,15 @@ def _convert(params, stats) -> Dict[str, torch.Tensor]:
             continue
         s = int(m.group(1))
         j = 0 if m.group(2) == 'down' else 3 * (int(m.group(3)) + 1)
-        sd[f'backbone.blocks.{s}.{j}.weight'] = \
-            _t(np.transpose(np.asarray(sub['conv']['kernel']), (3, 2, 0, 1)))
+        sd[f'backbone.blocks.{s}.{j}.weight'] = _conv(sub['conv']['kernel'])
         _bn(sd, f'backbone.blocks.{s}.{j + 1}', sub['bn'],
             sub_stats('backbone', name, 'bn'), tracked=True)
 
+    head = params.get('bbox_head', {})
+    center = 'shared_conv' in head
+    if center and upsample_strides is None:
+        raise ValueError('a center-head tree needs the neck\'s '
+                         'upsample_strides to place its levels')
     neck = params.get('neck', {})
     for name, sub in neck.items():
         m = re.fullmatch(r'deblock(\d+)_conv', name)
@@ -149,18 +184,22 @@ def _convert(params, stats) -> Dict[str, torch.Tensor]:
             continue
         i = int(m.group(1))
         k = np.asarray(sub['kernel'])
-        if k.shape[0] > 1:   # ConvTranspose (s, s, cin, cout), flipped
+        transposed = (k.shape[0] > 1 if upsample_strides is None
+                      else upsample_strides[i] > 1)
+        if transposed:       # ConvTranspose (s, s, cin, cout), flipped
             w = np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
-        else:                # stride-1 level: 1x1 conv
+        else:                # a 1x1 or (stride 1/k) k x k conv
             w = np.transpose(k, (3, 2, 0, 1))
         sd[f'neck.deblocks.{i}.0.weight'] = _t(w)
         _bn(sd, f'neck.deblocks.{i}.1', neck[f'deblock{i}_bn'],
             sub_stats('neck', f'deblock{i}_bn'), tracked=True)
 
-    for conv, sub in params.get('bbox_head', {}).items():
-        sd[f'bbox_head.{conv}.weight'] = \
-            _t(np.transpose(np.asarray(sub['kernel']), (3, 2, 0, 1)))
-        sd[f'bbox_head.{conv}.bias'] = _t(sub['bias'])
+    if center:
+        _center_head(sd, head, sub_stats)
+    else:
+        for conv, sub in head.items():
+            sd[f'bbox_head.{conv}.weight'] = _conv(sub['kernel'])
+            sd[f'bbox_head.{conv}.bias'] = _t(sub['bias'])
 
     left = sorted(p for top, tree in trees
                   for p in _leaf_paths(tree, (top,))
@@ -169,3 +208,39 @@ def _convert(params, stats) -> Dict[str, torch.Tensor]:
     if left:
         raise KeyError(f'JAX leaves with no counterpart in the port: {left}')
     return sd
+
+
+def _center_head(sd, head, sub_stats) -> None:
+    """The center head's leaves (``CenterHeadConvs``) into ``sd``."""
+    pre = 'bbox_head'
+    sd[f'{pre}.shared_conv.conv.weight'] = _conv(head['shared_conv']['kernel'])
+    _bn(sd, f'{pre}.shared_conv.bn', head['shared_bn'],
+        sub_stats('bbox_head', 'shared_bn'), tracked=True)
+    for task, tree in head.items():
+        m = re.fullmatch(r'task(\d+)', task)
+        if not m:
+            continue
+        tp = f'{pre}.task_heads.{m.group(1)}'
+        for leaf, sub in tree.items():
+            m = re.fullmatch(r'(\w+?)_(conv(\d+)|out)', leaf)
+            if not m:       # {name}_bn{j}: read with {name}_conv{j}
+                continue
+            name = m.group(1)
+            if m.group(2) == 'out':
+                n = sum(1 for k in tree.keys()
+                        if re.fullmatch(rf'{name}_conv\d+', k))
+                sd[f'{tp}.{name}.{n}.weight'] = _conv(sub['kernel'])
+                sd[f'{tp}.{name}.{n}.bias'] = _t(sub['bias'])
+                continue
+            j = m.group(3)
+            if 'chn_conv' in sub:     # ConvDS
+                sd[f'{tp}.{name}.{j}.conv.chn_conv.weight'] = \
+                    _conv(sub['chn_conv']['kernel'])
+                sd[f'{tp}.{name}.{j}.conv.dep_conv.weight'] = \
+                    _conv(sub['dep_conv']['kernel'])
+                sd[f'{tp}.{name}.{j}.conv.dep_conv.bias'] = \
+                    _t(sub['dep_conv']['bias'])
+            else:
+                sd[f'{tp}.{name}.{j}.conv.weight'] = _conv(sub['kernel'])
+            _bn(sd, f'{tp}.{name}.{j}.bn', tree[f'{name}_bn{j}'],
+                sub_stats('bbox_head', task, f'{name}_bn{j}'), tracked=True)

@@ -305,3 +305,31 @@ def test_tiny_predict_axis_aligned_nms():
     np.testing.assert_array_equal(got[2][got[3]], want[2][want[3]])
     np.testing.assert_allclose(got[1][got[3]], want[1][want[3]], atol=1e-5)
     np.testing.assert_allclose(got[0][got[3]], want[0][want[3]], atol=1e-4)
+
+
+@pytest.mark.parametrize('which', ['affinity', 'matcher'])
+def test_require_native_refuses_numpy(monkeypatch, which):
+    """With ``MMDET3D_TPU_REQUIRE_NATIVE=1`` and no native library, the
+    affinity calculators and the matcher raise, as JAX's do; without the
+    variable they take the numpy versions."""
+    from mmdet3d_gaussian_tpu_torch.core.evaluation import (affinity,
+                                                            matcher, native)
+    monkeypatch.setattr(native, 'available', lambda: False)
+
+    def fail(*args, **kwargs):
+        raise AssertionError('the native library was called')
+    for name in ('iou_bev', 'iou_3d', 'match_coco_native'):
+        monkeypatch.setattr(native, name, fail)
+    det = np.array([[0, 0, 0, 2, 2, 2, 0]], np.float32)
+    gt = np.array([[0.5, 0, 0, 2, 2, 2, 0]], np.float32)
+    run = {'affinity': lambda: affinity.LidarIOU3D()(det, gt),
+           'matcher': lambda: matcher.MatcherCoCo([0.5])(
+               np.array([[0.7]], np.float32))}[which]
+    monkeypatch.delenv('MMDET3D_TPU_REQUIRE_NATIVE', raising=False)
+    out = np.asarray(run())
+    want = {'affinity': [[1.5 * 2 * 2 / (2 * 8 - 1.5 * 2 * 2)]],
+            'matcher': [[0]]}[which]
+    np.testing.assert_allclose(out, want, rtol=1e-6)
+    monkeypatch.setenv('MMDET3D_TPU_REQUIRE_NATIVE', '1')
+    with pytest.raises(RuntimeError, match='MMDET3D_TPU_REQUIRE_NATIVE=1'):
+        run()

@@ -978,3 +978,54 @@ def test_segment_kernels_rank_masked(cuda):
     ref, ref_m = segment.segment_max_winner_plain(*(t.cpu() for t in
                                                     (y,) + args))
     assert torch.equal(out.cpu(), ref) and torch.equal(mask.cpu(), ref_m)
+
+
+def _centerpoint_candidates(seed, p=24, k=128):
+    """P problems of K score-sorted CenterPoint candidates (B x 6 tasks of
+    ``max_per_img`` 128): centres clustered over +-50 m as the heatmap's
+    top cells are (neighbouring cells of one peak), nuScenes sizes."""
+    rng = np.random.RandomState(seed)
+    peaks = rng.uniform(-50, 50, (p, k // 8, 2))
+    pick = rng.randint(0, k // 8, (p, k))
+    xy = np.take_along_axis(peaks, pick[..., None], 1) + rng.normal(
+        0, 0.6, (p, k, 2))
+    wl = rng.uniform(0.4, 12.0, (p, k, 2))
+    yaw = rng.uniform(-np.pi, np.pi, (p, k, 1))
+    boxes = np.concatenate([xy, wl, yaw], -1).astype(np.float32)
+    valid = rng.rand(p, k) > 0.2
+    return torch.from_numpy(boxes), torch.from_numpy(valid)
+
+
+def test_centerpoint_rotate_nms_k128(cuda):
+    """K5 and K6 at the CenterPoint predict's shape, B = 4 x 6 tasks of
+    K = 128 (two 64-row tiles, two 64-bit words a row): the IoU within
+    1e-5 of its plain version, the keep mask of ``nms_bev`` (one launch of
+    each) equal to the plain chain's."""
+    boxes, valid = _centerpoint_candidates(7)
+    want_iou = rotated_iou.iou_bev_pairwise_plain(boxes.to(cuda)).cpu()
+    got_iou = rotated_iou.iou_bev_pairwise(boxes.to(cuda)).cpu()
+    assert float((got_iou - want_iou).abs().max()) <= 1e-5
+    want = nms.suppress_sweep_plain(want_iou, valid, 0.2)
+    before = dict(_cuda.LAUNCHES)
+    got = nms.nms_bev(boxes.to(cuda), 0.2, valid.to(cuda))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['rotated_iou'] == before['rotated_iou'] + 1
+    assert _cuda.LAUNCHES['nms_sweep'] == before['nms_sweep'] + 1
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < int(valid.sum())
+
+
+@pytest.mark.parametrize('min_radius', [0.175, 1.0, 4.0, 12.0])
+def test_circle_nms_kernel(cuda, min_radius):
+    """Circle NMS through K6 (negated squared distances, a negative
+    threshold) at K = 128 over 24 problems: the keep mask equal to the
+    plain sweep's on the CPU, one launch."""
+    boxes, valid = _centerpoint_candidates(8)
+    centers = boxes[..., :2].contiguous()
+    want = nms.circle_nms(centers, min_radius, valid)
+    before = _cuda.LAUNCHES['nms_sweep']
+    got = nms.circle_nms(centers.to(cuda), min_radius, valid.to(cuda))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['nms_sweep'] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < int(valid.sum())

@@ -283,10 +283,12 @@ def test_clis_on_cpu(runs):
 
 
 def test_unported_paths_raise(tmp_path):
-    """CenterPoint and PV-RCNN configs, ``--distributed`` and
-    ``--show-dir`` name what is missing instead of running."""
+    """MVF (the KITTI CenterPoint config's encoder) and PV-RCNN configs,
+    ``--distributed`` and ``--show-dir`` name what is missing instead of
+    running."""
     from mmdet3d_gaussian_tpu_torch.tools import common, test, train
-    for model, item in ((dict(head_type='center'), 'item 3'),
+    for model, item in ((dict(head_type='center', voxelize_mode='mvf'),
+                         'item 4'),
                         (dict(type='PVRCNN'), 'item 5')):
         with pytest.raises(NotImplementedError, match=item):
             common.build_detector(TConfig(dict(model=model)), 'cpu')
@@ -297,3 +299,83 @@ def test_unported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match='item 8'):
         test.main([str(cfg_path), '--show-dir', str(tmp_path),
                    '--device', 'cpu'])
+
+
+def _eval_boxes(maps, decode):
+    """NHWC eval maps -> (the box map (B, H, W, A * 7), every anchor's
+    decoded box (B, A, 7)), numpy."""
+    bbox = np.asarray(maps[1], np.float32)
+    return bbox, decode(bbox.reshape(bbox.shape[0], -1, 7))
+
+
+def test_eval_after_steps_matches_jax(runs):
+    """The eval-mode predict after the 3 steps: the box map, the decoded
+    box of every anchor and the predict's boxes, from JAX's trained
+    weights in both packages and from each package's own training, on a
+    batch as trained; and from JAX's weights on the same batch with its
+    intensities 1e4 times larger, which makes the eval maps overflow
+    (BatchNorm's running statistics, a few steps from their initial
+    values, no longer hold the activations down).  The count of non-finite
+    elements must be equal, the box maps agree within 1e-5 of their scale
+    (1e-3 from each package's own weights, as far as the final parameters
+    agree) and so do the finite boxes of the batch as trained.  On the
+    overflowing batch the boxes are held through their map and their
+    non-finite elements only: a size there is the exp of a map value near
+    88, and x and y cancel a large offset against the anchor, so the map's
+    f32 rounding shows in them at any scale.  Whether the eval predict's
+    sizes overflow after a few steps is then a property of the model and
+    its weights, not of the port."""
+    cfg = runs['cfg']
+    jd = jdet.PointPillarsDetector(model_cfg=dict(cfg['model']),
+                                   head_cfg=dict(cfg['head']))
+    jstate = runs['jstate']
+    variables = {'params': jstate.params, 'batch_stats': jstate.batch_stats}
+    anchors = np.asarray(jd.anchors, np.float32).reshape(-1, 7)
+    tdet_same = tdet.PointPillarsDetector(dict(cfg['model']),
+                                          dict(cfg['head']), device='cpu')
+    tdet_same.trunk.load_state_dict(jax_variables_to_torch({
+        'params': jax.tree_util.tree_map(np.asarray, jstate.params),
+        'batch_stats': jax.tree_util.tree_map(np.asarray,
+                                              jstate.batch_stats)}),
+        strict=True)
+
+    def jax_decode(deltas):
+        return np.stack([np.asarray(jd.head.coder.decode(
+            jax.numpy.asarray(anchors), jax.numpy.asarray(d)))
+            for d in deltas])
+
+    def port_decode(deltas):
+        return tdet_same.head.coder.decode(
+            torch.from_numpy(anchors), torch.from_numpy(deltas)).numpy()
+
+    jpredict = jax.jit(jd.predict)
+    overflowed = 0
+    for intensity, det, atol in ((1.0, tdet_same, 1e-5),
+                                 (1.0, runs['tdet'], 1e-3),
+                                 (1e4, tdet_same, 1e-5)):
+        batch = jdet.synthetic_batch(batch_size=2, num_points=1024,
+                                     num_gt=8, pc_range=PCR, seed=7)
+        batch['points'] = np.asarray(batch['points']).copy()
+        batch['points'][..., 3] *= intensity
+        tbatch = {k: torch.from_numpy(np.asarray(v))
+                  for k, v in batch.items()}
+        want_map, want = _eval_boxes(jd.apply_eval(variables, batch),
+                                     jax_decode)
+        want_pred = np.asarray(jpredict(variables, batch)[0])
+        got_map, got = _eval_boxes(det.apply_eval(tbatch), port_decode)
+        got_pred = det.predict(tbatch)[0].numpy()
+        overflowed += int((~np.isfinite(want)).sum())
+        np.testing.assert_allclose(got_map, want_map, rtol=0, atol=max(
+            atol, 1e-5) * float(np.abs(want_map).max()), err_msg='box map')
+        for what, g, w in (('anchor boxes', got, want),
+                           ('predict boxes', got_pred, want_pred)):
+            fin = np.isfinite(w)
+            print(f'intensity x{intensity:g}, {what}: {int((~fin).sum())} '
+                  f'of {w.size} elements not finite in JAX, '
+                  f'{int((~np.isfinite(g)).sum())} in the port')
+            np.testing.assert_array_equal(np.isfinite(g), fin, err_msg=what)
+            if intensity == 1.0 and fin.any():
+                np.testing.assert_allclose(
+                    g[fin], w[fin], rtol=0,
+                    atol=atol * float(np.abs(w[fin]).max()), err_msg=what)
+    assert overflowed, 'the scaled batch no longer overflows in JAX'

@@ -1,7 +1,7 @@
 """JAX reference numbers for ``tests/test_torch_bf16.py``, computed in a
 process of their own.
 
-    python -m tests.torch_bf16_reference OUT.npz [hard]
+    python -m tests.torch_bf16_reference OUT.npz [hard | center]
 
 XLA on the CPU keeps some bf16 values in f32 between operations
 (``--xla_allow_excess_precision``, on by default), so its bf16 program
@@ -18,7 +18,9 @@ batch, with its bf16 pillar rows (eval), and for each hard encoder alone in
 bf16 (one layer, training mode, on that file's batched encoder inputs):
 its weights,
 output, the gradient of a weighted sum of the output and the new running
-statistics.
+statistics.  With ``center``, the TINY CenterPoint of
+``tests/test_centerpoint.py`` (both heads): its weights, the maps of every
+branch of a bf16 and an f32 predict, and the bf16 detections.
 """
 import os
 import sys
@@ -103,7 +105,40 @@ def _hard_encoders(arrays) -> None:
         arrays[f'enc_{form}_out/dtype'] = np.asarray(str(out.dtype))
 
 
+def _centerpoint(out: str) -> None:
+    from .test_torch_centerpoint import (STRIDES, TINY_CP_MODEL, batch_np,
+                                         head_cfg)
+    batch = batch_np(False, seed=2)
+    arrays = {}
+    for yaw in (False, True):
+        hc = head_cfg(yaw)
+        bf16_model = dict(TINY_CP_MODEL, compute_dtype='bfloat16')
+        j16 = jdet.CenterPointDetector(model_cfg=bf16_model, head_cfg=hc)
+        variables = randomize(
+            _np_tree(jax.jit(j16.init)(jax.random.PRNGKey(0), batch)),
+            np.random.RandomState(0))
+        pre = 'yaw' if yaw else 'rot'
+        for k, v in jax_variables_to_torch(variables, STRIDES).items():
+            arrays[f'{pre}_sd/{k}'] = v.numpy()
+        for name, cfg in (('16', bf16_model), ('32', TINY_CP_MODEL)):
+            jd = jdet.CenterPointDetector(model_cfg=cfg, head_cfg=hc)
+            maps = jax.jit(jd.apply_eval)(variables, batch)
+            for t, task in enumerate(maps):
+                for branch, m in task.items():
+                    arrays[f'{pre}_maps{name}/{t}.{branch}'] = _f32(m)
+                    arrays[f'{pre}_maps{name}/{t}.{branch}.dtype'] = \
+                        np.asarray(str(m.dtype))
+            if name == '16':
+                dets = jax.jit(jax.vmap(jd.head.get_bboxes_single))(maps)
+                for i, d in enumerate(dets):
+                    arrays[f'{pre}_dets16/{i}'] = np.asarray(d)
+    np.savez(out, **arrays)
+
+
 def main(out: str, mode: str = 'dynamic') -> None:
+    if mode == 'center':
+        _centerpoint(out)
+        return
     batch = jdet.synthetic_batch(batch_size=2, num_points=1024, num_gt=8,
                                  pc_range=TINY_MODEL['point_cloud_range'])
     model = TINY_MODEL
