@@ -49,6 +49,8 @@ Phases, each printing its own lines (any failure exits non-zero):
       the card's f32 must fail); then the same for the TINY hard model
       (``voxelize_mode='hard'``) on ``crowded_batch``, where pillars
       overflow ``max_points`` and live pillars overflow ``max_voxels``;
+      then the TINY MVF model (odd view canvases): a predict and a dense
+      train step;
   (d) the f32 predict path: PointPillars KITTI 3-class at full width
       (dynamic voxelize on the plain canvas, ``s2d_canvas='off'``, batch
       4 x 16384 points, random weights from a seed with a zero cls bias so
@@ -140,12 +142,37 @@ Phases, each printing its own lines (any failure exits non-zero):
       ``tools.train`` 3 steps at B = 4, ``tools.test --metric nds`` and
       ``--metric iou3d_err`` on its checkpoint, every metric finite,
       launches per CLI run, the step wall and the wait on the queue;
+  (m) MVF on KITTI, the ``pillarmvf_pointpillars_secfpn_8x4_160e_kitti-
+      3d-3class`` config (cartesian and cylindrical views, towers on 432 x
+      496 and 411 x 32 canvases, SECOND and the neck to 384 channels, the
+      KLD anchor head) at full width, random weights from a seed with the
+      cls bias zeroed, ``synthetic_batch`` B = 4 x 16,384: the points live
+      in each view and after the cross-view mask, the live voxels of each
+      view; K1 (3 reduces, 4 mapbacks), K2 (the three canvases), K5 and
+      K6 on one predict's inputs held to their plain versions and timed
+      beside their bounds and yardsticks; 6 requests with launch counts; a
+      profile and the view towers' share of it;
+  (mt) its f32 train step: K1's winner form (3 maxes), K4 on its 35 + 35
+      BatchNorms and K3 on a dense step held to their plain versions; 3
+      warm-up and 10 sparse-target steps, 3 dense-target steps, a 3-step
+      profile, and the step time through ``engine.timing.
+      chain_time_state_band`` beside the host-clock median;
+  (mc) the ``pillarmvf_centerpoint`` config: 3 predicts (K5 and K6 on B x
+      3 problems) and 3 steps, every output finite, launch counts;
+  (M) the MVF config through the port's converters and CLIs: a raw KITTI
+      tree (velodyne, calib, label_2, ImageSets) written in a temporary
+      directory, ``tools.data_converter.kitti_converter`` and
+      ``create_gt_database`` run on it as modules, ``tools.train`` 3
+      steps at the config's batch and ``tools.test`` under both KITTI
+      metrics, launches per CLI run, the step wall and the wait on the
+      queue;
   (e) one JSON line listing the kernels (with their launches on the hard
       paths and K2's and K1's numbers there, under ``loop`` the launches
-      of each CLI run and the numbers on the loop's inputs, and under
+      of each CLI run and the numbers on the loop's inputs, under
       ``centerpoint`` the launches of each CenterPoint path and the
-      numbers on its inputs), the card's name and power limit from
-      nvidia-smi, and the result line.
+      numbers on its inputs, and under ``mvf`` those of the MVF paths,
+      by call), the card's name and power limit from nvidia-smi, and the
+      result line.
 
 f32 runs with TF32 off for matmuls and cuDNN convolutions; the bf16 paths
 compute in bf16 on f32 parameters, as the JAX package's mixed precision.
@@ -310,6 +337,13 @@ TINY_HEAD = dict(test_cfg=dict(use_rotate_nms=True, nms_thr=0.01,
 TINY_F32 = dict(TINY_MODEL, s2d_canvas='off')
 TINY_BF16 = dict(TINY_MODEL, compute_dtype='bfloat16')
 TINY_HARD = dict(TINY_MODEL, voxelize_mode='hard')
+# the TINY MVF model: the cartesian view on the TINY canvas (64 x 64) and a
+# cylindrical view of 39 x 11 cells (both odd: the towers' deconvs crop)
+TINY_MVF = dict(TINY_MODEL, voxelize_mode='mvf', encoder_cfg=dict(
+    in_channels=4, feat_channels=16, views=('cartesian', 'cylindrical'),
+    voxel_size=((0.4, 0.4, 4.0), (0.04, 0.4, 40.0)),
+    point_cloud_range=(TINY_MODEL['point_cloud_range'],
+                       (-0.78, -3.0, 0.0, 0.78, 1.4, 40.0))))
 TINY_HARD16 = dict(TINY_HARD, compute_dtype='bfloat16')
 # the hard TINY phases' batch (crowded_batch): 12 piles of 40 points a
 # sample against max_points 16, ~1,600 live pillars a sample against
@@ -651,17 +685,19 @@ def kernel_checks(inputs, card, note=''):
 
 def k1_work(form, data, ids, starts, counts):
     """(bytes, operations) K1's ``form`` needs: each input read once (the
-    rows, the segment bounds, the ids where the form reads them), each
+    rows of the live segments, the segment bounds, the ids where the form
+    reads them; rows past the live segments, trash, are not needed), each
     output written once (the mask as bytes), one operation an element
     of the live rows."""
     n, c = data.shape
     v = counts.shape[0]
-    ops = int(counts.sum()) * c
+    live = int(counts.sum())
+    ops = live * c
     if form == 'reduce':
-        return n * c * 4 + v * 8 + v * c * 4, ops
+        return live * c * 4 + v * 8 + v * c * 4, ops
     if form == 'mapback':
-        return n * c * 8 + n * 4 + v * 8, n * c
-    return n * c * 4 + v * 8 + n * 4 + v * c * 4 + n * c, ops  # winner
+        return live * c * 4 + n * c * 4 + n * 4 + v * 8, n * c
+    return live * c * 4 + v * 8 + n * 4 + v * c * 4 + n * c, ops  # winner
 
 
 def k3_work(pred2, w_a):
@@ -1174,10 +1210,10 @@ def tiny_batch(seed, dev, hard=False):
                            device=dev)
 
 
-def tiny_card_vs_cpu(card, cfg=TINY_F32, hard=False):
+def tiny_card_vs_cpu(card, cfg=TINY_F32, hard=False, tag=None):
     """Phase (c): the same seeded TINY detector on the card and the CPU."""
     from mmdet3d_gaussian_tpu_torch.engine.detector import PointPillarsDetector
-    tag = 'TINY hard' if hard else 'TINY'
+    tag = tag or ('TINY hard' if hard else 'TINY')
     outs = {}
     for dev in ('cuda', 'cpu'):
         det = PointPillarsDetector(cfg, TINY_HEAD, device=dev, seed=1)
@@ -1587,7 +1623,8 @@ def train_kernel_checks(inputs, card, note=''):
     return results
 
 
-def tiny_train_card_vs_cpu(card, cfg=TINY_F32, hard=False):
+def tiny_train_card_vs_cpu(card, cfg=TINY_F32, hard=False, head=TINY_HEAD,
+                           tag=None):
     """Phase (c): one TINY train step (sparse targets) from the same seed,
     weights and batch on the card and on the CPU: loss terms, every
     parameter gradient, and after the AdamW step the running statistics,
@@ -1601,10 +1638,10 @@ def tiny_train_card_vs_cpu(card, cfg=TINY_F32, hard=False):
     CPU agree on its sign; there a sign flip or a dropped update (lr apart)
     fails a tolerance of 1e-2 lr."""
     from mmdet3d_gaussian_tpu_torch.engine.detector import PointPillarsDetector
-    tag = 'TINY hard' if hard else 'TINY'
+    tag = tag or ('TINY hard' if hard else 'TINY')
     out = {}
     for dev in ('cuda', 'cpu'):
-        det = PointPillarsDetector(cfg, TINY_HEAD, device=dev, seed=2)
+        det = PointPillarsDetector(cfg, head, device=dev, seed=2)
         batch = tiny_batch(0, dev, hard)
         total, losses = det.loss(det.apply_train(batch), batch)
         params = dict(det.trunk.named_parameters())
@@ -2306,13 +2343,13 @@ def move_data_paths(cfg, root):
         d[key] = os.path.join(root, name)
 
 
-def derived_config(tmp, root, repo):
-    """Write ``tmp/flagship_local.py``: ``_base_`` the flagship file by
-    absolute path, only its data paths moved under ``root``; check that it
-    loads to the flagship config with those paths changed and nothing
-    else.  -> (its path, the loaded config)."""
+def derived_config(tmp, root, repo, config=FLAGSHIP):
+    """Write ``tmp/local.py``: ``_base_`` the ``config`` file (the
+    flagship by default) by absolute path, only its data paths moved under
+    ``root``; check that it loads to that config with those paths changed
+    and nothing else.  -> (its path, the loaded config)."""
     from mmdet3d_gaussian_tpu_torch.utils.config import Config
-    base = os.path.join(repo, FLAGSHIP)
+    base = os.path.join(repo, config)
     want = Config.fromfile(base).to_dict()
     move_data_paths(want, root)
     train = want['data']['train']['dataset']
@@ -2324,12 +2361,12 @@ def derived_config(tmp, root, repo):
             f'                            pipeline={train["pipeline"]!r})),\n'
             f'    val=dict(data_root={val["data_root"]!r}, '
             f'ann_file={val["ann_file"]!r}))\n')
-    path = os.path.join(tmp, 'flagship_local.py')
+    path = os.path.join(tmp, 'local.py')
     with open(path, 'w') as f:
         f.write(text)
     cfg = Config.fromfile(path)
-    check(cfg.to_dict() == want, 'the derived config differs from the '
-          'flagship config beyond its data paths')
+    check(cfg.to_dict() == want, f'the derived config differs from '
+          f'{config} beyond its data paths')
     return path, cfg
 
 
@@ -3244,6 +3281,559 @@ def centerpoint_phases(repo, card):
     return results, launches, summary
 
 
+# ------------------------------------------------- phases (m) to (M)
+# MVF on KITTI: the two views' towers on the pillar trunk, at the KITTI
+# configs' full width
+MVF_CONFIG = ('configs/kitti/'
+              'pillarmvf_pointpillars_secfpn_8x4_160e_kitti-3d-3class.py')
+MVF_CP_CONFIG = ('configs/kitti/'
+                 'pillarmvf_centerpoint_secfpn_8x4_160e_kitti-3d-3class.py')
+# a predict: K1's max in each view's point net and the fused max on view
+# 0's pillars (3 reduces), each view's cluster mean and covariance (4
+# mapbacks), a splat onto each view's canvas and the trunk's (3 K2), NMS
+MVF_PREDICT_LAUNCHES = {'segment_reduce': 3, 'segment_reduce_mapback': 4,
+                        'bev_splat': 3, 'rotated_iou': 1, 'nms_sweep': 1}
+# a step: the three maxes' winner forms, the four mapbacks, three splats,
+# and K4 on SECOND's 16, the neck's 3 and the towers' 2 x 8 BatchNorms
+MVF_STEP_LAUNCHES = {'bn_moments': 35, 'bn_grad_moments': 35,
+                     'segment_max_winner': 3, 'segment_reduce_mapback': 4,
+                     'bev_splat': 3}
+MVF_DENSE_LAUNCHES = {**MVF_STEP_LAUNCHES, **DENSE_LAUNCHES}
+# the center config's step: the shared conv's BatchNorm and 3 tasks x 6
+# towers' (no velocity) more
+MVF_CP_STEP_LAUNCHES = dict(MVF_STEP_LAUNCHES, bn_moments=54,
+                            bn_grad_moments=54)
+# the canvases K2 writes in a forward, in call order
+MVF_CANVASES = ('cartesian view', 'cylindrical view', 'trunk')
+# phase (M): a raw KITTI tree of train and val frames
+MVF_TRAIN_FRAMES, MVF_VAL_FRAMES, MVF_CLI_STEPS = 16, 8, 3
+MVF_BAND = dict(n_lo=2, n_hi=4, repeats=3)
+
+
+def mvf_configs(repo):
+    """{path: (model, head)} of the MVF configs."""
+    from mmdet3d_gaussian_tpu_torch.utils.config import Config
+    out = {}
+    for path in (MVF_CONFIG, MVF_CP_CONFIG):
+        cfg = Config.fromfile(os.path.join(repo, path)).to_dict()
+        out[path] = (cfg['model'], cfg.get('head'))
+    return out
+
+
+def mvf_detector(model, head, **head_over):
+    """The config's detector from a seed, its cls (anchor) or heatmap
+    (center) biases zeroed so that NMS has candidates."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import (
+        CenterPointDetector, PointPillarsDetector)
+    from mmdet3d_gaussian_tpu_torch.models.dense_heads.centerpoint_head \
+        import SeparateHead
+    center = model.get('head_type') == 'center'
+    cls = CenterPointDetector if center else PointPillarsDetector
+    det = cls(model, dict(head or {}, **head_over), device='cuda', seed=0)
+    with torch.no_grad():
+        if not center:
+            det.trunk.bbox_head.conv_cls.bias.zero_()
+        for m in det.trunk.bbox_head.modules():
+            if isinstance(m, SeparateHead):
+                m.heatmap[-1].bias.zero_()
+    return det
+
+
+def mvf_counts(det, batch, tag):
+    """Print the live points of each view, after the cross-view mask, and
+    the live voxels of each view.  -> summary."""
+    from mmdet3d_gaussian_tpu_torch.models.mvf_encoder import VIEW_TRANSFORMS
+    from mmdet3d_gaussian_tpu_torch.ops.scatter import compute_voxel_coords
+    enc = det.trunk.voxel_encoder
+    pts, mask = batch['points'], batch['points_mask']
+    n = int(mask.sum())
+    flat = pts.reshape(-1, pts.shape[-1])
+    in_view = {}
+    with torch.inference_mode():
+        for name, vs, pcr in zip(enc.view_names, enc.voxel_size,
+                                 enc.point_cloud_range):
+            c3, _ = compute_voxel_coords(VIEW_TRANSFORMS[name](flat)[:, :3],
+                                         pcr, vs)
+            in_view[name] = int(((c3 >= 0).all(-1) & mask.reshape(-1))
+                                .sum())
+        _, scatters, valid, _ = enc.scatters(
+            pts, mask, det.trunk.max_voxels_per_sample * pts.shape[0])
+    live = int(valid.sum())
+    voxels = {name: (int(sc.num_voxels), int(sc.num_overflow))
+              for name, sc in zip(enc.view_names, scatters)}
+    grids = {name: (net.nx, net.ny) for name, net in enc.views.items()}
+    print(f'{tag} {pts.shape[0]} x {pts.shape[1]} points: in each view '
+          f'{in_view} of {n}; after the cross-view mask {live} '
+          f'({live / n:.4f}); live voxels of each view (kept, truncated) '
+          f'{voxels} of {scatters[0].max_voxels}; canvases (nx, ny) '
+          f'{grids}')
+    check(0 < live <= min(in_view.values()), 'cross-view mask')
+    return dict(points_in_view=in_view, points_live=live,
+                live_share=live / n, voxels=voxels)
+
+
+def mvf_kernel_checks(calls, card):
+    """Phase (m): K1 (each reduce and mapback call), K2 (each canvas), K5
+    and K6 on one full-width MVF predict's inputs, each held to its plain
+    version at phase (b)'s tolerance and timed beside its bound and its
+    one-call yardstick (printed, not gated: the first times at these
+    shapes).  -> {kernel: {call: numbers}}."""
+    from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, segment
+    from mmdet3d_gaussian_tpu_torch.ops import voxelize
+    out = {}
+
+    def record(name, call, *args, **kw):
+        results = {}
+        report(results, name, card, *args, **kw)
+        out.setdefault(name, {})[call] = results[name]
+
+    for i, (data, starts, counts, op) in enumerate(calls['segment_reduce']):
+        call = ('cartesian view max', 'cylindrical view max',
+                'fused max on view 0')[i]
+        got = segment.segment_reduce(data, starts, counts, op)
+        err = float((got - segment.segment_reduce_plain(
+            data, starts, counts, op)).abs().max())
+        n_live = int(torch.count_nonzero(counts))
+        rows, lengths = int(counts.sum()), counts[:n_live].long()
+        check(bool((counts[n_live:] == 0).all()), 'live voxels not first')
+        print(f'(m) segment_reduce {call}: {data.shape[0]} rows x '
+              f'{data.shape[1]} into {n_live} live of {counts.shape[0]} '
+              f'voxels ({rows} rows in them)')
+        record('segment_reduce', call, err, '0', err == 0,
+               lambda a=(data, starts, counts, op): segment.segment_reduce(
+                   *a),
+               lambda a=(data, starts, counts, op):
+               segment.segment_reduce_plain(*a),
+               lambda d=data[:rows], ln=lengths, o=op: torch.segment_reduce(
+                   d, o, lengths=ln, unsafe=True), 100, 3,
+               *k1_work('reduce', data, None, starts, counts),
+               f' ({call}, mvf predict)')
+    # f32 sums in another order: each held to phase (b)'s 1e-4, or to 1e-5
+    # of its segment's sum of magnitudes where that is larger (the
+    # cylindrical view's rho reaches 71 m)
+    for i, args in enumerate(calls['segment_reduce_mapback']):
+        call = (f'{MVF_CANVASES[i // 2].split()[0]} view '
+                f'{("cluster mean", "covariance")[i % 2]}')
+        data, ids, starts, counts, op = args
+        got = segment.segment_reduce_mapback(*args)
+        want = segment.segment_reduce_mapback_plain(*args)
+        mags = segment.segment_reduce_mapback_plain(data.abs(), ids, starts,
+                                                    counts, op)
+        diff = (got - want).abs()
+        ok = bool((diff <= torch.clamp(1e-5 * mags, min=1e-4)).all())
+        print(f'(m) segment_reduce_mapback {call}: {data.shape[0]} rows x '
+              f'{data.shape[1]}, max error {float(diff.max()):.3g}, largest '
+              f'sum of magnitudes {float(mags.max()):.1f}')
+        record('segment_reduce_mapback', call, float(diff.max()),
+               'max(1e-4, 1e-5 of the sum of magnitudes)', ok,
+               lambda a=args: segment.segment_reduce_mapback(*a),
+               lambda a=args: segment.segment_reduce_mapback_plain(*a), None,
+               100, 3, *k1_work('mapback', data, ids, starts, counts),
+               f' ({call}, mvf predict)')
+    for call, (feats, lin, ncell) in zip(MVF_CANVASES, calls['bev_splat']):
+        got = voxelize.bev_splat(feats, lin, ncell)
+        ref = voxelize.bev_splat_plain(feats, lin, ncell)
+        live = lin < ncell
+        canvas = torch.zeros_like(ref)
+        ids_l, rows_l = lin[live].long(), feats[live]
+        lib = lambda c=canvas, i=ids_l, r=rows_l: c.zero_().index_copy_(  # noqa: E731
+            0, i, r)
+        lib()
+        check(torch.equal(canvas, ref), 'index_copy_ yardstick disagrees')
+        print(f'(m) bev_splat {call}: {feats.shape[0]} rows x '
+              f'{feats.shape[1]} ({int(live.sum())} live) onto {ncell} cells')
+        record('bev_splat', call, float((got - ref).abs().max()), '0, equal',
+               bool(torch.equal(got, ref)),
+               lambda a=(feats, lin, ncell): voxelize.bev_splat(*a),
+               lambda a=(feats, lin, ncell): voxelize.bev_splat_plain(*a),
+               lib, 50, 3,
+               # live rows read (the trash rows are not needed), every id
+               # read, the canvas written
+               int(live.sum()) * feats.shape[1] * 4 + lin.numel() * 4
+               + ncell * feats.shape[1] * 4, 0, f' ({call}, mvf predict)')
+    ((boxes,),) = calls['rotated_iou']
+    got = rotated_iou.iou_bev_pairwise(boxes)
+    ref = rotated_iou.iou_bev_pairwise_plain(boxes)
+    n_near = k5_cull(boxes, got, ref, card, 'mvf predict inputs')
+    err = float((got - ref).abs().max())
+    record('rotated_iou', 'predict', err, '1e-5', err <= 1e-5,
+           lambda: rotated_iou.iou_bev_pairwise(boxes),
+           lambda: rotated_iou.iou_bev_pairwise_plain(boxes), None, 20, 2,
+           *k5_work(boxes, n_near), ' (mvf predict)')
+    ((iou, valid, thr),) = calls['nms_sweep']
+    keep = nms.suppress_sweep(iou, valid, thr)
+    ref = nms.suppress_sweep_plain(iou, valid, thr)
+    record('nms_sweep', 'predict',
+           float((keep.int() - ref.int()).abs().max()), '0, equal',
+           bool(torch.equal(keep, ref)),
+           lambda: nms.suppress_sweep(iou, valid, thr),
+           lambda: nms.suppress_sweep_plain(iou, valid, thr), None, 50, 2,
+           *k6_work(valid, ref), ' (mvf predict)')
+    return out
+
+
+def mvf_tower_share(det, batch, busy_ms, card):
+    """Device ms of the encoder and of each view's tower in a predict
+    (each run alone on the inputs it was handed), and their share of the
+    predict's device-busy time."""
+    enc = det.trunk.voxel_encoder
+    seen, hooks = {}, []
+    for name, net in enc.views.items():
+        hooks.append(net.register_forward_pre_hook(
+            lambda mod, args, name=name: seen.__setitem__(name, args)))
+    det.predict(batch)
+    for h in hooks:
+        h.remove()
+    cap = det.trunk.max_voxels_per_sample * batch['points'].shape[0]
+    with torch.inference_mode():
+        ms = {name: device_ms(lambda n=net, a=seen[name]: n(*a), 5)
+              for name, net in enc.views.items()}
+        ms['encoder'] = device_ms(lambda: enc(batch['points'],
+                                              batch['points_mask'], cap), 5)
+    towers = sum(v for k, v in ms.items() if k != 'encoder')
+    share = towers / busy_ms if busy_ms else None
+    print(f'(m) device ms of a predict\'s parts run alone: {ms}; the view '
+          f'towers {towers:.3f} ms'
+          + (f', {100 * share:.1f}% of the predict\'s device busy time'
+             if share else '') + f' [{card}]')
+    return dict(part_ms=ms, towers_ms=towers, towers_share=share)
+
+
+def mvf_train_checks(det, batch, state, card):
+    """(mt): K1's winner form (each of the three maxes), K4 on every
+    BatchNorm (35 + 35) and K3 on one dense full-width step, held to their
+    plain versions and timed.  -> (results, state)."""
+    from mmdet3d_gaussian_tpu_torch.ops import gd_loss, segment
+    capture = {k: v for k, v in MVF_DENSE_LAUNCHES.items()
+               if k not in ('segment_reduce_mapback', 'bev_splat')}
+    inputs, state = capture_train_inputs(det, batch, state, capture)
+    out, note = {}, ' (mvf step)'
+    with torch.no_grad():
+        for call, args in zip(('cartesian view max', 'cylindrical view max',
+                               'fused max on view 0'),
+                              inputs['segment_max_winner']):
+            got, mask = segment.segment_max_winner(*args)
+            ref, ref_m = segment.segment_max_winner_plain(*args)
+            exact = bool(torch.equal(got, ref) and torch.equal(mask, ref_m))
+            results = {}
+            report(results, 'segment_max_winner', card,
+                   float((got - ref).abs().max()), '0, masks equal', exact,
+                   lambda a=args: segment.segment_max_winner(*a),
+                   lambda a=args: segment.segment_max_winner_plain(*a),
+                   None, 100, 3, *k1_work('winner', *args),
+                   f' exact_equal={exact} ({call}){note}')
+            out.setdefault('segment_max_winner', {})[call] = \
+                results['segment_max_winner']
+        results = {}
+        check_k4(results, inputs, card, note)
+        ((pred2, tgt2, w_a, anc2, hw, cfg),) = inputs['gd_loss_fwd']
+        ((gout, *_),) = inputs['gd_loss_bwd']
+        work, (n_pos, _) = k3_work(pred2, w_a)
+        check(n_pos > 0, 'no positive anchor in the dense MVF step')
+        args = (tgt2, w_a, anc2, hw, cfg)
+        got = gd_loss.gd_loss_fwd(pred2, *args)
+        want = gd_loss.anchor_gd_loss_plain(pred2, *args)
+        err = abs(float(got) - float(want))
+        report(results, 'gd_loss_fwd', card, err, '1e-5 relative',
+               err <= 1e-5 * abs(float(want)),
+               lambda: gd_loss.gd_loss_fwd(pred2, *args),
+               lambda: gd_loss.anchor_gd_loss_plain(pred2, *args), None, 50,
+               3, *work['fwd'], note)
+        dgot = gd_loss.gd_loss_bwd(gout, pred2, *args)
+        dwant = gd_loss.gd_loss_bwd_plain(gout, pred2, *args)
+        diff = (dgot - dwant).abs()
+        report(results, 'gd_loss_bwd', card, float(diff.max()),
+               '5e-6 + 1e-4 |plain|',
+               bool((diff <= 5e-6 + 1e-4 * dwant.abs()).all()),
+               lambda: gd_loss.gd_loss_bwd(gout, pred2, *args),
+               lambda: gd_loss.gd_loss_bwd_plain(gout, pred2, *args), None,
+               50, 3, *work['bwd'], note)
+    for name, r in results.items():
+        out[name] = {'step': r}
+    return out, state
+
+
+def mvf_step_band(det, batch, state, host_ms, card):
+    """The step time through ``engine.timing.chain_time_state_band``
+    (chains of dependent steps ending in a readback and a synchronize),
+    printed beside the host-clock median ``host_ms``.  -> (band dict,
+    state)."""
+    from mmdet3d_gaussian_tpu_torch.engine.timing import chain_time_state_band
+    med, lo, hi, state = chain_time_state_band(
+        lambda s, b: det.train_step(b, s), state, batch, **MVF_BAND)
+    print(f'(mt) step time by chain_time_state_band {MVF_BAND}: median '
+          f'{med * 1e3:.3f} ms, band {lo * 1e3:.3f}-{hi * 1e3:.3f} ms; '
+          f'host-clock median of the timed steps {host_ms:.3f} ms [{card}]')
+    return dict(band_median_ms=med * 1e3, band_min_ms=lo * 1e3,
+                band_max_ms=hi * 1e3), state
+
+
+def mvf_center_phase(model, head, batches, card):
+    """(mc): the MVF CenterPoint config at full width: 3 predicts and 3
+    steps, every output finite, K5 and K6 on B x 3 problems.  -> (launches,
+    summary)."""
+    from mmdet3d_gaussian_tpu_torch.ops import _cuda, nms
+    det = mvf_detector(model, head)
+    n_tasks = len(det.head.tasks)
+    seen = record_calls(lambda: det.predict(batches[0]),
+                        [(nms, 'iou_bev_pairwise', 'rotated_iou')])
+    p, k = seen['rotated_iou'][0][0].shape[:2]
+    check(p == BATCH * n_tasks, f'K5 on {p} problems, want {BATCH} x '
+          f'{n_tasks}')
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    times = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        boxes, scores, labels, valid = det.predict(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(boxes).all() and torch.isfinite(
+            scores).all() and valid.any(1).all()),
+            '(mc) non-finite boxes or a sample kept nothing')
+    launches = {'predict': {k_: v for k_, v in _cuda.LAUNCHES.items() if v}}
+    check_launches('(mc) predict', launches['predict'], MVF_PREDICT_LAUNCHES,
+                   len(batches))
+    print(f'(mc) {MVF_CP_CONFIG}: featmap {det.featmap_size}, K5 and K6 on '
+          f'{p} problems (B x {n_tasks} tasks) of {k}; {len(batches)} '
+          f'predicts, median {statistics.median(times) * 1e3:.3f} ms, '
+          f'launches {launches["predict"]} [{card}]')
+    state = det.init_train(LR, total_steps=100)
+    rows, step_times = [], []
+    for i in range(3):
+        if i == 1:
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = det.train_step(batches[0], state)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        rows.append({k_: float(v) for k_, v in metrics.items()})
+        check(all(map(math.isfinite, rows[-1].values())),
+              f'(mc) non-finite loss {rows[-1]}')
+    launches['train'] = {k_: v for k_, v in _cuda.LAUNCHES.items() if v}
+    check_launches('(mc) train', launches['train'], MVF_CP_STEP_LAUNCHES, 2)
+    print(f'(mc) 3 steps: {json.dumps(rows[-1])}; step times '
+          f'{[round(t * 1e3, 3) for t in step_times]} ms; launches of the '
+          f'last 2 {launches["train"]} [{card}]')
+    return launches, dict(predict_ms=statistics.median(times) * 1e3,
+                          step_ms=[t * 1e3 for t in step_times],
+                          losses=rows[-1], nms_problems=p)
+
+
+def write_raw_kitti(root, seed=0):
+    """A raw KITTI tree under ``root`` as the KITTI download lays it out:
+    ``training/velodyne/*.bin`` (phase (L)'s scenes), ``calib`` and
+    ``label_2`` txts (camera-frame annotations through ``L_CALIB``), and
+    ``ImageSets/{train,val}.txt``.  -> frames a split."""
+    import numpy as np
+    from mmdet3d_gaussian_tpu_torch.datasets.kitti import KittiDataset
+    rng = np.random.RandomState(seed)
+    calib = {k: np.asarray(v) for k, v in L_CALIB.items()}
+    for sub in ('velodyne', 'calib', 'label_2'):
+        os.makedirs(os.path.join(root, 'training', sub))
+    os.makedirs(os.path.join(root, 'ImageSets'))
+
+    def row(m, n):
+        return ' '.join(f'{x:.12e}' for x in np.asarray(m)[:n].reshape(-1))
+    calib_txt = ''.join(f'P{i}: {row(calib["P2"], 3)}\n' for i in range(4))
+    calib_txt += (f'R0_rect: {row(calib["R0_rect"][:3, :3], 3)}\n'
+                  f'Tr_velo_to_cam: {row(calib["Tr_velo_to_cam"], 3)}\n')
+    ids = {'train': [], 'val': []}
+    for i in range(MVF_TRAIN_FRAMES + MVF_VAL_FRAMES):
+        idx = f'{i:06d}'
+        ids['train' if i < MVF_TRAIN_FRAMES else 'val'].append(idx)
+        pts, boxes, labels = kitti_scene(rng)
+        pts.tofile(os.path.join(root, 'training', 'velodyne', f'{idx}.bin'))
+        with open(os.path.join(root, 'training', 'calib', f'{idx}.txt'),
+                  'w') as f:
+            f.write(calib_txt)
+        per_cls = [np.c_[boxes[labels == c], np.ones(((labels == c).sum(),
+                                                      1))].astype(np.float32)
+                   for c in range(3)]
+        a = KittiDataset.lidar_det_to_kitti_anno(per_cls, calib, L_IMAGE,
+                                                 L_CLASSES)
+        check(len(a['name']) == len(boxes), 'a GT box left the image')
+        lines = [f'{a["name"][j]} 0.00 0 {a["alpha"][j]:.6f} '
+                 f'{" ".join(f"{v:.2f}" for v in a["bbox"][j])} '
+                 f'{a["dimensions"][j][1]:.4f} {a["dimensions"][j][2]:.4f} '
+                 f'{a["dimensions"][j][0]:.4f} '
+                 f'{" ".join(f"{v:.4f}" for v in a["location"][j])} '
+                 f'{a["rotation_y"][j]:.6f}\n' for j in range(len(a['name']))]
+        with open(os.path.join(root, 'training', 'label_2', f'{idx}.txt'),
+                  'w') as f:
+            f.writelines(lines)
+    for split, names in ids.items():
+        with open(os.path.join(root, 'ImageSets', f'{split}.txt'), 'w') as f:
+            f.write('\n'.join(names) + '\n')
+    return {k: len(v) for k, v in ids.items()}
+
+
+def run_module(module, args, cwd, root):
+    """``python -m module args`` from ``cwd``; fails on a non-zero exit.
+    -> (stdout, seconds)."""
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, '-m', module, *args], cwd=cwd,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, f'{module} exited {out.returncode}: '
+          f'{out.stderr[-3000:]}')
+    return out.stdout, time.perf_counter() - t0
+
+
+def mvf_cli_phase(repo, card):
+    """(M): the MVF config through the port's converters and CLIs: a raw
+    KITTI tree, ``kitti_converter`` and ``create_gt_database``, ``tools.
+    train`` for MVF_CLI_STEPS steps at the config's batch, ``tools.test``
+    under both KITTI metrics.  -> (launches per CLI run, summary)."""
+    import pickle
+    import tempfile
+    t_phase = time.perf_counter()
+    summary, launches = {}, {}
+    conv = 'mmdet3d_gaussian_tpu_torch.tools.data_converter.'
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_mvf_') as tmp:
+        root = os.path.join(tmp, 'kitti')
+        frames = write_raw_kitti(root)
+        _, secs_info = run_module(conv + 'kitti_converter', [root], tmp, repo)
+        out, secs_db = run_module(conv + 'create_gt_database', [root], tmp,
+                                  repo)
+        with open(os.path.join(root, 'kitti_infos_train.pkl'), 'rb') as f:
+            infos = pickle.load(f)
+        with open(os.path.join(root, 'kitti_dbinfos_train.pkl'), 'rb') as f:
+            db = {str(k): len(v) for k, v in pickle.load(f).items()}
+        check(len(infos) == MVF_TRAIN_FRAMES and set(db) == set(L_CLASSES),
+              f'converted {len(infos)} train frames, database {db}')
+        reduced = len(os.listdir(os.path.join(root, 'training',
+                                              'velodyne_reduced')))
+        cfg_path, cfg = derived_config(tmp, root, repo, MVF_CONFIG)
+        b = cfg.data['samples_per_gpu']
+        print(f'(M) raw KITTI tree {frames} frames; the port\'s '
+              f'kitti_converter {secs_info:.1f} s ({reduced} reduced clouds),'
+              f' create_gt_database {secs_db:.1f} s (database {db}); config '
+              f'{MVF_CONFIG} with its data paths moved (B {b}) '
+              f'[{time.perf_counter() - t_phase:.1f} s]')
+        work = os.path.join(tmp, 'work')
+        _, runs, secs = run_cli('train', [
+            cfg_path, '--work-dir', work, '--max-steps', str(MVF_CLI_STEPS),
+            '--log-interval', '1'], tmp, repo)
+        check_launches('(M) train CLI', runs, MVF_STEP_LAUNCHES,
+                       MVF_CLI_STEPS)
+        launches['train'] = runs
+        log = read_log(work)
+        check([r['step'] for r in log] == list(range(1, MVF_CLI_STEPS + 1))
+              and all(math.isfinite(r[k]) for r in log for k in (
+                  'loss', 'grad_norm', 'loss_cls', 'loss_bbox', 'loss_dir')),
+              f'train log {log}')
+        walls = [y['time'] - x['time'] for x, y in zip(log, log[1:])]
+        waits = [r['data_time'] for r in log]
+        summary.update(train_cli_s=secs, step_wall_ms=[w * 1e3 for w in walls],
+                       data_wait_ms=[w * 1e3 for w in waits],
+                       peak_mib=log[-1].get('memory', float('nan')),
+                       loss=[r['loss'] for r in log])
+        print(f'(M) train CLI: {MVF_CLI_STEPS} steps at B = {b} in '
+              f'{secs:.1f} s; step wall (between log lines) '
+              f'{[round(w * 1e3, 1) for w in walls]} ms; wait on the '
+              f'prefetch queue {[round(w * 1e3, 1) for w in waits]} ms; loss '
+              f'{[round(r["loss"], 4) for r in log]}; launches {runs} '
+              f'[{card}]')
+        ckpt = os.path.join(work, f'ckpt_{MVF_CLI_STEPS}.pt')
+        n_batches = -(-MVF_VAL_FRAMES // b)
+        jobs = {'kitti': ['--metric', 'kitti'], 'cowa': ['--metric', 'cowa']}
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            futs = {k: pool.submit(run_cli, 'test', [cfg_path, ckpt] + a,
+                                   tmp, repo) for k, a in jobs.items()}
+            done = {k: f.result() for k, f in futs.items()}
+        for k, (out, runs, secs) in done.items():
+            check_launches(f'(M) test CLI {k}', runs, MVF_PREDICT_LAUNCHES,
+                           n_batches)
+            launches[f'test_{k}'] = runs
+            check(f'frames {MVF_VAL_FRAMES},' in out,
+                  f'{k}: not {MVF_VAL_FRAMES} frames')
+            rep = report_json(out)
+            check(len(rep) > 0 and all(map(math.isfinite, rep.values())),
+                  f'{k}: a non-finite metric {rep}')
+            summary[f'test_{k}_s'] = secs
+            print(f'(M) test CLI --metric {k}: {out.splitlines()[0]}; '
+                  f'{secs:.1f} s (two runs at once); {len(rep)} metrics, '
+                  f'all finite; launches {runs}')
+    wall = time.perf_counter() - t_phase
+    summary['phase_s'] = wall
+    print(f'(M) phase wall {wall:.1f} s [{card}]')
+    return launches, summary
+
+
+def mvf_phases(repo, card):
+    """Phases (m), (mt), (mc) and (M).  -> (kernel numbers by call,
+    launches by path, summaries)."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import synthetic_batch
+    from mmdet3d_gaussian_tpu_torch.ops import _cuda
+    t0 = time.perf_counter()
+    cfgs = mvf_configs(repo)
+    model, head = cfgs[MVF_CONFIG]
+    batches = [synthetic_batch(BATCH, POINTS, 16, seed=s, device='cuda')
+               for s in SEEDS]
+    det = mvf_detector(model, head)
+    summary, launches = {}, {}
+    summary['counts'] = mvf_counts(det, batches[0], '(m)')
+    with torch.inference_mode():
+        calls = record_calls(lambda: det.predict(batches[0]),
+                             predict_patches())
+        got = {k: len(v) for k, v in calls.items()}
+        check(got == {k: v for k, v in MVF_PREDICT_LAUNCHES.items()},
+              f'(m) predict called {got}')
+        results = mvf_kernel_checks(calls, card)
+    del calls
+    launches['predict'], summary['predict'] = main_path(
+        det, batches, MVF_PREDICT_LAUNCHES, '(m)', card)
+    summary['predict'].update(device_profile(
+        lambda: det.predict(batches[0]), 'predict', '(m)', card, 5))
+    summary['predict'].update(mvf_tower_share(
+        det, batches[0], summary['predict'].get('device_busy_ms'), card))
+    del det
+    torch.cuda.empty_cache()
+
+    # (mt): sparse-target steps, then dense (K3), a profile, the band
+    tdet = mvf_detector(model, head)
+    ddet = mvf_detector(model, head, pos_cap=0)
+    tbatch = batches[0]
+    dstate = ddet.init_train(LR, total_steps=100)
+    dstate, _ = ddet.train_step(tbatch, dstate)        # warm-up
+    step_k, dstate = mvf_train_checks(ddet, tbatch, dstate, card)
+    for name, r in step_k.items():
+        results.setdefault(name, {}).update(r)
+    tstate = tdet.init_train(LR, total_steps=100)
+    launches['train'], tstate, summary['train'] = timed_steps(
+        tdet, tbatch, tstate, MVF_STEP_LAUNCHES, '(mt)', card)
+    launches['train_dense'], dstate, summary['train']['dense_step_ms'] = \
+        dense_steps(ddet, tbatch, dstate, MVF_DENSE_LAUNCHES, '(mt)', card)
+    del ddet, dstate
+    holder = [tstate]
+
+    def one_step():
+        holder[0] = tdet.train_step(tbatch, holder[0])[0]
+    summary['train'].update(device_profile(one_step, 'train step', '(mt)',
+                                           card, 3))
+    band, holder[0] = mvf_step_band(tdet, tbatch, holder[0],
+                                    summary['train']['step_ms'], card)
+    summary['train'].update(band)
+    del tdet, holder, tstate
+    torch.cuda.empty_cache()
+
+    cp_model, cp_head = cfgs[MVF_CP_CONFIG]
+    cp_launches, summary['center'] = mvf_center_phase(cp_model, cp_head,
+                                                      batches, card)
+    launches.update({f'center_{k}': v for k, v in cp_launches.items()})
+    del batches
+    torch.cuda.empty_cache()
+    _cuda.reset_launches()
+    cli_launches, summary['cli'] = mvf_cli_phase(repo, card)
+    launches.update({f'cli_{k}': v for k, v in cli_launches.items()})
+    summary['phases_s'] = time.perf_counter() - t0
+    print(f'(m)-(M) wall {summary["phases_s"]:.1f} s [{card}]')
+    return results, launches, summary
+
+
 def union_us(intervals):
     """Length of the union of (start, end) intervals."""
     total, cur_start, cur_end = 0.0, None, None
@@ -3380,6 +3970,9 @@ def main() -> int:
     tiny_card_vs_cpu(card, TINY_HARD, hard=True)       # (c) hard
     tiny_train_card_vs_cpu(card, TINY_HARD, hard=True)
     tiny_bf16_card_vs_cpu(card, TINY_HARD16, TINY_HARD, hard=True)
+    tiny_card_vs_cpu(card, TINY_MVF, tag='TINY mvf')   # (c) mvf
+    tiny_train_card_vs_cpu(card, TINY_MVF, head=dict(TINY_HEAD, pos_cap=0),
+                           tag='TINY mvf dense')
     launches, e2e = main_path(det, batches, PREDICT_LAUNCHES, '(d)',
                               card)                    # (d)
     nms_counts(det, batches[-1])
@@ -3434,6 +4027,8 @@ def main() -> int:
     hard_k2, hard_k1, hard_launches, hard_e2e = hard_phases(batches, card)
     torch.cuda.empty_cache()
     cp_k, cp_launches, cp_e2e = centerpoint_phases(root, card)  # (n)-(N)
+    torch.cuda.empty_cache()
+    mvf_k, mvf_launches, mvf_e2e = mvf_phases(root, card)     # (m)-(M)
     torch.cuda.empty_cache()
     loop_k, loop_launches, loop_e2e = loop_phase(root, card)   # (L)
 
@@ -3508,6 +4103,11 @@ def main() -> int:
         entry['centerpoint'] = dict(cp_k.get(name, {}), launches={
             path: runs[name] for path, runs in cp_launches.items()
             if runs.get(name)})
+        # phases (m)-(M): launches per MVF path, numbers on its inputs by
+        # call (K2 by canvas, K1 by view)
+        entry['mvf'] = dict(mvf_k.get(name, {}), launches={
+            path: runs[name] for path, runs in mvf_launches.items()
+            if runs.get(name)})
         kernels.append(entry)
     print(f'(e) predict summary {json.dumps(e2e)} [{card}]')
     print(f'(e) bf16 predict summary {json.dumps(e2e16)} [{card}]')
@@ -3517,6 +4117,7 @@ def main() -> int:
         print(f'(e) hard {key} summary {json.dumps(summary)} [{card}]')
     print(f'(e) loop summary {json.dumps(loop_e2e)} [{card}]')
     print(f'(e) centerpoint summary {json.dumps(cp_e2e)} [{card}]')
+    print(f'(e) mvf summary {json.dumps(mvf_e2e)} [{card}]')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -2,9 +2,9 @@
 -> SECONDFPN -> head maps.
 
 Port of ``mmdet3d_gaussian_tpu/models/detectors/voxelnet.py::
-PointPillarsNet``, hard and dynamic branches.  The batch is flattened to
-one point axis with a batch-id coord column, so voxelization of the whole
-batch is one sort.
+PointPillarsNet``, its hard, dynamic and MVF branches.  The batch is
+flattened to one point axis with a batch-id coord column, so voxelization
+of the whole batch is one sort (one a view for MVF).
 
 * ``voxelize_mode='hard'`` (the default, the KITTI configs' mode): each
   pillar keeps its first ``max_points_per_voxel`` points, encoded by
@@ -19,6 +19,12 @@ batch is one sort.
   package: voxels compacted on the s2d key, splat by K7, read by the folded
   stage-0 conv) or the plain canvas (voxels compacted in canvas raster
   order, ``CANVAS_KEY_ORDER``, splat by K2).
+* ``voxelize_mode='mvf'``: the multi-view encoder
+  (:class:`~..mvf_encoder.PillarMVFFeatureNet`, its ``encoder_cfg``) on
+  view 0's pillars, always on the plain canvas (K2); ``hard_encoder`` and
+  ``s2d_canvas`` have no effect.  The JAX package builds this branch's
+  backbone, neck and head without a dtype, so an MVF trunk computes in f32
+  whatever ``compute_dtype`` says, and so does the port.
 
 ``compute_dtype='bfloat16'`` is the JAX package's mixed precision: the
 backbone, neck and head compute in bf16 on f32 parameters; the hard
@@ -40,6 +46,7 @@ from ...registry import MODELS
 from ..backbones import SECOND, SECONDFPN, compute_dtype as _compute_dtype
 from ..dense_heads.anchor3d_head import Anchor3DHeadConvs
 from ..dense_heads.centerpoint_head import CenterHeadConvs
+from ..mvf_encoder import PillarMVFFeatureNet
 from ..voxel_encoders import (DynamicPillarFeatureNet, PillarFeatureNet,
                               SortedPillarFeatureNet)
 
@@ -51,8 +58,9 @@ class PointPillarsNet(nn.Module):
     ``head_type='anchor'``, a list of per-task dicts for ``'center'``
     (:class:`CenterHeadConvs` on the concatenated neck output).
 
-    ``voxelize_mode``: ``'hard'`` (the default, as in the JAX package) or
-    ``'dynamic'``; ``'mvf'`` is not ported.  ``hard_encoder``
+    ``voxelize_mode``: ``'hard'`` (the default, as in the JAX package),
+    ``'dynamic'`` or ``'mvf'`` (f32 whatever ``compute_dtype`` says).
+    ``hard_encoder``
     (``'packed'``, the default, or ``'sorted'``) picks the hard branch's
     encoder.  ``s2d_canvas``: ``'auto'`` (on when the first stage has
     stride 2 and the grid is even), ``'on'`` or ``'off'``; it applies to
@@ -79,13 +87,9 @@ class PointPillarsNet(nn.Module):
                  hard_encoder: str = 'packed',
                  axis_name: Optional[str] = None):
         super().__init__()
-        if voxelize_mode == 'mvf':
-            raise NotImplementedError(
-                "voxelize_mode='mvf' is not ported yet (ROADMAP section 1, "
-                "item 4); 'hard' and 'dynamic' are")
-        if voxelize_mode not in ('hard', 'dynamic'):
-            raise ValueError(f'voxelize_mode must be hard or dynamic, got '
-                             f'{voxelize_mode!r}')
+        if voxelize_mode not in ('hard', 'dynamic', 'mvf'):
+            raise ValueError(f'voxelize_mode must be hard, dynamic or mvf, '
+                             f'got {voxelize_mode!r}')
         if hard_encoder not in ('packed', 'sorted'):
             raise ValueError(f'hard_encoder must be packed or sorted, got '
                              f'{hard_encoder!r}')
@@ -100,6 +104,8 @@ class PointPillarsNet(nn.Module):
             raise ValueError(f's2d_canvas must be auto, on or off, got '
                              f'{s2d_canvas!r}')
         dt = _compute_dtype(compute_dtype)
+        if voxelize_mode == 'mvf':
+            dt = None       # the JAX branch passes no dtype on
         self.compute_dtype = dt
         self.voxelize_mode = voxelize_mode
         self.hard_encoder = hard_encoder
@@ -107,7 +113,7 @@ class PointPillarsNet(nn.Module):
         self.point_cloud_range = tuple(point_cloud_range)
         self.max_points_per_voxel = max_points_per_voxel
         self.max_voxels_per_sample = max_voxels_per_sample
-        self.nx, self.ny = self.grid()
+        self.nx, self.ny = self._grid()
         nz = max(1, int(round((self.point_cloud_range[5]
                                - self.point_cloud_range[2])
                               / self.voxel_size[2])))
@@ -123,7 +129,13 @@ class PointPillarsNet(nn.Module):
         enc_cfg = dict(encoder_cfg or {})
         enc_cfg.setdefault('voxel_size', self.voxel_size)
         enc_cfg.setdefault('point_cloud_range', self.point_cloud_range)
-        if voxelize_mode == 'hard':
+        if voxelize_mode == 'mvf':
+            self.voxel_encoder = PillarMVFFeatureNet(**(encoder_cfg or {}))
+            # a max_voxels in the config wins, as in the JAX package
+            self.mvf_max_voxels = (encoder_cfg or {}).get('max_voxels')
+            # the canvas is view 0's
+            self.nx, self.ny = self.voxel_encoder.canvas_size()
+        elif voxelize_mode == 'hard':
             encoder = (SortedPillarFeatureNet if hard_encoder == 'sorted'
                        else PillarFeatureNet)
             self.voxel_encoder = encoder(dtype=dt, **enc_cfg)
@@ -142,6 +154,10 @@ class PointPillarsNet(nn.Module):
         self.bbox_head = head(dtype=dt, **(head_cfg or {}))
 
     def grid(self) -> Tuple[int, int]:
+        """(nx, ny) of the BEV canvas."""
+        return self.nx, self.ny
+
+    def _grid(self) -> Tuple[int, int]:
         pcr, vs = self.point_cloud_range, self.voxel_size
         nx = int(round((pcr[3] - pcr[0]) / vs[0]))
         ny = int(round((pcr[4] - pcr[1]) / vs[1]))
@@ -153,9 +169,13 @@ class PointPillarsNet(nn.Module):
         Coords are (b, ix, iy, iz) on the plain canvas and (b, iy // 2,
         ix // 2, (iy & 1) * 2 + (ix & 1)) on the s2d canvas, voxels
         compacted in that canvas's raster order.  The features are f32, or
-        bf16 from a hard encoder computing in bf16."""
+        bf16 from a hard encoder computing in bf16.  For MVF the Scatter is
+        view 0's and the points stay in their order."""
         b, n, cdim = points.shape
         max_voxels = self.max_voxels_per_sample * b
+        if self.voxelize_mode == 'mvf':
+            return self.voxel_encoder(points, points_mask,
+                                      self.mvf_max_voxels or max_voxels)
         flat = points.reshape(b * n, cdim)
         batch_idx = torch.arange(b, dtype=torch.int32,
                                  device=points.device).repeat_interleave(n)

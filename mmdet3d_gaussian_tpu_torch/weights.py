@@ -11,6 +11,13 @@ shape of ``params``) the same way, to one tensor per parameter name:
 * ``voxel_encoder/linear_{i}``, ``norm_{i}`` (dynamic) and
   ``voxel_encoder/pfn_{i}/linear``, ``pfn_{i}/norm`` (hard, both forms) ->
   ``voxel_encoder.pfn_layers.{i}.linear`` / ``.norm``;
+* the MVF encoder: ``voxel_encoder/pointnet{k}_fc``, ``pointnet{k}_bn``
+  -> ``voxel_encoder.pointnet{k}.linear`` / ``.norm``, and each view's
+  ``voxel_encoder/view_{name}/`` tower -> ``voxel_encoder.views.{name}.``:
+  ``pointnet``, ``pointnet_bn`` -> ``pointnet.linear`` / ``.norm``,
+  ``res{r}/{conv1,conv2,down_conv}``, ``res{r}/{bn1,bn2,down_bn}`` -> the
+  same names, ``deconv2``, ``deconv3`` (transposed convs, flipped) and
+  ``fuse_conv`` (with its bias);
 * ``backbone/stage{s}_down``, ``stage{s}_block{j}`` ->
   ``backbone.blocks.{s}.{0 | 3 (j + 1)}`` (conv) and ``+1`` (BN);
 * ``neck/deblock{i}_conv``, ``deblock{i}_bn`` -> ``neck.deblocks.{i}.0`` /
@@ -146,6 +153,7 @@ def _convert(params, stats, upsample_strides=None
     sd: Dict[str, torch.Tensor] = {}
 
     enc = params.get('voxel_encoder', {})
+    _mvf_encoder(sd, enc, sub_stats)
     for name, sub in enc.items():
         m = re.fullmatch(r'(linear|pfn)_(\d+)', name)
         if not m:           # norm_{i}: read with linear_{i}
@@ -208,6 +216,46 @@ def _convert(params, stats, upsample_strides=None
     if left:
         raise KeyError(f'JAX leaves with no counterpart in the port: {left}')
     return sd
+
+
+def _linear_bn(sd, prefix, lin, norm, norm_stats) -> None:
+    """A flax Dense kernel and its MaskedBatchNorm -> ``{prefix}.linear``
+    and ``{prefix}.norm``."""
+    sd[f'{prefix}.linear.weight'] = _t(np.asarray(lin['kernel']).T)
+    _bn(sd, f'{prefix}.norm', norm, norm_stats, tracked=False)
+
+
+def _mvf_encoder(sd, enc, sub_stats) -> None:
+    """The MVF encoder's leaves (``PillarMVFFeatureNet``) into ``sd``."""
+    pre = 'voxel_encoder'
+    for name in enc.keys():
+        m = re.fullmatch(r'(pointnet\d+)_fc', name)
+        if m:
+            k = m.group(1)
+            _linear_bn(sd, f'{pre}.{k}', enc[name], enc[f'{k}_bn'],
+                       sub_stats(pre, f'{k}_bn'))
+            continue
+        m = re.fullmatch(r'view_(\w+)', name)
+        if not m:
+            continue
+        tree, vp = enc[name], f'{pre}.views.{m.group(1)}'
+        _linear_bn(sd, f'{vp}.pointnet', tree['pointnet'],
+                   tree['pointnet_bn'], sub_stats(pre, name, 'pointnet_bn'))
+        for res in ('res1', 'res2', 'res3'):
+            for conv, bn in (('conv1', 'bn1'), ('conv2', 'bn2'),
+                             ('down_conv', 'down_bn')):
+                if conv not in tree[res]:
+                    continue
+                sd[f'{vp}.{res}.{conv}.weight'] = _conv(
+                    tree[res][conv]['kernel'])
+                _bn(sd, f'{vp}.{res}.{bn}', tree[res][bn],
+                    sub_stats(pre, name, res, bn), tracked=True)
+        for deconv in ('deconv2', 'deconv3'):
+            k = np.asarray(tree[deconv]['kernel'])   # (s, s, cin, cout)
+            sd[f'{vp}.{deconv}.weight'] = _t(
+                np.transpose(k[::-1, ::-1], (2, 3, 0, 1)))
+        sd[f'{vp}.fuse_conv.weight'] = _conv(tree['fuse_conv']['kernel'])
+        sd[f'{vp}.fuse_conv.bias'] = _t(tree['fuse_conv']['bias'])
 
 
 def _center_head(sd, head, sub_stats) -> None:

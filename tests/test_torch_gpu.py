@@ -1029,3 +1029,78 @@ def test_circle_nms_kernel(cuda, min_radius):
     assert _cuda.LAUNCHES['nms_sweep'] == before + 1
     assert torch.equal(got.cpu(), want)
     assert 0 < int(want.sum()) < int(valid.sum())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_bev_splat_more_rows_than_cells(cuda, dtype):
+    """K2 on the MVF cylindrical view's shape: 64,000 rows (the model's
+    capacity, not the view's) onto 4 x 32 x 411 = 52,608 cells, an odd
+    width; 20,000 live rows on sorted unique cells, the rest trash (lin ==
+    ncell): equal to its plain version, one launch."""
+    rng = np.random.RandomState(3)
+    ncell, v, nval = 4 * 32 * 411, 64000, 20000
+    lin = np.full(v, ncell, np.int32)
+    lin[:nval] = np.sort(rng.choice(ncell, nval, replace=False))
+    feats = torch.from_numpy(rng.randn(v, 64).astype(np.float32)).to(dtype)
+    lin = torch.from_numpy(lin)
+    want = voxelize.bev_splat_plain(feats, lin, ncell)
+    before = _cuda.LAUNCHES['bev_splat']
+    got = voxelize.bev_splat(feats.to(cuda), lin.to(cuda), ncell)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['bev_splat'] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+# tests/test_torch_mvf.py's TINY MVF model (a 64 x 48 BEV canvas, a 39 x 11
+# cylindrical one), written out: this file imports no JAX
+TINY_MVF_PCR = (0., -9.6, -3., 25.6, 9.6, 1.)
+TINY_MVF = dict(
+    voxel_size=(0.4, 0.4, 4.0), point_cloud_range=TINY_MVF_PCR,
+    max_voxels_per_sample=1024, voxelize_mode='mvf',
+    encoder_cfg=dict(in_channels=4, feat_channels=16,
+                     views=('cartesian', 'cylindrical'),
+                     voxel_size=((0.4, 0.4, 4.0), (0.04, 0.4, 40.0)),
+                     point_cloud_range=(TINY_MVF_PCR,
+                                        (-0.78, -3.0, 0.0, 0.78, 1.4,
+                                         40.0))),
+    backbone_cfg=dict(in_channels=16, out_channels=(16, 32, 64),
+                      layer_nums=(1, 1, 1), layer_strides=(2, 2, 2)),
+    neck_cfg=dict(in_channels=(16, 32, 64), out_channels=(16, 16, 16),
+                  upsample_strides=(1, 2, 4)),
+    head_cfg=dict(num_classes=3, num_anchors=6, feat_channels=48))
+
+
+def test_tiny_mvf_predict_card_vs_cpu(cuda):
+    """The TINY MVF predict on the card against the port on the CPU (the
+    same weights): head maps within 1e-4 of their largest value, the keep
+    masks and labels equal, boxes within 1e-4 of their scale; K1 reduce 3
+    and mapback 4, K2 3 launches a predict."""
+    head = dict(test_cfg=dict(use_rotate_nms=True, nms_thr=0.01,
+                              score_thr=0.05, nms_pre=128, max_num=32))
+    dets = {}
+    for dev in ('cpu', cuda):
+        det = detector.PointPillarsDetector(TINY_MVF, head, device=dev,
+                                            seed=4)
+        with torch.no_grad():
+            det.trunk.bbox_head.conv_cls.bias.fill_(-2.0)
+        dets[str(dev)] = det
+    batch = detector.synthetic_batch(2, 1024, 8, seed=1,
+                                     pc_range=TINY_MVF_PCR, device='cpu')
+    want_maps = dets['cpu'].apply_eval(batch)[:3]
+    want = dets['cpu'].predict(batch)
+    _cuda.reset_launches()
+    gbatch = {k: v.to(cuda) for k, v in batch.items()}
+    got = dets['cuda'].predict(gbatch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    assert launches == {'segment_reduce': 3, 'segment_reduce_mapback': 4,
+                        'bev_splat': 3, 'rotated_iou': 1, 'nms_sweep': 1}
+    for g, w in zip(dets['cuda'].apply_eval(gbatch)[:3], want_maps):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+    boxes, scores, labels, valid = (t.cpu() for t in got)
+    assert torch.equal(valid, want[3]) and torch.equal(labels, want[2])
+    assert bool(valid.any())
+    scale = max(float(want[0][valid].abs().max()), 1.0)
+    assert float((boxes[valid] - want[0][valid]).abs().max()) <= 1e-4 * scale

@@ -231,11 +231,12 @@ def test_converter_raises_on_unknown_leaf(jax_run, where):
 
 
 def test_unported_modes_raise():
-    """'mvf' voxelize is not ported, float16 compute is not supported; an
-    unknown voxelize mode is a config error."""
-    with pytest.raises(NotImplementedError, match='mvf'):
-        tdet.PointPillarsDetector(dict(TINY_MODEL, voxelize_mode='mvf'),
-                                  TINY_HEAD, device='cpu')
+    """float16 compute is not supported; an unknown voxelize mode is a
+    config error ('mvf' builds since its port: the multi-view encoder)."""
+    det = tdet.PointPillarsDetector(
+        dict(TINY_MODEL, voxelize_mode='mvf',
+             encoder_cfg=dict(feat_channels=16)), TINY_HEAD, device='cpu')
+    assert type(det.trunk.voxel_encoder).__name__ == 'PillarMVFFeatureNet'
     with pytest.raises(ValueError):
         tdet.PointPillarsDetector(dict(TINY_MODEL, compute_dtype='float16'),
                                   TINY_HEAD, device='cpu')
