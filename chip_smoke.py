@@ -50,7 +50,11 @@ Phases, each printing its own lines (any failure exits non-zero):
       (``voxelize_mode='hard'``) on ``crowded_batch``, where pillars
       overflow ``max_points`` and live pillars overflow ``max_voxels``;
       then the TINY MVF model (odd view canvases): a predict and a dense
-      train step;
+      train step; then the TINY PV-RCNN (``tests/test_pvrcnn.py``'s
+      widths): voxel coords, every sparse level's sites and overflow, the
+      FPS indices and the raw-point and level-0 ball queries equal, a
+      predict, and a train step on a batch with RPN and RoI positives
+      (loss terms, gradients, running statistics);
   (d) the f32 predict path: PointPillars KITTI 3-class at full width
       (dynamic voxelize on the plain canvas, ``s2d_canvas='off'``, batch
       4 x 16384 points, random weights from a seed with a zero cls bias so
@@ -166,13 +170,42 @@ Phases, each printing its own lines (any failure exits non-zero):
       steps at the config's batch and ``tools.test`` under both KITTI
       metrics, launches per CLI run, the step wall and the wait on the
       queue;
+  (p) PV-RCNN on KITTI, the ``hv_pvrcnn_secfpn_4x4_80e_kitti-3d-3class``
+      config's model at full width (``KITTI_PVRCNN``: sparse shape 41 x
+      1,600 x 1,408, 2,048 keypoints, 128 proposals, grid 6), random
+      weights from a seed, ``synthetic_batch`` B = 4 x 16,384 over its
+      range: the live voxels and each sparse level's live sites per sample
+      with the cumulative overflow (the capacity truncates batch-major);
+      the voxel coords, every level's sites, the FPS indices and the
+      ball queries of the raw-point and level-0 SA held exactly to the
+      port on the CPU on the same batch; K1 (the voxel mean's sums), K5 at
+      4 x 512 and 4 x 128 and K6 after each on one predict's inputs held to
+      their plain versions and timed beside their bounds; 6 requests with
+      launch counts (K1 1, K5 2, K6 2, nothing else); a profile, and the
+      device ms of the sparse encoder, FPS, the SA ball queries and
+      RoI-grid pooling run alone with their shares of the predict;
+  (pt) its train step on one repeated batch with 4-8 GT boxes a sample
+      (the first two made RPN and RoI positives): K4 on the 14 + 14
+      BatchNorms, K1, K5 and K6 held to their plain versions; 3 warm-up and
+      10 timed steps (every loss term finite, the sum of the RPN and
+      semantic terms, whose targets stay put, going down; the sparse
+      overflow metric, launches, step time, peak memory) and a 3-step
+      profile;
+  (P) the PV-RCNN config through the CLIs on a KITTI-format tree (12 + 8
+      frames, data paths moved): a first step from the config's random
+      init on each augmented batch of two passes (every term and weight
+      finite; the batches where the JAX package's corner loss would be
+      NaN counted); ``tools.train`` 3 steps at the config's
+      B = 4 and learning rate (every loss term finite), ``tools.test
+      --metric kitti`` on its checkpoint (every AP finite in [0, 100]),
+      launches per CLI run, the step wall and the wait on the queue;
   (e) one JSON line listing the kernels (with their launches on the hard
       paths and K2's and K1's numbers there, under ``loop`` the launches
       of each CLI run and the numbers on the loop's inputs, under
       ``centerpoint`` the launches of each CenterPoint path and the
-      numbers on its inputs, and under ``mvf`` those of the MVF paths,
-      by call), the card's name and power limit from nvidia-smi, and the
-      result line.
+      numbers on its inputs, under ``mvf`` those of the MVF paths, by
+      call, and under ``pvrcnn`` those of the PV-RCNN paths), the card's
+      name and power limit from nvidia-smi, and the result line.
 
 f32 runs with TF32 off for matmuls and cuDNN convolutions; the bf16 paths
 compute in bf16 on f32 parameters, as the JAX package's mixed precision.
@@ -1691,12 +1724,13 @@ def tiny_train_card_vs_cpu(card, cfg=TINY_F32, hard=False, head=TINY_HEAD,
           f'a {tag} weight moved more than one Adam step')
 
 
-def timed_steps(det, batch, state, per_step, tag, card, points=POINTS):
+def timed_steps(det, batch, state, per_step, tag, card, points=POINTS,
+                falling=('loss',)):
     """WARM_STEPS then TIMED_STEPS train steps on one repeated batch of
     ``points`` points a sample; the launch counts are zeroed before the
     timed steps and every kernel of ``per_step`` must run that often per
-    step; the loss must be finite and go down.  -> (launches, state,
-    summary)."""
+    step; every loss term must be finite and the sum of the ``falling``
+    terms must go down.  -> (launches, state, summary)."""
     from mmdet3d_gaussian_tpu_torch.ops import _cuda
     rows, times = [], []
     for i in range(WARM_STEPS + TIMED_STEPS):
@@ -1716,8 +1750,10 @@ def timed_steps(det, batch, state, per_step, tag, card, points=POINTS):
     for i, r in enumerate(rows):
         print(f'{tag} step {i} {json.dumps(r)}')
         check(all(map(math.isfinite, r.values())), 'non-finite loss')
-    check(rows[-1]['loss'] < rows[0]['loss'],
-          'the loss on a repeated batch did not go down')
+    first, last = (sum(r[k] for k in falling) for r in (rows[0], rows[-1]))
+    print(f'{tag} {" + ".join(falling)}: {first:.4f} -> {last:.4f}')
+    check(last < first, f'{" + ".join(falling)} on a repeated batch did '
+          f'not go down')
     print(f'{tag} main path: {TIMED_STEPS} timed train steps, launches '
           f'{launches}')
     for name, per in per_step.items():
@@ -2270,8 +2306,9 @@ def kitti_scene(rng):
     return pts[rng.permutation(len(pts))], boxes, np.asarray(labels)
 
 
-def write_kitti_tree(root, seed=0):
-    """A KITTI-format tree under ``root``: ``training/velodyne_reduced``,
+def write_kitti_tree(root, seed=0, n_train=L_TRAIN, n_val=L_VAL):
+    """A KITTI-format tree under ``root`` (``n_train`` and ``n_val``
+    frames): ``training/velodyne_reduced``,
     ``kitti_infos_{train,val}.pkl`` (camera-frame annotations through
     ``L_CALIB``, as KITTI's converter writes them) and a GT database of the
     train frames in the format of
@@ -2287,8 +2324,8 @@ def write_kitti_tree(root, seed=0):
     os.makedirs(os.path.join(root, 'training', 'velodyne_reduced'))
     os.makedirs(os.path.join(root, 'kitti_gt_database'))
     infos, db = {'train': [], 'val': []}, {}
-    for i in range(L_TRAIN + L_VAL):
-        split = 'train' if i < L_TRAIN else 'val'
+    for i in range(n_train + n_val):
+        split = 'train' if i < n_train else 'val'
         pts, boxes, labels = kitti_scene(rng)
         pts.tofile(os.path.join(root, 'training', 'velodyne_reduced',
                                 f'{i:06d}.bin'))
@@ -3834,6 +3871,518 @@ def mvf_phases(repo, card):
     return results, launches, summary
 
 
+PV_CONFIG = 'configs/kitti/hv_pvrcnn_secfpn_4x4_80e_kitti-3d-3class.py'
+# the range PV-RCNN's synthetic batches cover (KITTI_PVRCNN's)
+PV_PCR = (0., -40., -3., 70.4, 40., 1.)
+# a predict: K1's voxel mean, K5 and K6 on the RPN's B x 512 class-agnostic
+# candidates and on the B x 128 refined RoIs; no other kernel
+PV_PREDICT_LAUNCHES = {name: 0 for name in KERNELS}
+PV_PREDICT_LAUNCHES.update(segment_reduce=1, rotated_iou=2, nms_sweep=2)
+# a step: K4 on SECOND's 12 and the neck's 2 BatchNorms (the sparse
+# encoder's, the VSA's and the RoI stage's are masked BatchNorms, plain as
+# in JAX), K1, and the proposals' K5 and K6
+PV_STEP_LAUNCHES = {name: 0 for name in KERNELS}
+PV_STEP_LAUNCHES.update(bn_moments=14, bn_grad_moments=14, segment_reduce=1,
+                        rotated_iou=1, nms_sweep=1)
+# (pt)'s loss terms whose targets stay put on a repeated batch: the RPN's
+# (anchors against the boxes) and the semantic one (FPS keypoints in the
+# boxes).  The RoI terms are over the samples of this step's proposals,
+# which move with the weights: the box and corner terms are 0 on a step
+# that samples no positive and spike on one that does, so the total
+# rises from one step to another while these fall
+PV_FIXED_TARGET_TERMS = ('rpn.loss_cls', 'rpn.loss_bbox', 'rpn.loss_dir',
+                         'loss_semantic')
+# phase (P): KITTI-format frames of the CLI run, and its train steps
+PV_TRAIN_FRAMES, PV_VAL_FRAMES, PV_CLI_STEPS = 12, 8, 3
+# (P)'s passes over the augmented train frames, a first step from the
+# config's random init on each batch
+PV_FIRST_EPOCHS = 2
+# Card against CPU, the TINY PV-RCNN step's gradients, of each parameter's
+# largest: the port's f32 gradient there is up to 8.7e-5 off a float64 run
+# on the CPU (tests/test_torch_pvrcnn.py), so two f32 runs summing in other
+# orders are held to 3e-4 of each other
+PV_GRAD_TOL = 3e-4
+# the TINY PV-RCNN of tests/test_pvrcnn.py (that file imports JAX)
+TINY_PVRCNN = dict(
+    voxel_size=(0.4, 0.4, 0.1667),
+    point_cloud_range=(0., -6.4, -2., 12.8, 6.4, 2.),
+    max_voxels=512, sparse_shape=(24, 32, 32), base_channels=8,
+    encoder_channels=((8,), (16, 16), (16, 16), (16, 16)),
+    encoder_out_channels=16,
+    backbone=dict(in_channels=16, out_channels=(16, 32),
+                  layer_nums=(1, 1), layer_strides=(1, 2)),
+    neck=dict(in_channels=(16, 32), out_channels=(16, 16),
+              upsample_strides=(1, 2)),
+    num_keypoints=32, vsa_out_channels=32,
+    voxel_sa_configs=[
+        dict(scale_factor=1, in_channels=8, pool_radius=(0.8,),
+             samples=(8,), mlps=((8, 8),)),
+        dict(scale_factor=2, in_channels=16, pool_radius=(1.6,),
+             samples=(8,), mlps=((8, 8),))],
+    rawpoint_sa_config=dict(in_channels=1, pool_radius=(0.8,),
+                            samples=(8,), mlps=((8, 8),)),
+    bev_sa=True, num_proposals=16, grid_size=3, roi_pool_radius=(0.8,),
+    roi_samples_per_radius=(8,), roi_mlps=((16, 16),))
+TINY_PV_RPN = dict(
+    anchor_generator=dict(ranges=[[0.2, -6.2, -1.0, 12.6, 6.2, -1.0]] * 3,
+                          sizes=[[0.8, 0.6, 1.7], [1.8, 0.6, 1.7],
+                                 [3.9, 1.6, 1.6]],
+                          rotations=[0.0, 1.57]),
+    test_cfg=dict(use_rotate_nms=True, nms_thr=0.8, score_thr=0.0,
+                  nms_pre=64, max_num=16))
+
+
+def pv_integers(det, batch):
+    """Voxel coords, every level's sites and overflow, the FPS indices and
+    the ball queries of the raw-point SA and of level 0's SA (every
+    radius) of ``det`` on ``batch``.  -> {name: CPU tensor}."""
+    from mmdet3d_gaussian_tpu_torch.ops import vsa
+    out = {}
+    b = batch['points'].shape[0]
+    with torch.inference_mode():
+        det.trunk.eval()
+        feats, coords = det.voxelize(batch)
+        out['voxel coords'] = coords
+        levels = det.trunk.first.middle_encoder(feats, coords, b)[0]
+        for i, lv in enumerate(levels):
+            out[f'level {i} coords'] = lv.coords
+            out[f'level {i} overflow'] = lv.overflow
+        enc = det.trunk.second.keypoints_encoder
+        idx, kp = enc.keypoints(batch['points'], batch['points_mask'])
+        out['fps'] = idx
+        raw = det.cfg['rawpoint_sa_config']
+        for r, k in zip(raw['pool_radius'], raw['samples']):
+            out[f'raw ball query r={r}'] = vsa.ball_query(
+                r, k, batch['points'][..., :3], kp, batch['points_mask'])
+        l0, cfg = levels[0], det.cfg['voxel_sa_configs'][0]
+        mask = l0.valid[None] & (l0.coords[None, :, 0] == torch.arange(
+            b, device=l0.coords.device)[:, None])
+        centers = enc.voxel_centers(l0.coords[:, 1:4], cfg['scale_factor'])
+        for r, k in zip(cfg['pool_radius'], cfg['samples']):
+            out[f'level 0 ball query r={r}'] = enc.voxel_sa_0.group(
+                r, k, centers, l0.feats, kp, mask)[1]
+    return {k: v.cpu() for k, v in out.items()}, levels
+
+
+def pv_card_vs_cpu_integers(got, want, tag):
+    """Fail on any integer output of :func:`pv_integers` that differs,
+    printing how many entries and the first places."""
+    for name, w in want.items():
+        g = got[name]
+        same = g.shape == w.shape and torch.equal(g, w)
+        if not same:
+            bad = (g != w).nonzero() if g.shape == w.shape else None
+            print(f'{tag} {name}: card and CPU differ at '
+                  f'{None if bad is None else len(bad)} entries, first '
+                  f'{None if bad is None else bad[:5].tolist()}')
+        check(same, f'{tag} {name} differs between the card and the CPU')
+    print(f'{tag} card vs CPU equal: {", ".join(want)}')
+
+
+def tiny_pvrcnn_card_vs_cpu(card):
+    """Phase (c), PV-RCNN: the TINY model (seed 2) on the card and on the
+    CPU: the integer outputs equal, the predict's keep and labels equal,
+    its boxes within 1e-4 of their scale and scores within 1e-5; then one
+    train step on a batch with positives (made on the CPU): loss terms
+    within 1e-4 relative, gradients within PV_GRAD_TOL of each
+    parameter's largest, the running statistics within 1e-5."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import synthetic_batch
+    from mmdet3d_gaussian_tpu_torch.engine.pvrcnn import (PVRCNNDetector,
+                                                          positive_batch)
+    batch = synthetic_batch(2, 1024, 4, seed=3,
+                            pc_range=TINY_PVRCNN['point_cloud_range'],
+                            device='cpu')
+    ints, preds, steps = {}, {}, {}
+    dets = {dev: PVRCNNDetector(TINY_PVRCNN, TINY_PV_RPN, device=dev, seed=2)
+            for dev in ('cuda', 'cpu')}
+    tbatch = positive_batch(dets['cpu'], batch)
+    for dev, det in dets.items():
+        b = {k: v.to(dev) for k, v in batch.items()}
+        ints[dev] = pv_integers(det, b)[0]
+        preds[dev] = [t.cpu() for t in det.predict(b)]
+        b = {k: v.to(dev) for k, v in tbatch.items()}
+        total, losses = det.loss(det.apply_train(b), b)
+        params = dict(det.trunk.named_parameters())
+        grads = torch.autograd.grad(total, list(params.values()))
+        steps[dev] = ({k: float(v.detach()) for k, v in losses.items()},
+                      {k: g.cpu() for k, g in zip(params, grads)},
+                      {k: v.cpu() for k, v in det.trunk.state_dict().items()
+                       if 'running' in k})
+    pv_card_vs_cpu_integers(ints['cuda'], ints['cpu'], '(c) TINY pvrcnn')
+    (gb, gs, gl, gv), (cb, cs, cl, cv) = preds['cuda'], preds['cpu']
+    box_err = float((gb - cb).abs().max())
+    scale = max(float(cb.abs().max()), 1.0)
+    score_err = float((gs - cs).abs().max())
+    print(f'(c) TINY pvrcnn predict card vs CPU: valid_equal '
+          f'{torch.equal(gv, cv)} labels_equal {torch.equal(gl, cl)} '
+          f'({int(cv.sum())} kept); boxes max_abs_err {box_err:.3g} (tol '
+          f'{1e-4 * scale:.3g}), scores {score_err:.3g} (tol 1e-5) [{card}]')
+    check(torch.equal(gv, cv) and torch.equal(gl, cl) and bool(cv.any()),
+          'TINY pvrcnn detections differ')
+    check(box_err <= 1e-4 * scale and score_err <= 1e-5,
+          'TINY pvrcnn boxes or scores differ')
+    (lg, gg, sg), (lc, gc, sc) = steps['cuda'], steps['cpu']
+    check(all(v > 0 for k, v in lc.items()), f'a TINY pvrcnn loss is 0: {lc}')
+    loss_rel = max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc)
+    grad_rel = max(float((gg[k] - gc[k]).abs().max() / gc[k].abs().max())
+                   for k in gc)
+    stat_err = max(float((sg[k] - sc[k]).abs().max()) for k in sc)
+    print(f'(c) TINY pvrcnn train step card vs CPU: loss terms {lg} vs '
+          f'{lc}, largest relative error {loss_rel:.3g} (tol 1e-4); '
+          f'gradients max error / max |grad| per parameter {grad_rel:.3g} '
+          f'(tol {PV_GRAD_TOL:g}); running statistics max_abs_err '
+          f'{stat_err:.3g} (tol 1e-5) [{card}]')
+    check(loss_rel <= 1e-4, 'TINY pvrcnn train losses differ')
+    check(grad_rel <= PV_GRAD_TOL, 'TINY pvrcnn gradients differ')
+    check(stat_err <= 1e-5, 'TINY pvrcnn running statistics differ')
+
+
+def pv_level_counts(scatter, levels, b, tag):
+    """Print the live voxels (kept, truncated) and each level's live sites
+    per sample with the cumulative overflow.  -> summary."""
+    per = []
+    for lv in levels:
+        ids = lv.coords[lv.valid, 0].long()
+        per.append(torch.bincount(ids, minlength=b).tolist())
+    over = [int(lv.overflow) for lv in levels]
+    print(f'{tag} voxels {int(scatter.num_voxels)} kept of capacity '
+          f'{scatter.max_voxels}, {int(scatter.num_overflow)} truncated; '
+          f'live sites per sample by level {per}; cumulative sparse '
+          f'overflow by level {over} (batch-major truncation: the last '
+          f'samples lose their sites first)')
+    return dict(voxels=int(scatter.num_voxels),
+                voxels_truncated=int(scatter.num_overflow),
+                sites_per_sample=per, overflow=over)
+
+
+def pv_kernel_checks(calls, card, note):
+    """K1, K5 and K6 on one PV-RCNN predict's or step's inputs (``calls``:
+    the recorded arguments), each held to its plain version at phase (b)'s
+    tolerance and timed beside its bound and yardstick.  -> {kernel: {call:
+    numbers}}."""
+    from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, segment
+    out = {}
+
+    def record(name, call, *args, **kw):
+        results = {}
+        report(results, name, card, *args, **kw)
+        out.setdefault(name, {})[call] = results[name]
+
+    for data, starts, counts, op in calls['segment_reduce']:
+        got = segment.segment_reduce(data, starts, counts, op)
+        err = float((got - segment.segment_reduce_plain(
+            data, starts, counts, op)).abs().max())
+        n_live = int(torch.count_nonzero(counts))
+        rows, lengths = int(counts.sum()), counts[:n_live].long()
+        check(bool((counts[n_live:] == 0).all()), 'live voxels not first')
+        print(f'(p) segment_reduce{note}: {data.shape[0]} rows x '
+              f'{data.shape[1]} into {n_live} live of {counts.shape[0]} '
+              f'voxels ({rows} rows in them)')
+        record('segment_reduce', 'voxel mean', err, '1e-5', err <= 1e-5,
+               lambda a=(data, starts, counts, op): segment.segment_reduce(
+                   *a),
+               lambda a=(data, starts, counts, op):
+               segment.segment_reduce_plain(*a),
+               lambda d=data[:rows], ln=lengths, o=op: torch.segment_reduce(
+                   d, o, lengths=ln, unsafe=True), 100, 3,
+               *k1_work('reduce', data, None, starts, counts),
+               f' (pvrcnn{note}, HardSimpleVFE sums)')
+    for (boxes,), (iou, valid, thr) in zip(calls['rotated_iou'],
+                                          calls['nms_sweep']):
+        p, k = boxes.shape[:2]
+        call = f'{p}x{k}'
+        got = rotated_iou.iou_bev_pairwise(boxes)
+        ref = rotated_iou.iou_bev_pairwise_plain(boxes)
+        n_near = k5_cull(boxes, got, ref, card, f'pvrcnn{note} {call}')
+        err = float((got - ref).abs().max())
+        record('rotated_iou', call, err, '1e-5', err <= 1e-5,
+               lambda b=boxes: rotated_iou.iou_bev_pairwise(b),
+               lambda b=boxes: rotated_iou.iou_bev_pairwise_plain(b), None,
+               20, 2, *k5_work(boxes, n_near), f' (pvrcnn{note} {call})')
+        keep = nms.suppress_sweep(iou, valid, thr)
+        want = nms.suppress_sweep_plain(iou, valid, thr)
+        print(f'(p) nms_sweep{note} {call}, thr {thr}: kept '
+              f'{int(want.sum())} of {int(valid.sum())} valid')
+        record('nms_sweep', call, float((keep.int() - want.int()).abs()
+                                        .max()), '0, equal',
+               bool(torch.equal(keep, want)),
+               lambda a=(iou, valid, thr): nms.suppress_sweep(*a),
+               lambda a=(iou, valid, thr): nms.suppress_sweep_plain(*a),
+               None, 50, 2, *k6_work(valid, want),
+               f' (pvrcnn{note} {call}, thr {thr})')
+    return out
+
+
+def pv_part_shares(det, batch, busy_ms, card):
+    """Device ms of a predict's sparse encoder, FPS, set-abstraction ball
+    queries (the raw points' and the levels') and RoI-grid pooling, each
+    run alone on the inputs the predict handed it, and their shares of the
+    predict's device-busy time."""
+    from mmdet3d_gaussian_tpu_torch.ops import vsa
+    seen, hooks = {}, []
+    second = det.trunk.second
+    for name, mod in (('encoder', det.trunk.first.middle_encoder),
+                      ('roi grid pool', second.roi_extractor)):
+        hooks.append(mod.register_forward_pre_hook(
+            lambda m, args, name=name: seen.__setitem__(name, args)))
+    queries = record_calls(lambda: det.predict(batch),
+                           [(vsa, 'ball_query', 'ball_query')])['ball_query']
+    for h in hooks:
+        h.remove()
+    roi_m = det.cfg['num_proposals'] * det.cfg['grid_size'] ** 3
+    sa = [a for a in queries if a[3].shape[1] != roi_m]
+    enc = second.keypoints_encoder
+    with torch.inference_mode():
+        ms = dict(
+            encoder=device_ms(lambda: det.trunk.first.middle_encoder(
+                *seen['encoder']), 3),
+            fps=device_ms(lambda: enc.keypoints(batch['points'],
+                                                batch['points_mask']), 1,
+                          warmup=1),
+            sa_ball_queries=device_ms(
+                lambda: [vsa.ball_query(*a) for a in sa], 3),
+            roi_grid_pool=device_ms(lambda: second.roi_extractor(
+                *seen['roi grid pool']), 3))
+    shares = {k: v / busy_ms for k, v in ms.items()} if busy_ms else {}
+    print(f'(p) device ms of a predict\'s parts run alone: '
+          f'{ {k: round(v, 3) for k, v in ms.items()} } ({len(sa)} SA ball '
+          f'queries); shares of its device busy time '
+          f'{ {k: round(v, 3) for k, v in shares.items()} } [{card}]')
+    return dict(part_ms=ms, part_shares=shares)
+
+
+def pv_capture_step(det, batch, state):
+    """One train step recording the arguments of K4, K1, K5 and K6; each
+    must be called as PV_STEP_LAUNCHES says.  -> (calls, state)."""
+    from mmdet3d_gaussian_tpu_torch.ops import bn, nms, scatter
+    patches = [(bn, 'moments', 'bn_moments'),
+               (bn, 'grad_moments', 'bn_grad_moments'),
+               (scatter, 'segment_reduce', 'segment_reduce'),
+               (nms, 'iou_bev_pairwise', 'rotated_iou'),
+               (nms, 'suppress_sweep', 'nms_sweep')]
+    out = []
+    seen = record_calls(lambda: out.append(det.train_step(batch, state)[0]),
+                        patches)
+    got = {k: len(v) for k, v in seen.items()}
+    want = {k: n for k, n in PV_STEP_LAUNCHES.items() if n}
+    check(got == want, f'(pt) train step called {got}, want {want}')
+    return seen, out[0]
+
+
+def pv_train_batch(det, seed=0):
+    """(pt)'s repeated batch: ``synthetic_batch`` B x 16,384 over PV-RCNN's
+    range with 4-8 GT boxes a sample of the 3 classes, the first two made
+    positives by ``engine.pvrcnn.positive_batch``."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import synthetic_batch
+    from mmdet3d_gaussian_tpu_torch.engine.pvrcnn import positive_batch
+    batch = synthetic_batch(BATCH, POINTS, 8, seed=seed, pc_range=PV_PCR,
+                            device=det.device)
+    n_gt = torch.tensor([4, 6, 8, 5] * BATCH, device=det.device)[:BATCH]
+    batch['gt_valid'] = (torch.arange(8, device=det.device)[None]
+                         < n_gt[:, None])
+    return positive_batch(det, batch)
+
+
+def pv_first_steps(cfg, card, epochs=PV_FIRST_EPOCHS):
+    """(P): a train step from the config's random init (seed 0, the CLI's)
+    on every batch of ``epochs`` passes over its augmented train frames;
+    every loss term, the gradient norm and every weight after it must be
+    finite.  Prints the RPN's largest box delta, the longest proposal, and
+    the batches with a sampled negative whose decode is not finite: there
+    the JAX package's corner loss, every RoI's weighted by 0, is NaN
+    (ROADMAP section 3).  -> summary."""
+    from mmdet3d_gaussian_tpu_torch.engine.loop import (build_dataloader,
+                                                         to_device)
+    from mmdet3d_gaussian_tpu_torch.models.roi_heads import decode_roi_boxes
+    from mmdet3d_gaussian_tpu_torch.tools.common import build_detector
+    t0 = time.perf_counter()
+    det = build_detector(cfg, 'cuda', seed=0)
+    init = {k: v.clone() for k, v in det.trunk.state_dict().items()}
+    _, make_iter = build_dataloader(cfg, 'train')
+    n, overflowed, delta, longest = 0, 0, 0.0, 0.0
+    for epoch in range(epochs):
+        for host in make_iter(epoch):
+            batch = to_device(host, det.device)
+            det.trunk.load_state_dict(init)
+            with torch.no_grad():
+                rpn, out2, samples = det.apply_train(batch)
+                dec = decode_roi_boxes(samples.rois, out2['roi_reg'],
+                                       det.roi_coder)
+            bad = ~torch.isfinite(dec).all(-1) & samples.valid
+            overflowed += bool(bad.any())
+            delta = max(delta, float(rpn[1].abs().max()))
+            longest = max(longest, float(samples.rois[..., 3:6].max()))
+            det.trunk.load_state_dict(init)
+            state = det.init_train(cfg.optimizer['lr'], total_steps=100)
+            _, metrics = det.train_step(batch, state)
+            terms = {k: float(v) for k, v in metrics.items()}
+            check(all(map(math.isfinite, terms.values()))
+                  and all(bool(torch.isfinite(w).all())
+                          for w in det.trunk.parameters()),
+                  f'(P) a first step from the init is not finite: {terms}')
+            n += 1
+    del det, init
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f'(P) first steps from the config\'s init on {n} augmented '
+          f'batches ({epochs} passes): every term and weight finite; RPN '
+          f'box deltas up to {delta:.2f}, proposals up to {longest:.4g} m '
+          f'long; {overflowed} of {n} batches sample a negative whose decode '
+          f'is not finite (the JAX package\'s corner loss is NaN there); '
+          f'{secs:.1f} s [{card}]')
+    return dict(first_steps=n, first_steps_overflowed=overflowed,
+                rpn_delta_max=delta, proposal_max_m=longest,
+                first_steps_s=secs)
+
+
+def pv_cli_phase(repo, card):
+    """(P): the PV-RCNN config through the CLIs on a KITTI-format tree:
+    ``tools.train`` PV_CLI_STEPS steps at the config's batch, ``tools.test
+    --metric kitti`` on its checkpoint.  -> (launches per run, summary)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    summary, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_pvrcnn_') as tmp:
+        root = os.path.join(tmp, 'kitti')
+        frames, objects = write_kitti_tree(root, n_train=PV_TRAIN_FRAMES,
+                                           n_val=PV_VAL_FRAMES)
+        cfg_path, cfg = derived_config(tmp, root, repo, PV_CONFIG)
+        b = cfg.data['samples_per_gpu']
+        pad = cfg.data['train']['dataset']['pipeline'][-1]['num_points']
+        print(f'(P) KITTI-format tree {frames} frames, GT database '
+              f'{objects}; config {PV_CONFIG} with its data paths moved (B '
+              f'{b}, Pad3D {pad}) [{time.perf_counter() - t_phase:.1f} s]')
+        summary.update(pv_first_steps(cfg, card))
+        work = os.path.join(tmp, 'work')
+        _, runs, secs = run_cli('train', [
+            cfg_path, '--work-dir', work, '--max-steps', str(PV_CLI_STEPS),
+            '--log-interval', '1'], tmp, repo)
+        check_launches('(P) train CLI', runs,
+                       {k: v for k, v in PV_STEP_LAUNCHES.items() if v},
+                       PV_CLI_STEPS)
+        launches['train'] = runs
+        log = read_log(work)
+        terms = ('loss', 'grad_norm', 'rpn.loss_cls', 'rpn.loss_bbox',
+                 'rpn.loss_dir', 'loss_semantic', 'loss_roi_cls',
+                 'loss_roi_bbox', 'loss_corner', 'metric.sparse_overflow')
+        check([r['step'] for r in log] == list(range(1, PV_CLI_STEPS + 1))
+              and all(math.isfinite(r[k]) for r in log for k in terms),
+              f'(P) train log {log}')
+        walls = [y['time'] - x['time'] for x, y in zip(log, log[1:])]
+        waits = [r['data_time'] for r in log]
+        summary.update(train_cli_s=secs, step_wall_ms=[w * 1e3 for w in walls],
+                       data_wait_ms=[w * 1e3 for w in waits],
+                       peak_mib=log[-1].get('memory', float('nan')),
+                       loss=[r['loss'] for r in log],
+                       sparse_overflow=[r['metric.sparse_overflow']
+                                        for r in log])
+        print(f'(P) train CLI: {PV_CLI_STEPS} steps at B = {b}, lr '
+              f'{cfg.optimizer["lr"]:g}, in {secs:.1f} s; step wall (between '
+              f'log lines) '
+              f'{[round(w * 1e3, 1) for w in walls]} ms; wait on the '
+              f'prefetch queue {[round(w * 1e3, 1) for w in waits]} ms; loss '
+              f'{[round(r["loss"], 4) for r in log]}; sparse overflow '
+              f'{summary["sparse_overflow"]}; peak '
+              f'{summary["peak_mib"]:.1f} MiB; launches {runs} [{card}]')
+        ckpt = os.path.join(work, f'ckpt_{PV_CLI_STEPS}.pt')
+        out, runs, secs = run_cli('test', [cfg_path, ckpt, '--metric',
+                                           'kitti'], tmp, repo)
+        n_batches = -(-PV_VAL_FRAMES // b)
+        check_launches('(P) test CLI', runs,
+                       {k: v for k, v in PV_PREDICT_LAUNCHES.items() if v},
+                       n_batches)
+        launches['test_kitti'] = runs
+        check(f'frames {PV_VAL_FRAMES},' in out,
+              f'(P) test: not {PV_VAL_FRAMES} frames')
+        rep = report_json(out)
+        check_aps(rep, '(P) test CLI --metric kitti')
+        summary['test_kitti_s'] = secs
+        print(f'(P) test CLI --metric kitti: {out.splitlines()[0]}; '
+              f'{secs:.1f} s; {len(rep)} APs finite in [0, 100]; launches '
+              f'{runs} [{card}]')
+    summary['phase_s'] = time.perf_counter() - t_phase
+    print(f'(P) phase wall {summary["phase_s"]:.1f} s [{card}]')
+    return launches, summary
+
+
+def pvrcnn_phases(repo, card):
+    """Phases (p), (pt) and (P).  -> (kernel numbers by call, launches by
+    path, summaries)."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import synthetic_batch
+    from mmdet3d_gaussian_tpu_torch.engine.pvrcnn import PVRCNNDetector
+    from mmdet3d_gaussian_tpu_torch.ops import _cuda
+    t0 = time.perf_counter()
+    summary, launches = {}, {}
+    det = PVRCNNDetector(device='cuda', seed=0)
+    batches = [synthetic_batch(BATCH, POINTS, 16, seed=s, pc_range=PV_PCR,
+                               device='cuda') for s in SEEDS]
+    b0 = batches[0]
+    got, levels = pv_integers(det, b0)
+    summary['counts'] = pv_level_counts(det.scatter(b0)[0], levels, BATCH,
+                                        '(p)')
+    del levels
+    cpu = PVRCNNDetector(device='cpu', seed=0)
+    t1 = time.perf_counter()
+    want, _ = pv_integers(cpu, {k: v.cpu() for k, v in b0.items()})
+    print(f'(p) the same integer outputs from the port on the CPU '
+          f'[{time.perf_counter() - t1:.1f} s]')
+    pv_card_vs_cpu_integers(got, want, '(p)')
+    del cpu, got, want
+    with torch.inference_mode():
+        calls = record_calls(lambda: det.predict(b0), predict_patches())
+        n_calls = {k: len(v) for k, v in calls.items()}
+        check(n_calls == {k: v for k, v in PV_PREDICT_LAUNCHES.items() if v},
+              f'(p) predict called {n_calls}')
+        shapes = [tuple(a[0].shape) for a in calls['rotated_iou']]
+        check(shapes == [(BATCH, 512, 5), (BATCH, 128, 5)],
+              f'(p) K5 shapes {shapes}')
+        results = pv_kernel_checks(calls, card, ' predict')
+    del calls
+    launches['predict'], summary['predict'] = main_path(
+        det, batches, PV_PREDICT_LAUNCHES, '(p)', card, out_rows=64)
+    summary['predict'].update(device_profile(
+        lambda: det.predict(b0), 'predict', '(p)', card, 5))
+    summary['predict'].update(pv_part_shares(
+        det, b0, summary['predict'].get('device_busy_ms'), card))
+    del batches
+    torch.cuda.empty_cache()
+
+    # (pt): the train step on one repeated batch with positives
+    tbatch = pv_train_batch(det)
+    print(f'(pt) GT boxes a sample {tbatch["gt_valid"].sum(1).tolist()}, '
+          f'labels {tbatch["gt_labels"][:, :2].tolist()} first two')
+    state = det.init_train(LR, total_steps=100)
+    state, _ = det.train_step(tbatch, state)            # warm-up
+    calls, state = pv_capture_step(det, tbatch, state)
+    with torch.no_grad():
+        k4 = {}
+        check_k4(k4, calls, card, ' (pvrcnn step)')
+        step_k = pv_kernel_checks(calls, card, ' step')
+    del calls
+    for name, r in step_k.items():
+        for call, numbers in r.items():
+            results.setdefault(name, {})[f'step {call}'] = numbers
+    for name, r in k4.items():
+        results.setdefault(name, {})['step'] = r
+    launches['train'], state, summary['train'] = timed_steps(
+        det, tbatch, state, PV_STEP_LAUNCHES, '(pt)', card,
+        falling=PV_FIXED_TARGET_TERMS)
+    holder = [state]
+
+    def one_step():
+        holder[0] = det.train_step(tbatch, holder[0])[0]
+    summary['train'].update(device_profile(one_step, 'train step', '(pt)',
+                                           card, 3))
+    del det, holder, state, tbatch
+    torch.cuda.empty_cache()
+    _cuda.reset_launches()
+    cli_launches, summary['cli'] = pv_cli_phase(repo, card)
+    launches.update({f'cli_{k}': v for k, v in cli_launches.items()})
+    summary['phases_s'] = time.perf_counter() - t0
+    print(f'(p)-(P) wall {summary["phases_s"]:.1f} s [{card}]')
+    return results, launches, summary
+
+
 def union_us(intervals):
     """Length of the union of (start, end) intervals."""
     total, cur_start, cur_end = 0.0, None, None
@@ -3973,6 +4522,7 @@ def main() -> int:
     tiny_card_vs_cpu(card, TINY_MVF, tag='TINY mvf')   # (c) mvf
     tiny_train_card_vs_cpu(card, TINY_MVF, head=dict(TINY_HEAD, pos_cap=0),
                            tag='TINY mvf dense')
+    tiny_pvrcnn_card_vs_cpu(card)                      # (c) pvrcnn
     launches, e2e = main_path(det, batches, PREDICT_LAUNCHES, '(d)',
                               card)                    # (d)
     nms_counts(det, batches[-1])
@@ -4029,6 +4579,8 @@ def main() -> int:
     cp_k, cp_launches, cp_e2e = centerpoint_phases(root, card)  # (n)-(N)
     torch.cuda.empty_cache()
     mvf_k, mvf_launches, mvf_e2e = mvf_phases(root, card)     # (m)-(M)
+    torch.cuda.empty_cache()
+    pv_k, pv_launches, pv_e2e = pvrcnn_phases(root, card)    # (p)-(P)
     torch.cuda.empty_cache()
     loop_k, loop_launches, loop_e2e = loop_phase(root, card)   # (L)
 
@@ -4108,6 +4660,11 @@ def main() -> int:
         entry['mvf'] = dict(mvf_k.get(name, {}), launches={
             path: runs[name] for path, runs in mvf_launches.items()
             if runs.get(name)})
+        # phases (p)-(P): launches per PV-RCNN path, numbers on its inputs
+        # by call (K5 and K6 at B x 512 and B x 128, K4 over a step)
+        entry['pvrcnn'] = dict(pv_k.get(name, {}), launches={
+            path: runs[name] for path, runs in pv_launches.items()
+            if runs.get(name)})
         kernels.append(entry)
     print(f'(e) predict summary {json.dumps(e2e)} [{card}]')
     print(f'(e) bf16 predict summary {json.dumps(e2e16)} [{card}]')
@@ -4118,6 +4675,7 @@ def main() -> int:
     print(f'(e) loop summary {json.dumps(loop_e2e)} [{card}]')
     print(f'(e) centerpoint summary {json.dumps(cp_e2e)} [{card}]')
     print(f'(e) mvf summary {json.dumps(mvf_e2e)} [{card}]')
+    print(f'(e) pvrcnn summary {json.dumps(pv_e2e)} [{card}]')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -25,9 +25,12 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..models.dense_heads.anchor3d_head import PRIOR_PROB, GDAnchor3DHead
+from ..models.dense_heads.anchor3d_head import (PRIOR_PROB,
+                                                Anchor3DHeadConvs,
+                                                GDAnchor3DHead)
 from ..models.dense_heads.centerpoint_head import CenterHead, SeparateHead
 from ..models.detectors.voxelnet import PointPillarsNet
+from ..models.middle_encoders import SparseConvBlock
 from ..models.voxel_encoders import MaskedBatchNorm
 from ..parallel.train_state import (AdamW, TrainState, init_state,
                                     make_optimizer, make_train_step)
@@ -79,35 +82,38 @@ KITTI_3CLASS_HEAD = dict(
 
 
 def init_weights(trunk: nn.Module, seed: int) -> None:
-    """Seeded initialization, the same on every device: lecun-normal conv
-    and linear weights (flax's default), BN identity with zero running
-    mean and unit variance, zero biases except the anchor head's cls bias
-    at the focal prior and the center head's heatmap biases at its
+    """Seeded initialization, the same on every device: lecun-normal conv,
+    linear and sparse conv weights (flax's default; a sparse conv's
+    ``(K, Cin, Cout)`` weight has fan-in K Cin), BN identity with zero
+    running mean and unit variance, zero biases except an anchor head's cls
+    bias at the focal prior and the center head's heatmap biases at its
     ``init_bias``.  Drawn on the CPU from one ``torch.Generator``."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in trunk.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear,
+                              SparseConvBlock)):
                 w = m.weight
                 # ConvTranspose2d weights are (in, out, k, k)
                 fan_in = (w.shape[0] * w[0, 0].numel()
                           if isinstance(m, nn.ConvTranspose2d)
+                          else w[:, :, 0].numel()
+                          if isinstance(m, SparseConvBlock)
                           else w[0].numel())
                 w.copy_(torch.randn(w.shape, generator=gen)
                         / math.sqrt(fan_in))
-                if m.bias is not None:
+                if getattr(m, 'bias', None) is not None:
                     m.bias.zero_()
             elif isinstance(m, (nn.BatchNorm2d, MaskedBatchNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
-        if trunk.head_type == 'anchor':
-            trunk.bbox_head.conv_cls.bias.fill_(
-                -math.log((1 - PRIOR_PROB) / PRIOR_PROB))
-            return
-        for m in trunk.bbox_head.modules():
-            if isinstance(m, SeparateHead):
+        for m in trunk.modules():
+            if isinstance(m, Anchor3DHeadConvs):
+                m.conv_cls.bias.fill_(
+                    -math.log((1 - PRIOR_PROB) / PRIOR_PROB))
+            elif isinstance(m, SeparateHead):
                 m.heatmap[-1].bias.fill_(m.init_bias)
 
 

@@ -4,7 +4,8 @@ rotated or axis-aligned NMS.
 Port of ``mmdet3d_gaussian_tpu/models/dense_heads/anchor3d_head.py``:
 ``Anchor3DHeadConvs`` and ``GDAnchor3DHead`` (``anchors_for``,
 ``get_targets``, ``loss`` with its dense and sparse-positive forms,
-``get_bboxes``).  Targets are computed for the whole batch at once (the JAX
+``get_bboxes``, the class-agnostic ``get_proposals`` of PV-RCNN's first
+stage).  Targets are computed for the whole batch at once (the JAX
 package vmaps one sample at a time).  The dense decoded-box GD loss runs
 through kernel K3 (:func:`~mmdet3d_gaussian_tpu_torch.ops.gd_loss.
 anchor_gd_loss`), reading ``bbox_pred`` in the conv layout.  ``get_bboxes``
@@ -352,16 +353,8 @@ class GDAnchor3DHead:
         c = self.num_classes
         score_thr = float(cfg.get('score_thr', 0.05))
         b = cls_score.shape[0]
-        scores = torch.sigmoid(cls_score.reshape(b, -1, c).float())
-        deltas = bbox_pred.reshape(b, -1, 7).float()
-        boxes = self.coder.decode(anchors.reshape(-1, 7), deltas)
-        dir_cls = dir_pred.reshape(b, -1, 2).argmax(-1)
-        # mmdet3d dir correction with dir_limit_offset = 0
-        yaw = boxes[..., 6]
-        dir_rot = limit_period(yaw - self.dir_offset, 0.0, math.pi)
-        yaw = dir_rot + self.dir_offset + math.pi * dir_cls.to(yaw.dtype)
-        boxes = torch.cat([boxes[..., :6], yaw[..., None]], dim=-1)
-
+        scores, boxes = self.decode_boxes(cls_score, bbox_pred, dir_pred,
+                                          anchors)
         k = min(int(cfg.get('nms_pre', 1024)), scores.shape[1])
         _, topi = top_k(scores.max(dim=-1).values, k)          # (B, K)
         scores_k = scores.gather(1, topi[..., None].expand(b, k, c))
@@ -371,6 +364,46 @@ class GDAnchor3DHead:
         b_sorted = boxes_k[:, None].expand(b, c, k, 7).gather(
             2, idx[..., None].expand(b, c, k, 7))
         return b_sorted, s_sorted, s_sorted > score_thr
+
+    def decode_boxes(self, cls_score, bbox_pred, dir_pred, anchors):
+        """NHWC maps -> (scores (B, A, C), boxes (B, A, 7)) with the
+        direction-corrected yaw."""
+        b, c = cls_score.shape[0], self.num_classes
+        scores = torch.sigmoid(cls_score.reshape(b, -1, c).float())
+        deltas = bbox_pred.reshape(b, -1, 7).float()
+        boxes = self.coder.decode(anchors.reshape(-1, 7), deltas)
+        dir_cls = dir_pred.reshape(b, -1, 2).argmax(-1)
+        # mmdet3d dir correction with dir_limit_offset = 0
+        yaw = boxes[..., 6]
+        dir_rot = limit_period(yaw - self.dir_offset, 0.0, math.pi)
+        yaw = dir_rot + self.dir_offset + math.pi * dir_cls.to(yaw.dtype)
+        return scores, torch.cat([boxes[..., :6], yaw[..., None]], dim=-1)
+
+    def get_proposals(self, cls_score, bbox_pred, dir_pred, anchors,
+                      max_num: Optional[int] = None):
+        """Class-agnostic proposals (PartA2RPNHead, the PV-RCNN config's
+        first stage): rank anchors by their largest class score, keep
+        ``nms_pre``, one rotated (or axis-aligned) NMS over all classes,
+        then the ``max_num`` best kept.  The B problems go through one
+        launch of each NMS kernel.  -> (boxes (B, K, 7), scores (B, K),
+        labels (B, K) int32, valid (B, K)), K = ``max_num``."""
+        cfg = self.test_cfg
+        score_thr = float(cfg.get('score_thr', 0.0))
+        nms_thr = float(cfg.get('nms_thr', 0.8))
+        max_num = int(max_num or cfg.get('max_num', 128))
+        scores, boxes = self.decode_boxes(cls_score, bbox_pred, dir_pred,
+                                          anchors)
+        max_scores, labels = scores.max(dim=-1)
+        k = min(int(cfg.get('nms_pre', 1024)), max_scores.shape[1])
+        s_sorted, topi = top_k(max_scores, k)
+        b_sorted = boxes.gather(1, topi[..., None].expand(-1, -1, 7))
+        l_sorted = labels.gather(1, topi).to(torch.int32)
+        nms = nms_bev if cfg.get('use_rotate_nms', True) else nms_normal_bev
+        keep = nms(b_sorted[..., [0, 1, 3, 4, 6]], nms_thr,
+                   s_sorted > score_thr)
+        final, fidx = top_k(torch.where(keep, s_sorted, -1.0), max_num)
+        return (b_sorted.gather(1, fidx[..., None].expand(-1, -1, 7)), final,
+                l_sorted.gather(1, fidx), final > max(score_thr, 0.0))
 
     def get_bboxes(self, cls_score, bbox_pred, dir_pred, anchors,
                    max_num: Optional[int] = None):

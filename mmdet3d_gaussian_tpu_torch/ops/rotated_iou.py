@@ -1,11 +1,12 @@
 """Exact rotated-box BEV IoU (kernel K5, ``csrc/rotated_iou.cu``).
 
 Port of ``mmdet3d_gaussian_tpu/ops/rotated_iou.py`` (``box_corners``,
-``iou_bev``) and of the TPU kernel ``ops/pallas/rotated_iou_kernel.py``:
-the intersection polygon is built branch-free from 24 candidate vertices
-(4 + 4 corners inside the other box, 16 edge intersections), ordered around
-its centroid by the pseudo-angle ``sign(dy) * (1 - dx / (|dx| + |dy|))``,
-and its shoelace area is clamped by both box areas.
+``iou_bev``, ``iou_3d``) and of the TPU kernel
+``ops/pallas/rotated_iou_kernel.py``: the intersection polygon is built
+branch-free from 24 candidate vertices (4 + 4 corners inside the other
+box, 16 edge intersections), ordered around its centroid by the
+pseudo-angle ``sign(dy) * (1 - dx / (|dx| + |dy|))``, and its shoelace
+area is clamped by both box areas.
 
 The kernel skips the polygon for *far* pairs, whose IoU is exactly that of
 an empty intersection (0 for boxes of size >= 0): :func:`near_pairs_plain`
@@ -63,6 +64,17 @@ def _iou_plain(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     """(P, N, 5) x (P, M, 5) -> (P, N, M): the kernel's arithmetic
     vectorized over every (problem, i, j) pair."""
     boxes_a, boxes_b = boxes_a.float(), boxes_b.float()
+    inter = intersect_area_plain(boxes_a, boxes_b)
+    area_a = (boxes_a[..., 2] * boxes_a[..., 3])[:, :, None]
+    area_b = (boxes_b[..., 2] * boxes_b[..., 3])[:, None, :]
+    inter = torch.minimum(torch.minimum(inter, area_a), area_b)
+    return inter / (area_a + area_b - inter).clamp(min=1e-6)
+
+
+def intersect_area_plain(boxes_a: torch.Tensor,
+                         boxes_b: torch.Tensor) -> torch.Tensor:
+    """(P, N, 5) x (P, M, 5) f32 -> (P, N, M) rotated intersection areas,
+    before the clamp by the boxes' areas."""
     ca, cb = box_corners(boxes_a), box_corners(boxes_b)   # (P, ·, 4, 2)
     a = tuple(t[:, :, None, None] for t in _components(boxes_a))
     b = tuple(t[:, None, :, None] for t in _components(boxes_b))
@@ -119,11 +131,7 @@ def _iou_plain(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     area2 = vx.new_zeros(lead)
     for k in range(24):
         area2 = area2 + cross[..., k]
-    inter = torch.where(nvalid >= 3, 0.5 * area2.abs(), 0.0)
-    area_a = (boxes_a[..., 2] * boxes_a[..., 3])[:, :, None]
-    area_b = (boxes_b[..., 2] * boxes_b[..., 3])[:, None, :]
-    inter = torch.minimum(torch.minimum(inter, area_a), area_b)
-    return inter / (area_a + area_b - inter).clamp(min=1e-6)
+    return torch.where(nvalid >= 3, 0.5 * area2.abs(), 0.0)
 
 
 def iou_bev_pairwise_plain(boxes: torch.Tensor) -> torch.Tensor:
@@ -180,3 +188,29 @@ def iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """(N, 5) x (M, 5) -> (N, M) rotated BEV IoU, plain PyTorch (the
     predict path uses :func:`iou_bev_pairwise`)."""
     return _iou_plain(boxes1[None], boxes2[None])[0]
+
+
+def iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor,
+           z_offset: float = 0.5, eps: float = 1e-6) -> torch.Tensor:
+    """Pairwise 3D IoU of 7-dim bottom-centred boxes, (N, 7) x (M, 7) ->
+    (N, M), plain PyTorch as the JAX package computes it outside any
+    kernel: the BEV intersection times the z overlap, clamped by both
+    volumes.  Both sets span z + (z_offset -+ 0.5) dz.  ``torch.minimum``
+    and ``maximum`` pass a NaN on, as ``jnp.minimum`` does."""
+    b1, b2 = boxes1.float(), boxes2.float()
+    bev1 = b1[:, [0, 1, 3, 4, 6]]
+    bev2 = b2[:, [0, 1, 3, 4, 6]]
+    inter_bev = intersect_area_plain(bev1[None], bev2[None])[0]
+    z1lo = b1[:, 2] + (z_offset - 0.5) * b1[:, 5]
+    z1hi = b1[:, 2] + (z_offset + 0.5) * b1[:, 5]
+    z2lo = b2[:, 2] + (z_offset - 0.5) * b2[:, 5]
+    z2hi = b2[:, 2] + (z_offset + 0.5) * b2[:, 5]
+    zov = torch.maximum(torch.minimum(z1hi[:, None], z2hi[None, :])
+                        - torch.maximum(z1lo[:, None], z2lo[None, :]),
+                        z1lo.new_zeros(()))
+    v1 = b1[:, 3] * b1[:, 4] * b1[:, 5]
+    v2 = b2[:, 3] * b2[:, 4] * b2[:, 5]
+    inter = torch.minimum(torch.minimum(inter_bev * zov, v1[:, None]),
+                          v2[None, :])
+    return inter / torch.maximum(v1[:, None] + v2[None, :] - inter,
+                                 inter.new_tensor(eps))

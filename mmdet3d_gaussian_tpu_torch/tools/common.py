@@ -27,17 +27,20 @@ def load_config(path: str, cfg_options: Sequence[str] = ()) -> Config:
 
 def build_detector(cfg, device: Optional[str], seed: int = 0,
                    model_overrides: Optional[Dict] = None):
-    """The config's ``model`` and ``head`` dicts -> a
-    ``CenterPointDetector`` (``head_type='center'``) or else a
-    ``PointPillarsDetector``, on ``device`` (``cuda`` unless given).
-    PV-RCNN models raise until they are ported."""
+    """The config's ``model`` and ``head`` dicts -> a ``PVRCNNDetector``
+    (``type='PVRCNN'``, ``head`` its RPN head; f32 only, so a
+    ``compute_dtype`` override is dropped), a ``CenterPointDetector``
+    (``head_type='center'``) or else a ``PointPillarsDetector``, on
+    ``device`` (``cuda`` unless given)."""
     from ..engine.detector import CenterPointDetector, PointPillarsDetector
     mcfg = dict(cfg.get('model') or {})
     mtype = mcfg.pop('type', None)
-    if mtype == 'PVRCNN':
-        raise NotImplementedError('PV-RCNN is not ported yet (ROADMAP '
-                                  'section 1, item 5)')
     mcfg.update(model_overrides or {})
+    if mtype == 'PVRCNN':
+        from ..engine.pvrcnn import PVRCNNDetector
+        mcfg.pop('compute_dtype', None)
+        return PVRCNNDetector(model_cfg=mcfg, rpn_head_cfg=cfg.get('head'),
+                              device=device, seed=seed)
     cls = (CenterPointDetector if mcfg.get('head_type') == 'center'
            else PointPillarsDetector)
     return cls(model_cfg=mcfg, head_cfg=cfg.get('head'), device=device,

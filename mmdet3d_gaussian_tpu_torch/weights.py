@@ -31,6 +31,17 @@ shape of ``params``) the same way, to one tensor per parameter name:
   a depthwise-separable ``{name}_conv{j}`` holds ``chn_conv`` and
   ``dep_conv``, mapped to ``.{j}.conv.chn_conv`` / ``.dep_conv``).
 
+* a PV-RCNN tree, ``{'first': {'params', 'batch_stats'}, 'second':
+  {...}}`` -> ``first.*`` and ``second.*``: ``middle_encoder/{block}``
+  (its ``(K, Cin, Cout)`` kernel as it is, and ``bn``), the backbone and
+  neck as above, ``rpn_head/conv_*``; ``keypoints_encoder/rawpoints_sa``,
+  ``voxel_sa_{k}`` and ``roi_extractor/grid_pool``: ``scale{i}_mlp{j}``,
+  ``scale{i}_bn{j}`` -> ``.mlps.{i}.{j}.linear`` / ``.norm``;
+  ``keypoints_encoder/fusion``, ``fusion_bn`` -> ``.fusion``;
+  ``semantic_head/mlp{i}``, ``bn{i}`` -> ``.mlps.{i}``, ``seg_out``;
+  ``bbox_head/{shared,cls,reg}{i}``, ``{...}_bn{i}`` -> ``.{tower}.{i}``,
+  ``cls_out``, ``reg_out``.
+
 Layouts: conv kernels HWIO -> OIHW (``transpose(3, 2, 0, 1)``), dense
 kernels transposed, and a flax ``ConvTranspose`` kernel ``(s, s, cin,
 cout)`` is spatially flipped to become a torch ``ConvTranspose2d`` weight
@@ -115,7 +126,13 @@ def jax_variables_to_torch(variables: Dict[str, Any],
                            ) -> Dict[str, torch.Tensor]:
     """``upsample_strides``: the neck's (``neck_cfg['upsample_strides']``);
     without them a neck kernel larger than 1 x 1 is a transposed conv,
-    which a center-head tree refuses."""
+    which a center-head tree refuses.  A PV-RCNN tree (``{'first':
+    {'params', 'batch_stats'}, 'second': {...}}``) maps to
+    :class:`~mmdet3d_gaussian_tpu_torch.engine.pvrcnn.PVRCNNNet`."""
+    if 'first' in variables:
+        return _convert_pvrcnn(
+            {k: variables[k]['params'] for k in _STAGES},
+            {k: variables[k]['batch_stats'] for k in _STAGES})
     return _convert(variables['params'], variables['batch_stats'],
                     upsample_strides)
 
@@ -123,8 +140,11 @@ def jax_variables_to_torch(variables: Dict[str, Any],
 def jax_grads_to_torch(grads: Dict[str, Any],
                        upsample_strides: Optional[Sequence[float]] = None
                        ) -> Dict[str, torch.Tensor]:
-    """Gradient tree of ``params`` -> {parameter name: gradient}, laid out
-    as the port's parameters (every map above is linear)."""
+    """Gradient tree of ``params`` (PV-RCNN: ``{'first': params,
+    'second': params}``) -> {parameter name: gradient}, laid out as the
+    port's parameters (every map above is linear)."""
+    if 'first' in grads:
+        return _convert_pvrcnn({k: grads[k] for k in _STAGES}, None)
     return _convert(grads, None, upsample_strides)
 
 
@@ -170,19 +190,47 @@ def _convert(params, stats, upsample_strides=None
         _bn(sd, f'voxel_encoder.pfn_layers.{i}.norm', norm, norm_stats,
             tracked=False)
 
+    _backbone_neck(sd, params, sub_stats, '', upsample_strides)
+    head = params.get('bbox_head', {})
+    if 'shared_conv' in head:
+        _center_head(sd, head, sub_stats)
+    else:
+        _anchor_head(sd, 'bbox_head', head)
+    _check_all_used(trees, used)
+    return sd
+
+
+def _check_all_used(trees, used) -> None:
+    left = sorted(p for top, tree in trees
+                  for p in _leaf_paths(tree, (top,))
+                  if p not in used and p.split('/', 1)[1] not in
+                  IGNORED_LEAVES)
+    if left:
+        raise KeyError(f'JAX leaves with no counterpart in the port: {left}')
+
+
+def _anchor_head(sd, prefix, head) -> None:
+    for conv, sub in head.items():
+        sd[f'{prefix}.{conv}.weight'] = _conv(sub['kernel'])
+        sd[f'{prefix}.{conv}.bias'] = _t(sub['bias'])
+
+
+def _backbone_neck(sd, params, sub_stats, prefix,
+                   upsample_strides=None) -> None:
+    """SECOND's and SECONDFPN's leaves into ``sd`` under ``prefix``."""
     for name, sub in params.get('backbone', {}).items():
         m = re.fullmatch(r'stage(\d+)_(down|block(\d+))', name)
         if not m:
             continue
         s = int(m.group(1))
         j = 0 if m.group(2) == 'down' else 3 * (int(m.group(3)) + 1)
-        sd[f'backbone.blocks.{s}.{j}.weight'] = _conv(sub['conv']['kernel'])
-        _bn(sd, f'backbone.blocks.{s}.{j + 1}', sub['bn'],
+        sd[f'{prefix}backbone.blocks.{s}.{j}.weight'] = _conv(
+            sub['conv']['kernel'])
+        _bn(sd, f'{prefix}backbone.blocks.{s}.{j + 1}', sub['bn'],
             sub_stats('backbone', name, 'bn'), tracked=True)
 
-    head = params.get('bbox_head', {})
-    center = 'shared_conv' in head
-    if center and upsample_strides is None:
+    if ('shared_conv' in params.get('bbox_head', {})
+            and upsample_strides is None):
         raise ValueError('a center-head tree needs the neck\'s '
                          'upsample_strides to place its levels')
     neck = params.get('neck', {})
@@ -198,24 +246,9 @@ def _convert(params, stats, upsample_strides=None
             w = np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
         else:                # a 1x1 or (stride 1/k) k x k conv
             w = np.transpose(k, (3, 2, 0, 1))
-        sd[f'neck.deblocks.{i}.0.weight'] = _t(w)
-        _bn(sd, f'neck.deblocks.{i}.1', neck[f'deblock{i}_bn'],
+        sd[f'{prefix}neck.deblocks.{i}.0.weight'] = _t(w)
+        _bn(sd, f'{prefix}neck.deblocks.{i}.1', neck[f'deblock{i}_bn'],
             sub_stats('neck', f'deblock{i}_bn'), tracked=True)
-
-    if center:
-        _center_head(sd, head, sub_stats)
-    else:
-        for conv, sub in head.items():
-            sd[f'bbox_head.{conv}.weight'] = _conv(sub['kernel'])
-            sd[f'bbox_head.{conv}.bias'] = _t(sub['bias'])
-
-    left = sorted(p for top, tree in trees
-                  for p in _leaf_paths(tree, (top,))
-                  if p not in used and p.split('/', 1)[1] not in
-                  IGNORED_LEAVES)
-    if left:
-        raise KeyError(f'JAX leaves with no counterpart in the port: {left}')
-    return sd
 
 
 def _linear_bn(sd, prefix, lin, norm, norm_stats) -> None:
@@ -292,3 +325,86 @@ def _center_head(sd, head, sub_stats) -> None:
                 sd[f'{tp}.{name}.{j}.conv.weight'] = _conv(sub['kernel'])
             _bn(sd, f'{tp}.{name}.{j}.bn', tree[f'{name}_bn{j}'],
                 sub_stats('bbox_head', task, f'{name}_bn{j}'), tracked=True)
+
+
+_STAGES = ('first', 'second')
+
+
+def _convert_pvrcnn(params, stats) -> Dict[str, torch.Tensor]:
+    """PV-RCNN's two stage trees ({stage: tree}) -> ``first.*`` and
+    ``second.*`` names."""
+    used = set()
+    trees = [(f'{k}/params', params[k]) for k in _STAGES]
+    if stats is not None:
+        trees += [(f'{k}/batch_stats', stats[k]) for k in _STAGES]
+    p = {k: _Tree(params[k], used, (k, 'params')) for k in _STAGES}
+    s = (None if stats is None else
+         {k: _Tree(stats[k], used, (k, 'batch_stats')) for k in _STAGES})
+
+    def stats_of(stage):
+        def sub(*keys):
+            if s is None:
+                return None
+            tree = s[stage]
+            for k in keys:
+                tree = tree[k]
+            return tree
+        return sub
+
+    sd: Dict[str, torch.Tensor] = {}
+    first, st1 = p['first'], stats_of('first')
+    for name, sub in first['middle_encoder'].items():
+        pre = f'first.middle_encoder.{name}'
+        sd[f'{pre}.weight'] = _t(sub['kernel'])      # (K, Cin, Cout)
+        _bn(sd, f'{pre}.bn', sub['bn'], st1('middle_encoder', name, 'bn'),
+            tracked=False)
+    _backbone_neck(sd, first, st1, 'first.')
+    _anchor_head(sd, 'first.rpn_head', first['rpn_head'])
+
+    second, st2 = p['second'], stats_of('second')
+
+    def linear_bns(pre, tree, path, lin, bn):
+        """``{lin}{j}`` + ``{bn}{j}`` -> ``{pre}.{j}.linear`` / ``.norm``."""
+        for leaf in tree.keys():
+            m = re.fullmatch(rf'{lin}(\d+)', leaf)
+            if m:
+                j = m.group(1)
+                _linear_bn(sd, f'{pre}.{j}', tree[leaf], tree[f'{bn}{j}'],
+                           st2(*path, f'{bn}{j}'))
+
+    def sa(pre, tree, path):
+        """A GuidedSAModuleMSG: ``scale{i}_mlp{j}``, ``scale{i}_bn{j}`` ->
+        ``{pre}.mlps.{i}.{j}``."""
+        for leaf in tree.keys():
+            m = re.fullmatch(r'scale(\d+)_mlp(\d+)', leaf)
+            if m:
+                i, j = m.groups()
+                _linear_bn(sd, f'{pre}.mlps.{i}.{j}', tree[leaf],
+                           tree[f'scale{i}_bn{j}'],
+                           st2(*path, f'scale{i}_bn{j}'))
+
+    def dense(name, tree):
+        sd[f'{name}.weight'] = _t(np.asarray(tree['kernel']).T)
+        sd[f'{name}.bias'] = _t(tree['bias'])
+
+    ke = second['keypoints_encoder']
+    for name in ke.keys():
+        if name == 'rawpoints_sa' or name.startswith('voxel_sa_'):
+            sa(f'second.keypoints_encoder.{name}', ke[name],
+               ('keypoints_encoder', name))
+    _linear_bn(sd, 'second.keypoints_encoder.fusion', ke['fusion'],
+               ke['fusion_bn'], st2('keypoints_encoder', 'fusion_bn'))
+    head = second['semantic_head']
+    linear_bns('second.semantic_head.mlps', head, ('semantic_head',), 'mlp',
+               'bn')
+    dense('second.semantic_head.seg_out', head['seg_out'])
+    sa('second.roi_extractor.grid_pool', second['roi_extractor']['grid_pool'],
+       ('roi_extractor', 'grid_pool'))
+    head = second['bbox_head']
+    for tower in ('shared', 'cls', 'reg'):
+        linear_bns(f'second.bbox_head.{tower}', head, ('bbox_head',), tower,
+                   f'{tower}_bn')
+    dense('second.bbox_head.cls_out', head['cls_out'])
+    dense('second.bbox_head.reg_out', head['reg_out'])
+    _check_all_used(trees, used)
+    return sd

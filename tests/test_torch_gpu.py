@@ -1104,3 +1104,108 @@ def test_tiny_mvf_predict_card_vs_cpu(cuda):
     assert bool(valid.any())
     scale = max(float(want[0][valid].abs().max()), 1.0)
     assert float((boxes[valid] - want[0][valid]).abs().max()) <= 1e-4 * scale
+
+
+# the TINY PV-RCNN of tests/test_pvrcnn.py (repeated: that file imports JAX)
+TINY_PVRCNN = dict(
+    voxel_size=(0.4, 0.4, 0.1667),
+    point_cloud_range=(0., -6.4, -2., 12.8, 6.4, 2.),
+    max_voxels=512, sparse_shape=(24, 32, 32), base_channels=8,
+    encoder_channels=((8,), (16, 16), (16, 16), (16, 16)),
+    encoder_out_channels=16,
+    backbone=dict(in_channels=16, out_channels=(16, 32),
+                  layer_nums=(1, 1), layer_strides=(1, 2)),
+    neck=dict(in_channels=(16, 32), out_channels=(16, 16),
+              upsample_strides=(1, 2)),
+    num_keypoints=32, vsa_out_channels=32,
+    voxel_sa_configs=[
+        dict(scale_factor=1, in_channels=8, pool_radius=(0.8,),
+             samples=(8,), mlps=((8, 8),)),
+        dict(scale_factor=2, in_channels=16, pool_radius=(1.6,),
+             samples=(8,), mlps=((8, 8),))],
+    rawpoint_sa_config=dict(in_channels=1, pool_radius=(0.8,),
+                            samples=(8,), mlps=((8, 8),)),
+    bev_sa=True, num_proposals=16, grid_size=3, roi_pool_radius=(0.8,),
+    roi_samples_per_radius=(8,), roi_mlps=((16, 16),))
+TINY_RPN = dict(
+    anchor_generator=dict(ranges=[[0.2, -6.2, -1.0, 12.6, 6.2, -1.0]] * 3,
+                          sizes=[[0.8, 0.6, 1.7], [1.8, 0.6, 1.7],
+                                 [3.9, 1.6, 1.6]],
+                          rotations=[0.0, 1.57]),
+    test_cfg=dict(use_rotate_nms=True, nms_thr=0.8, score_thr=0.0,
+                  nms_pre=64, max_num=16))
+
+
+@pytest.mark.parametrize('k,thr', [(512, 0.8), (128, 0.1)])
+def test_pvrcnn_nms_shapes(cuda, k, thr):
+    """K5 and K6 at PV-RCNN's two NMS shapes, B = 4 problems of the RPN's
+    512 class-agnostic candidates (thr 0.8) and of the 128 refined RoIs
+    (thr 0.1): the IoU within 1e-5 of its plain version, ``nms_bev``'s
+    keep (one launch of each) equal to the plain chain's."""
+    rng = np.random.RandomState(k)
+    p = 4
+    ctr = rng.uniform([0, -40], [70.4, 40], (p, k // 4, 2))
+    ctr = np.repeat(ctr, 4, 1) + rng.randn(p, k, 2) * 0.3
+    size = np.array([3.9, 1.6]) * rng.uniform(0.8, 1.2, (p, k, 2))
+    yaw = rng.choice([0.0, 1.57], (p, k)) + rng.randn(p, k) * 0.1
+    boxes = torch.from_numpy(np.concatenate(
+        [ctr, size, yaw[..., None]], -1).astype(np.float32))
+    valid = torch.from_numpy(rng.rand(p, k) > 0.05)
+    want_iou = rotated_iou.iou_bev_pairwise_plain(boxes.to(cuda)).cpu()
+    got_iou = rotated_iou.iou_bev_pairwise(boxes.to(cuda)).cpu()
+    assert float((got_iou - want_iou).abs().max()) <= 1e-5
+    want = nms.suppress_sweep_plain(want_iou, valid, thr)
+    before = dict(_cuda.LAUNCHES)
+    got = nms.nms_bev(boxes.to(cuda), thr, valid.to(cuda))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['rotated_iou'] == before['rotated_iou'] + 1
+    assert _cuda.LAUNCHES['nms_sweep'] == before['nms_sweep'] + 1
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < int(valid.sum())
+
+
+def test_tiny_pvrcnn_integers_card_vs_cpu(cuda):
+    """The TINY PV-RCNN on the card and on the CPU (the same weights):
+    voxel coords, every sparse level's sites and overflow, the FPS
+    keypoints and the ball queries of the raw-point and level-0 SA equal;
+    the predict's keep and labels equal, its boxes within 1e-4 of their
+    scale; K1 once, K5 and K6 twice a predict."""
+    from mmdet3d_gaussian_tpu_torch.engine.pvrcnn import PVRCNNDetector
+    from mmdet3d_gaussian_tpu_torch.ops import vsa
+    batch = detector.synthetic_batch(2, 1024, 4, seed=3,
+                                     pc_range=TINY_PVRCNN[
+                                         'point_cloud_range'], device='cpu')
+    got = {}
+    for dev in ('cpu', cuda):
+        det = PVRCNNDetector(TINY_PVRCNN, TINY_RPN, device=dev, seed=2)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            feats, coords = det.voxelize(b)
+            levels = det.trunk.first(feats, coords, 2)[0]
+            enc = det.trunk.second.keypoints_encoder
+            kp_idx, kp = enc.keypoints(b['points'], b['points_mask'])
+            raw = vsa.ball_query(0.8, 8, b['points'][..., :3], kp,
+                                 b['points_mask'])
+            l0 = levels[0]
+            mask = l0.valid[None] & (l0.coords[None, :, 0] == torch.arange(
+                2, device=l0.coords.device)[:, None])
+            centers = enc.voxel_centers(l0.coords[:, 1:4], 1)
+            _, q0 = enc.voxel_sa_0.group(0.8, 8, centers, l0.feats, kp, mask)
+            _cuda.reset_launches()
+            pred = det.predict(b)
+            if dev != 'cpu':
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        got[str(dev)] = [t.cpu() for t in (
+            coords, *[x for lv in levels for x in (lv.coords, lv.keys,
+                                                   lv.overflow)],
+            kp_idx, raw, q0, *pred)]
+    assert launches == {'segment_reduce': 1, 'rotated_iou': 2,
+                        'nms_sweep': 2}
+    cpu, card = got['cpu'], got['cuda']
+    for i, (g, w) in enumerate(zip(card[:-4], cpu[:-4])):
+        assert torch.equal(g, w), i
+    boxes, scores, labels, valid = card[-4:]
+    assert torch.equal(valid, cpu[-1]) and torch.equal(labels, cpu[-2])
+    scale = max(float(cpu[-4].abs().max()), 1.0)
+    assert float((boxes - cpu[-4]).abs().max()) <= 1e-4 * scale

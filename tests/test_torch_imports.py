@@ -48,7 +48,9 @@ def test_port_modules_listed():
                 'models.dense_heads.centerpoint_head',
                 'core.evaluation.nuscenes_metrics', 'models.mvf_encoder',
                 'engine.timing', 'tools.data_converter.kitti_converter',
-                'tools.data_converter.create_gt_database'):
+                'tools.data_converter.create_gt_database',
+                'ops.sparse_conv', 'ops.vsa', 'models.middle_encoders',
+                'models.roi_heads', 'engine.pvrcnn'):
         assert 'mmdet3d_gaussian_tpu_torch.' + mod in names
 
 
@@ -57,7 +59,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(' ', 1)
-    assert int(count) >= 64
+    assert int(count) >= 69
     assert bad == '[]', bad
 
 
@@ -69,6 +71,15 @@ def test_registry_builds_port_modules():
                             feat_channels=(8,)))
     assert enc.pfn_layers[0].linear.out_features == 8
     assert 'PointPillarsNet' in MODELS and 'SECONDFPN' in MODELS
+    from mmdet3d_gaussian_tpu_torch.engine import pvrcnn  # noqa: F401
+    for name in ('MlvlSparseEncoder', 'VoxelSetAbstraction',
+                 'PointwiseMaskHead', 'Batch3DRoIGridExtractor',
+                 'PVRCNNBboxHead'):
+        assert name in MODELS
+    sa = MODELS.build(dict(type='VoxelSetAbstraction', num_keypoints=8,
+                           point_channels=4, bev_channels=8,
+                           bev_sa_config=dict(scale_factor=8)))
+    assert sa.fusion.linear.in_features == 8
     with pytest.raises(KeyError):
         MODELS.get('NotAModule')
     with pytest.raises(TypeError):
