@@ -199,13 +199,36 @@ Phases, each printing its own lines (any failure exits non-zero):
       B = 4 and learning rate (every loss term finite), ``tools.test
       --metric kitti`` on its checkpoint (every AP finite in [0, 100]),
       launches per CLI run, the step wall and the wait on the queue;
+  (x) MVX on KITTI (``engine/mvx.py``: ``KITTI_MVX_MODEL``, the KITTI
+      3-class GD anchor head) at full width, random weights from a seed
+      with the cls bias zeroed, ``synthetic_mvx_batch`` B = 4 x 16,384 with
+      images of 384 x 1280 (mmdet3d's MVX KITTI test scale): phase (c)
+      first for the TINY MVX (``tests/test_mvx_fusion.py``'s widths on an
+      odd 36 x 68 image: a predict and a dense train step card vs CPU, the
+      image backbone's gradient not zero); K1 (reduce, mapback), K2, K5 and
+      K6 on one f32 predict's inputs held to their plain versions and
+      timed beside their bounds; 6 requests with launch counts (K1 1 + 1,
+      K2, K5, K6 once, never K7); the share of points on the image; a
+      profile, the image branch's and the fusion's device ms run alone and
+      their shares, the image branch's FFT or Winograd kernels, if any;
+  (x16) the same predict in bf16 (K2 on bf16 rows);
+  (xt) the f32 train step: K1's winner, K4 on its 39 + 39 BatchNorms (each
+      on its rows path) and K3 on a dense step held to their plain
+      versions; the image backbone's gradient norm; the fusion's backward
+      alone (``index_add_`` against plain indexing's sorted
+      ``index_put_``); the image branch's and SECOND's forward and
+      backward with cuDNN's heuristics and its benchmark mode; 3 warm-up
+      and 10 sparse-target steps, 3 dense-target steps, a 3-step profile.
+      ``python3 chip_smoke.py --only mvx`` runs (a) and these phases alone
+      and prints no result line;
   (e) one JSON line listing the kernels (with their launches on the hard
       paths and K2's and K1's numbers there, under ``loop`` the launches
       of each CLI run and the numbers on the loop's inputs, under
       ``centerpoint`` the launches of each CenterPoint path and the
       numbers on its inputs, under ``mvf`` those of the MVF paths, by
-      call, and under ``pvrcnn`` those of the PV-RCNN paths), the card's
-      name and power limit from nvidia-smi, and the result line.
+      call, under ``pvrcnn`` those of the PV-RCNN paths and under ``mvx``
+      those of the MVX paths), the card's name and power limit from
+      nvidia-smi, and the result line.
 
 f32 runs with TF32 off for matmuls and cuDNN convolutions; the bf16 paths
 compute in bf16 on f32 parameters, as the JAX package's mixed precision.
@@ -1243,16 +1266,21 @@ def tiny_batch(seed, dev, hard=False):
                            device=dev)
 
 
-def tiny_card_vs_cpu(card, cfg=TINY_F32, hard=False, tag=None):
-    """Phase (c): the same seeded TINY detector on the card and the CPU."""
+def tiny_card_vs_cpu(card, cfg=TINY_F32, hard=False, tag=None,
+                     detector=None, head=TINY_HEAD, batch_fn=None):
+    """Phase (c): the same seeded TINY detector on the card and the CPU
+    (``detector``: its class, PointPillarsDetector by default; ``batch_fn``
+    (seed, device) -> batch, :func:`tiny_batch` by default)."""
     from mmdet3d_gaussian_tpu_torch.engine.detector import PointPillarsDetector
     tag = tag or ('TINY hard' if hard else 'TINY')
+    detector = detector or PointPillarsDetector
+    batch_fn = batch_fn or (lambda seed, dev: tiny_batch(seed, dev, hard))
     outs = {}
     for dev in ('cuda', 'cpu'):
-        det = PointPillarsDetector(cfg, TINY_HEAD, device=dev, seed=1)
+        det = detector(cfg, head, device=dev, seed=1)
         with torch.no_grad():
             det.trunk.bbox_head.conv_cls.bias.zero_()
-        batch = tiny_batch(3, dev, hard)
+        batch = batch_fn(3, dev)
         if hard:
             with torch.inference_mode():
                 sc = det.trunk.pillars(batch['points'],
@@ -1657,7 +1685,7 @@ def train_kernel_checks(inputs, card, note=''):
 
 
 def tiny_train_card_vs_cpu(card, cfg=TINY_F32, hard=False, head=TINY_HEAD,
-                           tag=None):
+                           tag=None, detector=None, batch_fn=None):
     """Phase (c): one TINY train step (sparse targets) from the same seed,
     weights and batch on the card and on the CPU: loss terms, every
     parameter gradient, and after the AdamW step the running statistics,
@@ -1669,13 +1697,16 @@ def tiny_train_card_vs_cpu(card, cfg=TINY_F32, hard=False, head=TINY_HEAD,
     only where |mu| (the clipped gradient times 1 - b1) is at least 1e-2 of
     its parameter's largest, far above the gradient tolerance, so card and
     CPU agree on its sign; there a sign flip or a dropped update (lr apart)
-    fails a tolerance of 1e-2 lr."""
+    fails a tolerance of 1e-2 lr.  ``detector`` and ``batch_fn`` as in
+    :func:`tiny_card_vs_cpu`.  -> the card's gradients."""
     from mmdet3d_gaussian_tpu_torch.engine.detector import PointPillarsDetector
     tag = tag or ('TINY hard' if hard else 'TINY')
+    detector = detector or PointPillarsDetector
+    batch_fn = batch_fn or (lambda seed, dev: tiny_batch(seed, dev, hard))
     out = {}
     for dev in ('cuda', 'cpu'):
-        det = PointPillarsDetector(cfg, head, device=dev, seed=2)
-        batch = tiny_batch(0, dev, hard)
+        det = detector(cfg, head, device=dev, seed=2)
+        batch = batch_fn(0, dev)
         total, losses = det.loss(det.apply_train(batch), batch)
         params = dict(det.trunk.named_parameters())
         grads = torch.autograd.grad(total, list(params.values()))
@@ -1722,6 +1753,7 @@ def tiny_train_card_vs_cpu(card, cfg=TINY_F32, hard=False, head=TINY_HEAD,
     check(w_err <= 1e-2 * LR, f'{tag} weights after the step differ')
     check(w_all <= 2.5 * LR,
           f'a {tag} weight moved more than one Adam step')
+    return gc
 
 
 def timed_steps(det, batch, state, per_step, tag, card, points=POINTS,
@@ -4383,6 +4415,438 @@ def pvrcnn_phases(repo, card):
     return results, launches, summary
 
 
+# ---------------------------------------------------------------------- MVX
+# phases (c) mvx, (x), (x16), (xt): the image-fused pillar trunk
+# (engine/mvx.py) at KITTI_MVX_MODEL's width with KITTI 3-class's head on
+# images of mmdet3d's MVX KITTI test scale (1280 x 384)
+MVX_IMG_HW = (384, 1280)
+# the TINY MVX (tests/test_mvx_fusion.py's widths) on an odd 36 x 68 image,
+# so that its FPN crops
+TINY_MVX = dict(
+    voxel_size=(0.4, 0.4, 4.0),
+    point_cloud_range=(0., -6.4, -3., 12.8, 6.4, 1.),
+    max_voxels_per_sample=512,
+    img_backbone_cfg=dict(stage_channels=(8, 16), blocks_per_stage=1),
+    img_neck_cfg=dict(out_channels=8),
+    fusion_cfg=dict(out_channels=8, img_levels=(4, 8)),
+    encoder_cfg=dict(in_channels=12, feat_channels=(16,)),
+    backbone_cfg=dict(in_channels=16, out_channels=(16, 32),
+                      layer_nums=(1, 1), layer_strides=(2, 2)),
+    neck_cfg=dict(in_channels=(16, 32), out_channels=(16, 16),
+                  upsample_strides=(1, 2)),
+    head_cfg=dict(num_classes=3, num_anchors=6, feat_channels=32),
+)
+TINY_MVX_HEAD = dict(
+    anchor_generator=dict(
+        ranges=[[0.2, -6.2, -1.0, 12.6, 6.2, -1.0]] * 3,
+        sizes=[[0.8, 0.6, 1.7], [1.8, 0.6, 1.7], [3.9, 1.6, 1.6]],
+        rotations=[0.0, 1.57]),
+    test_cfg=dict(use_rotate_nms=True, nms_thr=0.5, score_thr=0.05,
+                  nms_pre=64, max_num=16))
+TINY_MVX_IMG_HW = (36, 68)
+# a predict: the dynamic pillar pipeline on the plain canvas (K1 reduce and
+# mapback, K2) and NMS; never K7
+MVX_PREDICT_LAUNCHES = {'segment_reduce': 1, 'segment_reduce_mapback': 1,
+                        'bev_splat': 1, 'bev_splat_pairs': 0,
+                        'rotated_iou': 1, 'nms_sweep': 1}
+# a step: K4 on SECOND's 16, the neck's 3 and the image branch's 20
+# BatchNorms (the stem, 4 stages x 2 blocks x 2, bn_down in stages 1-3);
+# K1's winner on the encoder's max, and the cluster mean's mapback forward
+# and backward (the painted rows carry a gradient, their xyz too); K2 once
+MVX_STEP_LAUNCHES = {'bn_moments': 39, 'bn_grad_moments': 39,
+                     'segment_max_winner': 1, 'segment_reduce_mapback': 2,
+                     'bev_splat': 1, 'bev_splat_pairs': 0}
+MVX_DENSE_LAUNCHES = {**MVX_STEP_LAUNCHES, **DENSE_LAUNCHES}
+
+
+def mvx_batch(seed, dev='cuda', hw=MVX_IMG_HW):
+    from mmdet3d_gaussian_tpu_torch.engine.mvx import synthetic_mvx_batch
+    return synthetic_mvx_batch(BATCH, POINTS, 16, img_hw=hw, seed=seed,
+                               device=dev)
+
+
+def tiny_mvx_batch(seed, dev):
+    from mmdet3d_gaussian_tpu_torch.engine.mvx import synthetic_mvx_batch
+    return synthetic_mvx_batch(2, 1024, 8, img_hw=TINY_MVX_IMG_HW, seed=seed,
+                               pc_range=TINY_MVX['point_cloud_range'],
+                               device=dev)
+
+
+def tiny_mvx_card_vs_cpu(card):
+    """Phase (c) for MVX: the TINY MVX predict and one dense train step on
+    the card against the CPU (the rules of the other TINY models), and the
+    image backbone's gradient on the card not zero."""
+    from mmdet3d_gaussian_tpu_torch.engine.mvx import MVXDetector
+    tiny_card_vs_cpu(card, TINY_MVX, tag='TINY mvx', detector=MVXDetector,
+                     head=TINY_MVX_HEAD, batch_fn=tiny_mvx_batch)
+    grads = tiny_train_card_vs_cpu(
+        card, TINY_MVX, head=dict(TINY_MVX_HEAD, pos_cap=0),
+        tag='TINY mvx dense', detector=MVXDetector, batch_fn=tiny_mvx_batch)
+    img = {k: float(g.norm()) for k, g in grads.items()
+           if k.startswith('img_backbone.')}
+    norm = math.sqrt(sum(v * v for v in img.values()))
+    print(f'(c) TINY mvx image backbone gradient on the card: norm '
+          f'{norm:.4g} over {len(img)} parameters, '
+          f'{sum(v > 0 for v in img.values())} of them not zero [{card}]')
+    check(norm > 0 and all(v > 0 for v in img.values()),
+          'the TINY MVX image backbone got no gradient on the card')
+
+
+def mvx_detector(cfg=None, head=None):
+    """The full-width MVX detector from seed 0, its cls bias zeroed so that
+    NMS has candidates."""
+    from mmdet3d_gaussian_tpu_torch.engine.mvx import MVXDetector
+    det = MVXDetector(cfg, head, device='cuda', seed=0)
+    with torch.no_grad():
+        det.trunk.bbox_head.conv_cls.bias.zero_()
+    return det
+
+
+def mvx_on_image(batch, tag):
+    """Print and return the share of the batch's points that project onto
+    the image."""
+    from mmdet3d_gaussian_tpu_torch.models.img_fusion import \
+        project_points_to_img
+    valid = project_points_to_img(batch['points'][..., :3],
+                                  batch['lidar2img'],
+                                  tuple(batch['img'].shape[1:3]))[1]
+    share = float(valid.float().mean())
+    print(f'{tag} points on the image: {int(valid.sum())} of '
+          f'{valid.numel()} ({share:.4f}); image '
+          f'{tuple(batch["img"].shape)}')
+    return share
+
+
+def mvx_part_shares(det, batch, busy_ms, tag, card):
+    """Device ms of a predict's image branch (backbone and FPN) and fusion,
+    each run alone on the predict's inputs, their shares of the predict's
+    device busy time and the rest's; the image branch's heaviest kernels,
+    FFT or Winograd tilings named."""
+    trunk = det.trunk
+    img, l2i = batch['img'], batch['lidar2img']
+    xyz = batch['points'][..., :3]
+    hw = tuple(img.shape[1:3])
+    with torch.inference_mode():
+        trunk.eval()
+        feats = trunk.image_features(img)
+        by_name = device_ms_by_name(lambda: trunk.image_features(img), 3)
+        image_ms = sum(by_name.values())
+        fusion_ms = device_ms(lambda: trunk.fusion(feats, xyz, l2i, hw), 5)
+    tilings = {k: round(v, 4) for k, v in by_name.items()
+               if 'fft' in k.lower() or 'winograd' in k.lower()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f'{tag} image branch alone: {image_ms:.3f} device ms '
+          f'({len(by_name)} kernels by name; heaviest '
+          f'{[(k[:60], round(v, 4)) for k, v in top]}); FFT / Winograd '
+          f'kernels {tilings or "none"} [{card}]')
+    rest = busy_ms - image_ms - fusion_ms if busy_ms else None
+    shares = ({k: v / busy_ms for k, v in (
+        ('image_branch', image_ms), ('fusion', fusion_ms), ('rest', rest))}
+        if busy_ms else {})
+    print(f'{tag} fusion alone: {fusion_ms:.3f} device ms; shares of the '
+          f'predict\'s device busy time {busy_ms}: '
+          f'{ {k: round(v, 4) for k, v in shares.items()} } [{card}]')
+    return dict(image_branch_ms=image_ms, fusion_ms=fusion_ms,
+                fft_winograd=tilings, shares=shares)
+
+
+def mvx_kernel_checks(calls, card, call, note):
+    """Those of K1 (reduce, mapback), K2, K5 and K6 that ``calls`` holds
+    (one full-width MVX predict's inputs), each held to its plain version
+    at phase (b)'s tolerance and timed beside its bound and its one-call
+    yardstick.  -> {kernel: {call: numbers}}."""
+    from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, segment
+    from mmdet3d_gaussian_tpu_torch.ops import voxelize
+    out = {}
+
+    def record(name, *args, **kw):
+        results = {}
+        report(results, name, card, *args, **kw)
+        out.setdefault(name, {})[call] = results[name]
+
+    if 'segment_reduce' in calls:
+        ((data, starts, counts, op),) = calls['segment_reduce']
+        got = segment.segment_reduce(data, starts, counts, op)
+        err = float((got - segment.segment_reduce_plain(
+            data, starts, counts, op)).abs().max())
+        n_live = int(torch.count_nonzero(counts))
+        rows, lengths = int(counts.sum()), counts[:n_live].long()
+        print(f'(x) segment_reduce{note}: {data.shape[0]} rows x '
+              f'{data.shape[1]} into {n_live} live of {counts.shape[0]} '
+              f'voxels')
+        record('segment_reduce', err, '0', err == 0,
+               lambda: segment.segment_reduce(data, starts, counts, op),
+               lambda: segment.segment_reduce_plain(data, starts, counts,
+                                                    op),
+               lambda: torch.segment_reduce(data[:rows], op,
+                                            lengths=lengths, unsafe=True),
+               100, 3, *k1_work('reduce', data, None, starts, counts), note)
+    if 'segment_reduce_mapback' in calls:
+        ((data, ids, starts, counts, op),) = calls['segment_reduce_mapback']
+        got = segment.segment_reduce_mapback(data, ids, starts, counts, op)
+        err = float((got - segment.segment_reduce_mapback_plain(
+            data, ids, starts, counts, op)).abs().max())
+        record('segment_reduce_mapback', err, '1e-4', err <= 1e-4,
+               lambda: segment.segment_reduce_mapback(data, ids, starts,
+                                                      counts, op),
+               lambda: segment.segment_reduce_mapback_plain(
+                   data, ids, starts, counts, op), None, 100, 3,
+               *k1_work('mapback', data, ids, starts, counts), note)
+    if 'bev_splat' in calls:
+        ((feats, lin, ncell),) = calls['bev_splat']
+        got = voxelize.bev_splat(feats, lin, ncell)
+        ref = voxelize.bev_splat_plain(feats, lin, ncell)
+        live = lin < ncell
+        canvas = torch.zeros_like(ref)
+        ids_l, rows_l = lin[live].long(), feats[live]
+
+        def lib():
+            canvas.zero_().index_copy_(0, ids_l, rows_l)
+        lib()
+        check(torch.equal(canvas, ref), 'index_copy_ yardstick disagrees')
+        esize = feats.element_size()
+        print(f'(x) bev_splat{note}: {feats.shape[0]} {feats.dtype} rows x '
+              f'{feats.shape[1]} ({int(live.sum())} live) onto {ncell} '
+              f'cells')
+        record('bev_splat', float((got.float() - ref.float()).abs().max()),
+               '0, equal', bool(torch.equal(got, ref)),
+               lambda: voxelize.bev_splat(feats, lin, ncell),
+               lambda: voxelize.bev_splat_plain(feats, lin, ncell), lib, 50,
+               3,
+               # live rows read, every id read, the canvas written
+               int(live.sum()) * feats.shape[1] * esize + lin.numel() * 4
+               + ncell * feats.shape[1] * esize, 0, note)
+    if 'rotated_iou' in calls:
+        ((boxes,),) = calls['rotated_iou']
+        got = rotated_iou.iou_bev_pairwise(boxes)
+        ref = rotated_iou.iou_bev_pairwise_plain(boxes)
+        n_near = k5_cull(boxes, got, ref, card, f'mvx predict inputs{note}')
+        err = float((got - ref).abs().max())
+        record('rotated_iou', err, '1e-5', err <= 1e-5,
+               lambda: rotated_iou.iou_bev_pairwise(boxes),
+               lambda: rotated_iou.iou_bev_pairwise_plain(boxes), None, 20,
+               2, *k5_work(boxes, n_near), note)
+    if 'nms_sweep' in calls:
+        ((iou, valid, thr),) = calls['nms_sweep']
+        keep = nms.suppress_sweep(iou, valid, thr)
+        ref = nms.suppress_sweep_plain(iou, valid, thr)
+        record('nms_sweep', float((keep.int() - ref.int()).abs().max()),
+               '0, equal', bool(torch.equal(keep, ref)),
+               lambda: nms.suppress_sweep(iou, valid, thr),
+               lambda: nms.suppress_sweep_plain(iou, valid, thr), None, 50,
+               2, *k6_work(valid, ref), note)
+    return out
+
+
+def mvx_predict_phase(det, batches, tag, card):
+    """(x) or (x16): the kernels on one predict's inputs (in bf16 K2 on
+    its bf16 rows), 6 requests with launch counts, a profile and the
+    parts' shares.  -> (kernel numbers, launches, summary)."""
+    b0 = batches[0]
+    call = 'predict' if tag == '(x)' else 'bf16 predict'
+    note = f' (mvx {call})'
+    with torch.inference_mode():
+        calls = record_calls(lambda: det.predict(b0), predict_patches())
+        got = {k: len(v) for k, v in calls.items()}
+        want = {k: v for k, v in MVX_PREDICT_LAUNCHES.items() if v}
+        check(got == want, f'{tag} predict called {got}, want {want}')
+        dt = det.trunk.compute_dtype or torch.float32
+        rows_dt = calls['bev_splat'][0][0].dtype
+        check(rows_dt == dt, f'{tag} K2 on {rows_dt} rows, want {dt}')
+        if tag != '(x)':
+            calls = {'bev_splat': calls['bev_splat']}
+        results = mvx_kernel_checks(calls, card, call, note)
+    del calls
+    launches, summary = main_path(det, batches, MVX_PREDICT_LAUNCHES, tag,
+                                  card)
+    summary['on_image_share'] = mvx_on_image(b0, tag)
+    summary.update(device_profile(lambda: det.predict(b0), 'predict', tag,
+                                  card, 5))
+    summary.update(mvx_part_shares(det, b0, summary.get('device_busy_ms'),
+                                   tag, card))
+    return results, launches, summary
+
+
+def _fusion_indexing(fusion, feats, xyz, l2i, hw):
+    """PointFusion's forward with the bilinear sample's gathers as plain
+    indexing (autograd's own backward: ``index_put_`` with accumulate),
+    the JAX package's form."""
+    from mmdet3d_gaussian_tpu_torch.models.img_fusion import \
+        project_points_to_img
+    uv, valid = project_points_to_img(xyz, l2i, hw)
+    acc = None
+    for i, (f, stride) in enumerate(zip(feats, fusion.img_levels)):
+        b, h, w, c = f.shape
+        p = uv / stride
+        x = p[..., 0].clamp(0, w - 1)
+        y = p[..., 1].clamp(0, h - 1)
+        x0 = torch.floor(x).long().clamp(0, w - 2)
+        y0 = torch.floor(y).long().clamp(0, h - 2)
+        dx, dy = (x - x0)[..., None], (y - y0)[..., None]
+        bi = torch.arange(b, device=f.device)[:, None]
+        s = ((1 - dy) * ((1 - dx) * f[bi, y0, x0] + dx * f[bi, y0, x0 + 1])
+             + dy * ((1 - dx) * f[bi, y0 + 1, x0]
+                     + dx * f[bi, y0 + 1, x0 + 1]))
+        yl = getattr(fusion, f'lateral_{i}')(s)
+        acc = yl if acc is None else acc + yl
+    out = torch.relu(fusion.fuse(torch.relu(acc)))
+    return out * valid[..., None].to(out.dtype)
+
+
+def mvx_fusion_backward(det, batch, card):
+    """The fusion's backward on a step's inputs, timed alone (device ms of
+    ``autograd.grad`` into the FPN maps on a kept graph): the port's
+    ``index_add_`` against plain indexing's backward (sorted
+    ``index_put_`` with accumulate); the two gradients held to each
+    other."""
+    trunk = det.trunk
+    seen = {}
+    hook = trunk.fusion.register_forward_pre_hook(
+        lambda mod, args: seen.__setitem__('args', args))
+    with torch.no_grad():
+        trunk.train()
+        trunk.paint(batch['points'], batch['img'], batch['lidar2img'])
+    hook.remove()
+    feats, xyz, l2i, hw = seen['args']
+    feats = [f.detach().requires_grad_(True) for f in feats]
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    g = torch.randn(xyz.shape[:2] + (trunk.fusion.fuse.out_features,),
+                    generator=gen, device='cuda')
+    variants = {}
+    for name in ('index_add_ (the path)', 'plain indexing'):
+        out = (_fusion_indexing(trunk.fusion, feats, xyz, l2i, hw)
+               if name == 'plain indexing'
+               else trunk.fusion(feats, xyz, l2i, hw))
+
+        def bwd(out=out):
+            return torch.autograd.grad(out, feats, g, retain_graph=True)
+        variants[name] = (device_ms(bwd, 5), bwd())
+        del out
+    ref = variants['index_add_ (the path)'][1]
+    err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+              for a, b in zip(variants['plain indexing'][1], ref))
+    ms = {name: t for name, (t, _) in variants.items()}
+    print(f'(xt) fusion backward alone (device ms, into {len(feats)} FPN '
+          f'maps from {xyz.shape[0]} x {xyz.shape[1]} points): '
+          f'{ {k: round(v, 4) for k, v in ms.items()} }; gradients apart '
+          f'by {err:.3g} of the largest (tol 1e-5) [{card}]')
+    check(err <= 1e-5, 'the fusion backward variants disagree')
+    return dict(fusion_backward_ms=ms)
+
+
+def mvx_conv_algorithms(det, batch, card):
+    """Device ms of the image branch's and of SECOND + SECONDFPN's forward
+    and backward in training (a sum of their maps), with cuDNN's
+    heuristics and with its benchmark mode (its algorithm search), and the
+    FFT or Winograd kernels each runs."""
+    trunk = det.trunk
+    trunk.train()
+    img = batch['img']
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    canvas = torch.randn((img.shape[0], trunk.ny, trunk.nx,
+                          trunk.backbone.blocks[0][0].in_channels),
+                         generator=gen, device='cuda')
+    parts = {
+        'image branch': (lambda: trunk.image_features(img),
+                         list(trunk.img_backbone.parameters())
+                         + list(trunk.img_neck.parameters())),
+        'SECOND + SECONDFPN': (lambda: trunk.neck(trunk.backbone(canvas)),
+                               list(trunk.backbone.parameters())
+                               + list(trunk.neck.parameters()))}
+    cudnn = torch.backends.cudnn
+    out = {}
+    for part, (fwd, params) in parts.items():
+        def step(fwd=fwd, params=params):
+            maps = fwd()
+            maps = maps if isinstance(maps, (list, tuple)) else [maps]
+            torch.autograd.grad(sum(m.float().sum() for m in maps), params)
+        for bench in (False, True):
+            with cudnn.flags(enabled=cudnn.enabled, benchmark=bench,
+                             deterministic=cudnn.deterministic,
+                             allow_tf32=cudnn.allow_tf32):
+                by_name = device_ms_by_name(step, 3)
+            tilings = {k[:70]: round(v, 4) for k, v in by_name.items()
+                       if 'fft' in k.lower() or 'winograd' in k.lower()
+                       or 'cf32' in k.lower()}
+            key = f'{part}, benchmark {"on" if bench else "off"}'
+            out[key] = sum(by_name.values())
+            print(f'(xt) {key}: forward + backward {out[key]:.3f} device ms; '
+                  f'FFT / Winograd kernels {tilings or "none"} [{card}]')
+    return dict(conv_ms=out)
+
+
+def mvx_train_phase(batch, card):
+    """(xt): K1's winner, K4 (39 + 39, each on its rows path) and K3 on a
+    dense step's inputs held to their plain versions; the image
+    backbone's gradient norm; the fusion's backward alone; 3 warm-up and
+    10 sparse-target steps, 3 dense-target steps and a 3-step profile.
+    -> (kernel numbers, launches, summary)."""
+    tdet = mvx_detector()
+    ddet = mvx_detector(head=dict(pos_cap=0))
+    dstate = ddet.init_train(LR, total_steps=100)
+    dstate, _ = ddet.train_step(batch, dstate)          # warm-up
+    capture = {k: v for k, v in MVX_DENSE_LAUNCHES.items()
+               if k in ('bn_moments', 'bn_grad_moments', 'segment_max_winner',
+                        'gd_loss_fwd', 'gd_loss_bwd')}
+    inputs, dstate = capture_train_inputs(ddet, batch, dstate, capture)
+    with torch.no_grad():
+        results = train_kernel_checks(inputs, card, ' (mvx step)')
+    del inputs
+    total, _ = tdet.loss(tdet.apply_train(batch), batch)
+    img = [p for k, p in tdet.trunk.named_parameters()
+           if k.startswith('img_backbone.')]
+    grads = torch.autograd.grad(total, img)
+    norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+    n_zero = sum(int(float(g.abs().max()) == 0) for g in grads)
+    print(f'(xt) image backbone gradient norm {norm:.6g} over {len(img)} '
+          f'parameters ({n_zero} all zero) [{card}]')
+    check(norm > 0 and n_zero == 0, 'the image backbone got no gradient')
+    summary = dict(img_backbone_grad_norm=norm)
+    summary.update(mvx_fusion_backward(tdet, batch, card))
+    summary.update(mvx_conv_algorithms(tdet, batch, card))
+    launches = {}
+    tstate = tdet.init_train(LR, total_steps=100)
+    launches['train'], tstate, train = timed_steps(
+        tdet, batch, tstate, MVX_STEP_LAUNCHES, '(xt)', card)
+    summary.update(train)
+    launches['train_dense'], dstate, summary['dense_step_ms'] = dense_steps(
+        ddet, batch, dstate, MVX_DENSE_LAUNCHES, '(xt)', card)
+    del ddet, dstate
+    holder = [tstate]
+
+    def one_step():
+        holder[0] = tdet.train_step(batch, holder[0])[0]
+    summary.update(device_profile(one_step, 'train step', '(xt)', card, 3))
+    return {k: {'step': v} for k, v in results.items()}, launches, summary
+
+
+def mvx_phases(card):
+    """Phases (c) mvx, (x), (x16) and (xt).  -> (kernel numbers by call,
+    launches by path, summaries)."""
+    t0 = time.perf_counter()
+    tiny_mvx_card_vs_cpu(card)
+    batches = [mvx_batch(s) for s in SEEDS]
+    results, launches, summary = {}, {}, {}
+    for tag, cfg in (('(x)', None), ('(x16)', dict(compute_dtype='bfloat16'))):
+        det = mvx_detector(cfg)
+        k, launches[f'predict{tag[2:-1]}'], summary[tag[1:-1]] = \
+            mvx_predict_phase(det, batches, tag, card)
+        for name, r in k.items():
+            results.setdefault(name, {}).update(r)
+        del det
+        torch.cuda.empty_cache()
+    k, step_launches, summary['xt'] = mvx_train_phase(batches[0], card)
+    for name, r in k.items():
+        results.setdefault(name, {}).update(r)
+    launches.update(step_launches)
+    del batches
+    torch.cuda.empty_cache()
+    summary['phases_s'] = time.perf_counter() - t0
+    print(f'(c) mvx, (x), (x16), (xt) wall {summary["phases_s"]:.1f} s '
+          f'[{card}]')
+    return results, launches, summary
+
+
 def union_us(intervals):
     """Length of the union of (start, end) intervals."""
     total, cur_start, cur_end = 0.0, None, None
@@ -4459,6 +4923,12 @@ def main() -> int:
           f'{info["seconds"]:.2f} s -> {os.path.relpath(info["path"], root)}')
     for kern, text in _cuda.ptxas_summary(info['ptxas']).items():
         print(f'(a) ptxas {kern}: {text}')
+    if sys.argv[1:] == ['--only', 'mvx']:
+        # the MVX phases alone (no result line): a quick run of that path
+        _, mvx_launches, mvx_e2e = mvx_phases(card)
+        print(f'(e) mvx launches {json.dumps(mvx_launches)} [{card}]')
+        print(f'(e) mvx summary {json.dumps(mvx_e2e)} [{card}]')
+        return 0
 
     # full-width detectors and requests: f32 on the plain canvas (K2), bf16
     # on the s2d canvas (K7)
@@ -4582,6 +5052,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     pv_k, pv_launches, pv_e2e = pvrcnn_phases(root, card)    # (p)-(P)
     torch.cuda.empty_cache()
+    mvx_k, mvx_launches, mvx_e2e = mvx_phases(card)   # (c) mvx, (x)-(xt)
+    torch.cuda.empty_cache()
     loop_k, loop_launches, loop_e2e = loop_phase(root, card)   # (L)
 
     kernels = []                                       # (e)
@@ -4665,6 +5137,11 @@ def main() -> int:
         entry['pvrcnn'] = dict(pv_k.get(name, {}), launches={
             path: runs[name] for path, runs in pv_launches.items()
             if runs.get(name)})
+        # phases (x)-(xt): launches per MVX path, numbers on its inputs by
+        # call (f32 and bf16 predict, the step)
+        entry['mvx'] = dict(mvx_k.get(name, {}), launches={
+            path: runs[name] for path, runs in mvx_launches.items()
+            if runs.get(name)})
         kernels.append(entry)
     print(f'(e) predict summary {json.dumps(e2e)} [{card}]')
     print(f'(e) bf16 predict summary {json.dumps(e2e16)} [{card}]')
@@ -4676,6 +5153,7 @@ def main() -> int:
     print(f'(e) centerpoint summary {json.dumps(cp_e2e)} [{card}]')
     print(f'(e) mvf summary {json.dumps(mvf_e2e)} [{card}]')
     print(f'(e) pvrcnn summary {json.dumps(pv_e2e)} [{card}]')
+    print(f'(e) mvx summary {json.dumps(mvx_e2e)} [{card}]')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -59,17 +59,28 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics from K4 (no cuDNN), biased variance in the running update.
     Eval uses the running statistics.  The output has the input's type; a
     bf16 input is normalized in f32 with ``FastBatchNorm``'s formula and
-    rounded once, in training and in eval."""
+    rounded once, in training and in eval.
+
+    ``promote=True`` is flax's ``nn.BatchNorm`` with no dtype instead (the
+    image branch of MVX): the same formula, its output left f32 whatever
+    the input's type (the result type of the input and the f32
+    parameters)."""
+
+    def __init__(self, *args, promote: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.promote = promote
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = torch.float32 if self.promote else x.dtype
         if not self.training:
             if x.dtype == torch.float32:
                 return super().forward(x)
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             return ((x.float() - self.running_mean[:, None, None])
                     * inv[:, None, None]
-                    + self.bias[:, None, None]).to(x.dtype)
-        y, mean, var = bn_train(x, self.weight, self.bias, self.eps)
+                    + self.bias[:, None, None]).to(out_dtype)
+        y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
+                                out_dtype)
         with torch.no_grad():
             self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
             self.running_var.mul_(MOMENTUM).add_(var, alpha=1 - MOMENTUM)

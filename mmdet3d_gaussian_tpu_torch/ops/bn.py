@@ -20,7 +20,8 @@ one partial sum each, which the kernel's last block adds in order (one
 launch a call, bitwise repeatable).  They are f32, or
 bf16 in the mixed-precision model (``FastBatchNorm(dtype='bfloat16')``):
 the sums are f32 either way, and ``bn_train``'s output has the input's
-type, computed in f32 and rounded once, as the JAX module's.  Each wrapper
+type, computed in f32 and rounded once, as the JAX module's (or is left
+f32 with ``out_dtype``, as flax's ``nn.BatchNorm`` leaves it).  Each wrapper
 computes its plain PyTorch version for CPU tensors and launches the kernel
 for CUDA tensors; there is no fallback between the two.
 """
@@ -289,24 +290,33 @@ def grad_moments(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
                     inv.data_ptr()), x.element_size())
 
 
+def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (mean, biased variance) of x from K4's sums, f32:
+    ``var = max(sum x^2 / M - mean^2, 0)``."""
+    su, sq = moments(x)
+    cnt = float(x.numel() // x.shape[1])
+    mean = su / cnt
+    return mean, torch.clamp_min(sq / cnt - mean * mean, 0.0)
+
+
 def _channel_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
     return t.view(1, -1, 1, 1) if ndim == 4 else t
 
 
 class BNTrain(torch.autograd.Function):
-    """``bn_train(x, scale, bias, eps) -> (y, mean, var)``; mean and var
-    (biased) carry no gradient (they feed the running statistics)."""
+    """``bn_train(x, scale, bias, eps, out_dtype) -> (y, mean, var)``;
+    mean and var (biased) carry no gradient (they feed the running
+    statistics)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float):
-        su, sq = moments(x)
+    def forward(ctx, x, scale, bias, eps: float,
+                out_dtype: Optional[torch.dtype] = None):
+        mean, var = batch_stats(x)
         cnt = float(x.numel() // x.shape[1])
-        mean = su / cnt
-        var = torch.clamp_min(sq / cnt - mean * mean, 0.0)
         inv = torch.rsqrt(var + eps)
         k = _channel_view(inv * scale, x.dim())
         y = ((x.float() - _channel_view(mean, x.dim())) * k + _channel_view(
-            bias, x.dim())).to(x.dtype)
+            bias, x.dim())).to(out_dtype or x.dtype)
         ctx.save_for_backward(x, scale, mean, inv)
         ctx.cnt = cnt
         ctx.mark_non_differentiable(mean, var)
@@ -315,6 +325,12 @@ class BNTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
         x, scale, mean, inv = ctx.saved_tensors
+        dtype = x.dtype
+        if gy.dtype != dtype:
+            # an f32 output of a bf16 input: the sums read both in f32 (the
+            # cast keeps x's memory format, so its rows path)
+            x = x.float()
+            gy = gy.float()
         sg, sgx = grad_moments(gy, x, mean, inv)
         cnt = ctx.cnt
         nd = x.dim()
@@ -322,12 +338,14 @@ class BNTrain(torch.autograd.Function):
         dx = _channel_view(inv * scale, nd) * (
             gy.float() - _channel_view(sg / cnt, nd)
             - xhat * _channel_view(sgx / cnt, nd))
-        return dx.to(x.dtype), sgx, sg, None
+        return dx.to(dtype), sgx, sg, None, None
 
 
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-             eps: float):
+             eps: float, out_dtype: Optional[torch.dtype] = None):
     """Training-mode BN over the channel dim 1 of an (M, C) or (B, C, H, W)
-    f32 or bf16 tensor -> (y of x's type, batch mean, batch biased var, both
-    f32)."""
-    return BNTrain.apply(x, scale, bias, eps)
+    f32 or bf16 tensor -> (y of ``out_dtype`` (None: x's type), batch mean,
+    batch biased var, both f32).  ``out_dtype=torch.float32`` on a bf16 x
+    is flax's ``nn.BatchNorm`` rule (the result type of x and the f32
+    parameters); the gradient of x then has x's type."""
+    return BNTrain.apply(x, scale, bias, eps, out_dtype)

@@ -2,7 +2,7 @@
 
 ``jax_variables_to_torch`` takes the JAX package's ``{'params',
 'batch_stats'}`` tree of a ``PointPillarsNet`` (hard or dynamic encoder,
-anchor or center head) as nested dicts of numpy arrays and returns a
+anchor or center head) or an ``MVXPillarsNet`` as nested dicts of numpy arrays and returns a
 ``state_dict`` for
 :class:`~mmdet3d_gaussian_tpu_torch.models.detectors.voxelnet.PointPillarsNet`
 with mmdet3d-style names; ``jax_grads_to_torch`` maps a gradient tree (the
@@ -24,6 +24,10 @@ shape of ``params``) the same way, to one tensor per parameter name:
   ``.1``;
 * ``bbox_head/conv_{cls,reg,dir_cls}`` -> ``bbox_head.conv_*`` (anchor
   head);
+* MVX's image branch under the same names: ``img_backbone/stem``,
+  ``stem_bn``, ``stage{i}_block{j}/{conv1, bn1, conv2, bn2, down,
+  bn_down}``; ``img_neck/lateral_{i}``, ``fpn_out_{i}`` (with their
+  biases); ``fusion/lateral_{i}``, ``fuse`` (Dense kernels transposed);
 * ``bbox_head/shared_conv``, ``shared_bn`` -> ``bbox_head.shared_conv.conv``
   / ``.bn``, and ``bbox_head/task{t}/{name}_conv{j}``, ``{name}_bn{j}``,
   ``{name}_out`` -> ``bbox_head.task_heads.{t}.{name}.{j}.conv`` /
@@ -191,6 +195,7 @@ def _convert(params, stats, upsample_strides=None
             tracked=False)
 
     _backbone_neck(sd, params, sub_stats, '', upsample_strides)
+    _img_branch(sd, params, sub_stats)
     head = params.get('bbox_head', {})
     if 'shared_conv' in head:
         _center_head(sd, head, sub_stats)
@@ -249,6 +254,35 @@ def _backbone_neck(sd, params, sub_stats, prefix,
         sd[f'{prefix}neck.deblocks.{i}.0.weight'] = _t(w)
         _bn(sd, f'{prefix}neck.deblocks.{i}.1', neck[f'deblock{i}_bn'],
             sub_stats('neck', f'deblock{i}_bn'), tracked=True)
+
+
+def _img_branch(sd, params, sub_stats) -> None:
+    """MVX's image branch and fusion (``img_backbone``, ``img_neck``,
+    ``fusion``) into ``sd``, under the same names."""
+    bb = params.get('img_backbone', {})
+    if 'stem' in bb:
+        sd['img_backbone.stem.weight'] = _conv(bb['stem']['kernel'])
+        _bn(sd, 'img_backbone.stem_bn', bb['stem_bn'],
+            sub_stats('img_backbone', 'stem_bn'), tracked=True)
+    for name, tree in bb.items():
+        if not re.fullmatch(r'stage\d+_block\d+', name):
+            continue
+        for conv, bn in (('conv1', 'bn1'), ('conv2', 'bn2'),
+                         ('down', 'bn_down')):
+            if conv not in tree:
+                continue
+            pre = f'img_backbone.{name}'
+            sd[f'{pre}.{conv}.weight'] = _conv(tree[conv]['kernel'])
+            _bn(sd, f'{pre}.{bn}', tree[bn],
+                sub_stats('img_backbone', name, bn), tracked=True)
+    for name, conv in params.get('img_neck', {}).items():
+        if re.fullmatch(r'(lateral|fpn_out)_\d+', name):
+            sd[f'img_neck.{name}.weight'] = _conv(conv['kernel'])
+            sd[f'img_neck.{name}.bias'] = _t(conv['bias'])
+    for name, dense in params.get('fusion', {}).items():
+        if re.fullmatch(r'lateral_\d+|fuse', name):
+            sd[f'fusion.{name}.weight'] = _t(np.asarray(dense['kernel']).T)
+            sd[f'fusion.{name}.bias'] = _t(dense['bias'])
 
 
 def _linear_bn(sd, prefix, lin, norm, norm_stats) -> None:

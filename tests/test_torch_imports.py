@@ -50,7 +50,8 @@ def test_port_modules_listed():
                 'engine.timing', 'tools.data_converter.kitti_converter',
                 'tools.data_converter.create_gt_database',
                 'ops.sparse_conv', 'ops.vsa', 'models.middle_encoders',
-                'models.roi_heads', 'engine.pvrcnn'):
+                'models.roi_heads', 'engine.pvrcnn', 'models.img_fusion',
+                'models.detectors.mvx_faster_rcnn', 'engine.mvx'):
         assert 'mmdet3d_gaussian_tpu_torch.' + mod in names
 
 
@@ -59,7 +60,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(' ', 1)
-    assert int(count) >= 69
+    assert int(count) >= 72
     assert bad == '[]', bad
 
 
