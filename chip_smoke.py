@@ -221,13 +221,43 @@ Phases, each printing its own lines (any failure exits non-zero):
       and 10 sparse-target steps, 3 dense-target steps, a 3-step profile.
       ``python3 chip_smoke.py --only mvx`` runs (a) and these phases alone
       and prints no result line;
+  (w) Waymo PointPillars (``configs/waymo/hv_pointpillars_secfpn_gwd5_
+      sbn_8x4_2x_waymo-3d-3class.py`` through the CLIs' ``build_detector``:
+      hard voxelize at 0.32 m over +-74.88 m, a 468 x 468 canvas, the
+      first stage at stride 1, the 384-channel neck, 1,314,144 aligned
+      anchors a sample) at full width, random weights from a seed with the
+      cls bias zeroed, B = 4 x 180,000 five-channel points from
+      :func:`waymo_scene` (ground rings, walls, points on 20-40 boxes):
+      the live pillars per sample and how many the 32,000 cap drops; K2,
+      K5 and K6 on one predict's inputs held to their plain versions and
+      timed beside their bounds and yardsticks; 6 requests with launch
+      counts (K2, K5, K6 once, never K1 or K7); a profile;
+  (wt) the Waymo f32 train step: K4's 19 + 19 calls and K3 (its gwd3d
+      form) on a dense step held to their plain versions; 3 warm-up and
+      10 sparse-target steps, 3 dense-target steps, a 3-step profile;
+  (wd) data parallel on the card: the full-width Waymo step on two gloo
+      ranks on the one card (NCCL refuses two ranks on one device) at
+      global B = 4 (2 + 2), 2 steps, against one rank on the 4 samples
+      (loss terms, every gradient, running statistics; ranks' parameters
+      bitwise equal; K4's all-reduced sums against the plain moments of
+      the 4 samples) and the host time of the step's 38 BatchNorm
+      all-reduces; the same 38 over NCCL on one rank; ``torchrun
+      --nproc_per_node 1`` of the train CLI with ``--distributed`` (NCCL,
+      world 1) for 3 steps on a Waymo-format tree written here (8 train
+      and 4 val frames, 6-column bins, the config with only its data
+      paths moved), then the test CLI with ``--metric waymo`` on its
+      checkpoint (every value finite in [0, 1]), launches per CLI run;
+      (w)-(wd) within 150 s.  ``python3 chip_smoke.py --only waymo`` runs
+      (a) and these phases alone and prints no result line;
   (e) one JSON line listing the kernels (with their launches on the hard
       paths and K2's and K1's numbers there, under ``loop`` the launches
       of each CLI run and the numbers on the loop's inputs, under
       ``centerpoint`` the launches of each CenterPoint path and the
       numbers on its inputs, under ``mvf`` those of the MVF paths, by
-      call, under ``pvrcnn`` those of the PV-RCNN paths and under ``mvx``
-      those of the MVX paths), the card's name and power limit from
+      call, under ``pvrcnn`` those of the PV-RCNN paths, under ``mvx``
+      those of the MVX paths, under ``waymo`` those of the Waymo paths and
+      under ``dp`` the launches of the data-parallel CLI runs and K4's
+      all-reduced check), the card's name and power limit from
       nvidia-smi, and the result line.
 
 f32 runs with TF32 off for matmuls and cuDNN convolutions; the bf16 paths
@@ -460,15 +490,26 @@ def cuda_spans(prof):
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+# the key under which device_ms_by_name returns a CUDA-event time when the
+# profiler recorded no activity
+EVENTS_KEY = '(no profiler trace: whole calls timed on CUDA events)'
+# calls of device_ms_by_name that the profiler left without activity
+PROFILER_MISSES = []
+
+
 def device_ms_by_name(fn, iters, warmup=2):
     """{name: mean device ms per call} of the kernels, copies and fills
     that ``iters`` calls of ``fn`` ran on the card (torch.profiler), so
-    host time between launches is left out."""
+    host time between launches is left out.  The tracer now and then
+    records no activity, and once it has, may record none for the rest
+    of the process: after three empty traces (one, once that has
+    happened) the calls are timed back to back on CUDA events instead,
+    host gaps included, and the result is ``{EVENTS_KEY: ms}``."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(5):      # the tracer now and then returns no activity
+    for _ in range(1 if PROFILER_MISSES else 3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -480,7 +521,11 @@ def device_ms_by_name(fn, iters, warmup=2):
             for start, end, name in spans:
                 out[name] = out.get(name, 0.0) + (end - start) / 1e3 / iters
             return out
-    raise SmokeFailure('the profiler recorded no device time')
+    ms = cuda_ms(fn, iters, warmup=0)
+    PROFILER_MISSES.append(ms)
+    print(f'profiler: no device activity recorded (miss {len(PROFILER_MISSES)});'
+          f' {ms:.4f} ms a call on CUDA events, host gaps included')
+    return {EVENTS_KEY: ms}
 
 
 def device_ms(fn, iters, warmup=2):
@@ -797,6 +842,10 @@ def k6_split(fn, card, what):
     """Phase (b), K6: the device ms of its two kernels, the pack and the
     sweep, by their profiler names.  -> {'pack': ms, 'sweep': ms}."""
     by_name = device_ms_by_name(fn, 50)
+    if EVENTS_KEY in by_name:
+        print(f'(b) nms_sweep ({what}): pack and sweep not measured (no '
+              f'profiler trace) [{card}]')
+        return {'pack': None, 'sweep': None}
     split = {part: sum(ms for name, ms in by_name.items()
                        if f'nms_{part}_kernel' in name)
              for part in ('pack', 'sweep')}
@@ -1623,22 +1672,24 @@ def train_kernel_checks(inputs, card, note=''):
     from mmdet3d_gaussian_tpu_torch.ops import gd_loss, segment
     results = {}
 
-    # K1 winner form: the encoder's final per-voxel max (64 channels) and
-    # its per-row winner mask
-    ((data, ids, starts, counts),) = inputs['segment_max_winner']
-    out, mask = segment.segment_max_winner(data, ids, starts, counts)
-    ref, ref_m = segment.segment_max_winner_plain(data, ids, starts, counts)
-    exact = bool(torch.equal(out, ref) and torch.equal(mask, ref_m))
-    report(results, 'segment_max_winner', card,
-           float((out - ref).abs().max()), '0, masks equal', exact,
-           lambda: segment.segment_max_winner(data, ids, starts, counts),
-           lambda: segment.segment_max_winner_plain(data, ids, starts,
-                                                    counts), None,
-           200, 5, *k1_work('winner', data, ids, starts, counts),
-           f' exact_equal={exact}{note}')
-    check_k1_path('segment_max_winner', data, note)
-    cold_warm(results, 'segment_max_winner', segment.segment_max_winner,
-              (data, ids, starts, counts), card, note, 200)
+    # K1 winner form, where the step ran it (the dynamic encoder): the
+    # final per-voxel max (64 channels) and its per-row winner mask
+    if 'segment_max_winner' in inputs:
+        ((data, ids, starts, counts),) = inputs['segment_max_winner']
+        out, mask = segment.segment_max_winner(data, ids, starts, counts)
+        ref, ref_m = segment.segment_max_winner_plain(data, ids, starts,
+                                                      counts)
+        exact = bool(torch.equal(out, ref) and torch.equal(mask, ref_m))
+        report(results, 'segment_max_winner', card,
+               float((out - ref).abs().max()), '0, masks equal', exact,
+               lambda: segment.segment_max_winner(data, ids, starts, counts),
+               lambda: segment.segment_max_winner_plain(data, ids, starts,
+                                                        counts), None,
+               200, 5, *k1_work('winner', data, ids, starts, counts),
+               f' exact_equal={exact}{note}')
+        check_k1_path('segment_max_winner', data, note)
+        cold_warm(results, 'segment_max_winner', segment.segment_max_winner,
+                  (data, ids, starts, counts), card, note, 200)
 
     check_k4(results, inputs, card, note)
 
@@ -2282,12 +2333,15 @@ LOOP_STEP_LAUNCHES = {'bn_moments': 19, 'bn_grad_moments': 19,
 LOOP_PREDICT_LAUNCHES = {'bev_splat': 1, 'rotated_iou': 1, 'nms_sweep': 1}
 CLI_RUNNER = r'''
 import json, sys
+import torch.distributed as dist
 from mmdet3d_gaussian_tpu_torch.ops import _cuda
 from mmdet3d_gaussian_tpu_torch.tools import train, test
 _cuda.reset_launches()
 {'train': train, 'test': test}[sys.argv[2]].main(sys.argv[3:])
 with open(sys.argv[1], 'w') as f:
     json.dump(_cuda.LAUNCHES, f)
+if dist.is_initialized():
+    dist.destroy_process_group()
 '''
 
 
@@ -4550,11 +4604,11 @@ def mvx_part_shares(det, batch, busy_ms, tag, card):
                 fft_winograd=tilings, shares=shares)
 
 
-def mvx_kernel_checks(calls, card, call, note):
+def mvx_kernel_checks(calls, card, call, note, tag='(x)'):
     """Those of K1 (reduce, mapback), K2, K5 and K6 that ``calls`` holds
-    (one full-width MVX predict's inputs), each held to its plain version
-    at phase (b)'s tolerance and timed beside its bound and its one-call
-    yardstick.  -> {kernel: {call: numbers}}."""
+    (one full-width MVX or Waymo predict's inputs), each held to its plain
+    version at phase (b)'s tolerance and timed beside its bound and its
+    one-call yardstick.  -> {kernel: {call: numbers}}."""
     from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, segment
     from mmdet3d_gaussian_tpu_torch.ops import voxelize
     out = {}
@@ -4571,7 +4625,7 @@ def mvx_kernel_checks(calls, card, call, note):
             data, starts, counts, op)).abs().max())
         n_live = int(torch.count_nonzero(counts))
         rows, lengths = int(counts.sum()), counts[:n_live].long()
-        print(f'(x) segment_reduce{note}: {data.shape[0]} rows x '
+        print(f'{tag} segment_reduce{note}: {data.shape[0]} rows x '
               f'{data.shape[1]} into {n_live} live of {counts.shape[0]} '
               f'voxels')
         record('segment_reduce', err, '0', err == 0,
@@ -4605,7 +4659,7 @@ def mvx_kernel_checks(calls, card, call, note):
         lib()
         check(torch.equal(canvas, ref), 'index_copy_ yardstick disagrees')
         esize = feats.element_size()
-        print(f'(x) bev_splat{note}: {feats.shape[0]} {feats.dtype} rows x '
+        print(f'{tag} bev_splat{note}: {feats.shape[0]} {feats.dtype} rows x '
               f'{feats.shape[1]} ({int(live.sum())} live) onto {ncell} '
               f'cells')
         record('bev_splat', float((got.float() - ref.float()).abs().max()),
@@ -4620,7 +4674,7 @@ def mvx_kernel_checks(calls, card, call, note):
         ((boxes,),) = calls['rotated_iou']
         got = rotated_iou.iou_bev_pairwise(boxes)
         ref = rotated_iou.iou_bev_pairwise_plain(boxes)
-        n_near = k5_cull(boxes, got, ref, card, f'mvx predict inputs{note}')
+        n_near = k5_cull(boxes, got, ref, card, f'predict inputs{note}')
         err = float((got - ref).abs().max())
         record('rotated_iou', err, '1e-5', err <= 1e-5,
                lambda: rotated_iou.iou_bev_pairwise(boxes),
@@ -4847,6 +4901,673 @@ def mvx_phases(card):
     return results, launches, summary
 
 
+# ------------------------------------------------------- phases (w)-(wd)
+# Waymo PointPillars (the gwd5 SyncBN 3-class config) at full width, and
+# data-parallel training on the card.
+WAYMO_CONFIG = ('configs/waymo/'
+                'hv_pointpillars_secfpn_gwd5_sbn_8x4_2x_waymo-3d-3class.py')
+WAYMO_POINTS = 180000
+WAYMO_SEEDS = (10, 11, 12)
+WAYMO_CLASSES = ('Car', 'Pedestrian', 'Cyclist')
+# Waymo class sizes (dx, dy, dz), the config's anchor sizes
+WAYMO_SIZES = ((4.73, 2.08, 1.77), (0.91, 0.84, 1.74), (1.81, 0.84, 1.77))
+# the top LiDAR: 64 beams from +2.4 to -17.6 degrees at 2.2 m over the
+# ground; the beams below the horizon sweep rings of the ground
+WAYMO_BEAMS = np.radians(np.linspace(2.4, -17.6, 64))
+WAYMO_SENSOR_Z = 2.2
+WAYMO_PREDICT_LAUNCHES = {'bev_splat': 1, 'bev_splat_pairs': 0,
+                          'rotated_iou': 1, 'nms_sweep': 1, **NO_K1}
+WAYMO_STEP_LAUNCHES = {'bn_moments': 19, 'bn_grad_moments': 19,
+                       'bev_splat': 1, 'bev_splat_pairs': 0, **NO_K1}
+WAYMO_DENSE_LAUNCHES = {**WAYMO_STEP_LAUNCHES, **DENSE_LAUNCHES}
+# (wd): two gloo ranks on the card against one rank on the 4 samples.
+# Only the summation order differs (K4's chunks follow the row count, the
+# gradients add up over two ranks), in f32 with TF32 off, through 19
+# BatchNorms whose 1 / sigma scales a difference at each layer, and
+# cuDNN's algorithms, which it picks by the batch (2 samples against 4):
+# its f32 weight gradients of SECOND's 3 x 3 convs run through FFT tilings
+# (`regular_fft_pad`, `vector_fft` and complex GEMMs in (wt)'s profile).
+# The gradients' gap sits in conv weights (0.00348 and 0.00187 of a conv
+# weight's largest at the two steps, where the loss terms agree to 3e-7,
+# on an NVIDIA H100 80GB HBM3 at 700 W).  Each step from the same state:
+# the loss terms within WD_LOSS_RTOL, every gradient leaf within
+# WD_GRAD_TOL of its largest value, the running statistics within
+# WD_STAT_TOL of their largest; K4's all-reduced sums within 1e-5 of the
+# per-channel sum of magnitudes (phase (b)'s rule).  A rank that skipped
+# the gradient all-reduce would be half the gradient off, local BatchNorm
+# statistics or a local loss normalizer would move the loss terms by far
+# more than WD_LOSS_RTOL.
+WD_SEED = 10
+WD_LOSS_RTOL = 1e-4
+WD_GRAD_TOL = 1e-2
+WD_STAT_TOL = 1e-4
+WD_TIMEOUT_S = 300
+WD_CLI_STEPS = 3
+WD_TRAIN, WD_VAL = 8, 4
+WAYMO_LIMIT_S = 150.0
+
+
+def waymo_scene(rng, n=WAYMO_POINTS):
+    """One Waymo-like frame from ``rng``: 20-40 boxes of the 3 classes at
+    their sizes (centres log-uniform 4-60 m from the sensor), and ``n``
+    points of (x, y, z, intensity, elongation): a tenth on the boxes, a
+    fifth on walls (vertical segments 15-70 m out), the rest on the
+    ground rings of the beams below the horizon, so the density falls
+    with range as a spinning LiDAR's.  -> (points (n, 5) f32, boxes
+    (G, 7) bottom-centred, labels (G,))."""
+    g = rng.randint(20, 41)
+    cls = rng.choice(3, g, p=(0.6, 0.3, 0.1))
+    r = np.exp(rng.uniform(np.log(4.0), np.log(60.0), g))
+    phi = rng.uniform(-np.pi, np.pi, g)
+    dims = np.asarray(WAYMO_SIZES)[cls] * rng.uniform(0.9, 1.1, (g, 3))
+    yaw = rng.uniform(-np.pi, np.pi, g)
+    boxes = np.c_[r * np.cos(phi), r * np.sin(phi), np.zeros(g), dims,
+                  yaw].astype(np.float32)
+    n_obj, n_wall = n // 10, n // 5
+    n_gnd = n - n_obj - n_wall
+    owner = rng.randint(0, g, n_obj)
+    local = rng.uniform(-0.5, 0.5, (n_obj, 3)) * boxes[owner, 3:6]
+    c, s = np.cos(boxes[owner, 6]), np.sin(boxes[owner, 6])
+    obj = np.c_[boxes[owner, 0] + c * local[:, 0] - s * local[:, 1],
+                boxes[owner, 1] + s * local[:, 0] + c * local[:, 1],
+                boxes[owner, 5] / 2 + local[:, 2]]
+    n_walls = 24
+    w_r = rng.uniform(15.0, 70.0, n_walls)
+    w_phi = rng.uniform(-np.pi, np.pi, n_walls)
+    w_len = rng.uniform(5.0, 25.0, n_walls)
+    w_dir = w_phi + np.pi / 2 + rng.uniform(-0.5, 0.5, n_walls)
+    which = rng.randint(0, n_walls, n_wall)
+    t = rng.uniform(-0.5, 0.5, n_wall) * w_len[which]
+    wall = np.c_[w_r[which] * np.cos(w_phi[which])
+                 + t * np.cos(w_dir[which]),
+                 w_r[which] * np.sin(w_phi[which])
+                 + t * np.sin(w_dir[which]),
+                 rng.uniform(0.0, 3.5, n_wall)]
+    down = WAYMO_BEAMS[WAYMO_BEAMS < np.radians(-1.5)]
+    rings = WAYMO_SENSOR_Z / np.tan(-down)
+    ring = rings[rng.randint(0, len(rings), n_gnd)]
+    rr = ring * (1 + rng.normal(0, 0.002, n_gnd))
+    pp = rng.uniform(-np.pi, np.pi, n_gnd)
+    gnd = np.c_[rr * np.cos(pp), rr * np.sin(pp),
+                rng.normal(0.0, 0.03, n_gnd)]
+    xyz = np.concatenate([obj, wall, gnd])
+    pts = np.c_[xyz, rng.uniform(0, 1, n), rng.uniform(0, 0.3, n)]
+    return pts.astype(np.float32), boxes, cls.astype(np.int32)
+
+
+def waymo_batch(seed, b=BATCH, n=WAYMO_POINTS, num_gt=64, dev='cuda'):
+    """A batch of ``b`` :func:`waymo_scene` frames from ``seed``."""
+    rng = np.random.RandomState(seed)
+    points = np.zeros((b, n, 5), np.float32)
+    gt = np.zeros((b, num_gt, 7), np.float32)
+    labels = np.zeros((b, num_gt), np.int32)
+    valid = np.zeros((b, num_gt), bool)
+    for i in range(b):
+        pts, boxes, cls = waymo_scene(rng, n)
+        points[i] = pts
+        gt[i, :len(boxes)] = boxes
+        labels[i, :len(boxes)] = cls
+        valid[i, :len(boxes)] = True
+    arrays = dict(points=points, points_mask=np.ones((b, n), bool),
+                  gt_bboxes=gt, gt_labels=labels, gt_valid=valid)
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def waymo_config(repo):
+    from mmdet3d_gaussian_tpu_torch.tools.common import load_config
+    return load_config(os.path.join(repo, WAYMO_CONFIG))
+
+
+def waymo_detector(cfg, head=None, group=None, seed=0):
+    """The config's detector on the card from ``seed`` (through the CLIs'
+    ``build_detector``), its cls bias zeroed so that NMS has candidates;
+    ``head`` updates the config's head."""
+    from mmdet3d_gaussian_tpu_torch.tools.common import build_detector
+    cfg = dict(model=dict(cfg.get('model')),
+               head=dict(cfg.get('head'), **(head or {})))
+    det = build_detector(cfg, 'cuda', seed=seed, group=group)
+    with torch.no_grad():
+        det.trunk.bbox_head.conv_cls.bias.zero_()
+    return det
+
+
+def waymo_pillars(det, batch, tag):
+    """Print the live pillars of each sample (the distinct canvas cells
+    its points fall in) and how many hard voxelize drops at the batch's
+    capacity; -> (live per sample, dropped)."""
+    from mmdet3d_gaussian_tpu_torch.ops.scatter import compute_voxel_coords
+    trunk = det.trunk
+    per = []
+    for pts in batch['points']:
+        coords, _ = compute_voxel_coords(pts[:, :3], trunk.point_cloud_range,
+                                         trunk.voxel_size)
+        live = (coords >= 0).all(-1)
+        cell = coords[live, 0].long() * trunk.ny + coords[live, 1].long()
+        per.append(int(torch.unique(cell).numel()))
+    with torch.inference_mode():
+        _, _, sc = trunk.pillars(batch['points'], batch['points_mask'])
+    dropped = int(sc.num_overflow)
+    print(f'{tag} live pillars per sample {per}, capacity '
+          f'{trunk.max_voxels_per_sample} a sample ({sc.max_voxels} the '
+          f'batch): {int(sc.num_voxels)} kept, {dropped} dropped')
+    return per, dropped
+
+
+def waymo_predict_phase(det, batches, card):
+    """(w): K2, K5, K6 on one predict's inputs held to their plain
+    versions and timed; 6 requests with launch counts; a profile.  ->
+    (kernel numbers, launches, summary)."""
+    b0 = batches[0]
+    with torch.inference_mode():
+        calls = record_calls(lambda: det.predict(b0), predict_patches())
+        got = {k: len(v) for k, v in calls.items()}
+        want = {k: v for k, v in WAYMO_PREDICT_LAUNCHES.items() if v}
+        check(got == want, f'(w) predict called {got}, want {want}')
+        results = mvx_kernel_checks(calls, card, 'predict',
+                                    ' (waymo predict)', tag='(w)')
+    del calls
+    per, dropped = waymo_pillars(det, b0, '(w)')
+    launches, summary = main_path(det, batches, WAYMO_PREDICT_LAUNCHES,
+                                  '(w)', card, out_rows=det.head.test_cfg[
+                                      'max_num'], points=WAYMO_POINTS)
+    summary.update(pillars_per_sample=per, pillars_dropped=dropped)
+    summary.update(device_profile(lambda: det.predict(b0), 'predict', '(w)',
+                                  card, 3))
+    return results, launches, summary
+
+
+def waymo_train_phase(cfg, batch, card):
+    """(wt): K4 (19 + 19) and K3 (its gwd3d form) on a dense step's inputs
+    held to their plain versions; 3 warm-up and 10 sparse-target steps,
+    3 dense-target steps and a 3-step profile.  -> (kernel numbers,
+    launches, summary)."""
+    tdet = waymo_detector(cfg)
+    ddet = waymo_detector(cfg, head=dict(pos_cap=0))
+    dstate = ddet.init_train(LR, total_steps=100)
+    dstate, _ = ddet.train_step(batch, dstate)          # warm-up
+    capture = {k: WAYMO_DENSE_LAUNCHES[k] for k in (
+        'bn_moments', 'bn_grad_moments', 'gd_loss_fwd', 'gd_loss_bwd')}
+    inputs, dstate = capture_train_inputs(ddet, batch, dstate, capture)
+    check(inputs['gd_loss_fwd'][0][5][0] == 'gwd3d',
+          f'K3 ran {inputs["gd_loss_fwd"][0][5]}, want the gwd3d form')
+    with torch.no_grad():
+        results = train_kernel_checks(inputs, card, ' (waymo step)')
+    del inputs
+    launches, summary = {}, {}
+    tstate = tdet.init_train(LR, total_steps=100)
+    launches['train'], tstate, summary = timed_steps(
+        tdet, batch, tstate, WAYMO_STEP_LAUNCHES, '(wt)', card,
+        points=WAYMO_POINTS)
+    launches['train_dense'], dstate, summary['dense_step_ms'] = dense_steps(
+        ddet, batch, dstate, WAYMO_DENSE_LAUNCHES, '(wt)', card)
+    del ddet, dstate
+    holder = [tstate]
+
+    def one_step():
+        holder[0] = tdet.train_step(batch, holder[0])[0]
+    summary.update(device_profile(one_step, 'train step', '(wt)', card, 3))
+    return {k: {'step': v} for k, v in results.items()}, launches, summary
+
+
+def wd_steps(det, batch, steps=2, group=None, start=None,
+             keep_state=False):
+    """``steps`` train steps of ``det`` on ``batch`` (from ``start``, a
+    state this function kept, if given); -> each step's metrics, the
+    gradients AdamW was given and the running statistics (on the host),
+    the parameters after the last, with ``keep_state`` the state after
+    the first step; under ``group`` also the first step's K4 sums after
+    the all-reduce beside the plain moments (and sums of magnitudes) of
+    this rank's rows, and the host time of the step's BatchNorm
+    all-reduces in one more step."""
+    from mmdet3d_gaussian_tpu_torch.ops import bn
+    from mmdet3d_gaussian_tpu_torch.parallel.train_state import (
+        OptState, make_optimizer)
+    opt = make_optimizer(LR, 100)
+    grads = []
+    update = opt.update
+
+    def recording(g, *args, **kw):
+        grads.append({k: v.detach().cpu().clone() for k, v in g.items()})
+        return update(g, *args, **kw)
+    opt.update = recording
+    state = det.init_train(optimizer=opt)
+    if start is not None:
+        det.trunk.load_state_dict(start['trunk'], strict=True)
+        dev = det.device
+        state = state._replace(step=start['step'], opt_state=OptState(
+            start['count'], {k: v.to(dev) for k, v in start['mu'].items()},
+            {k: v.to(dev) for k, v in start['nu'].items()}))
+    k4 = dict(reduced=[], plain=[], mags=[])
+    originals = (bn.moments, bn._group_sums)
+    first = [group is not None]
+
+    def moments(x):
+        out = originals[0](x)
+        if first[0]:
+            rows = bn._channels_last_2d(x).float()
+            k4['plain'].append(tuple(t.cpu() for t in
+                                     bn.moments_plain(x)))
+            k4['mags'].append((rows.abs().sum(0).cpu(),
+                               (rows * rows).sum(0).cpu()))
+        return out
+
+    def group_sums(*args):
+        out = originals[1](*args)
+        if first[0] and len(k4['reduced']) < len(k4['plain']):
+            k4['reduced'].append(tuple(t.cpu() for t in out[:2]))
+        return out
+    bn.moments, bn._group_sums = moments, group_sums
+    metrics, stats, kept = [], [], None
+    try:
+        for _ in range(steps):
+            state, m = det.train_step(batch, state)
+            first[0] = False
+            metrics.append({k: float(v) for k, v in m.items()})
+            stats.append({k: v.cpu().clone() for k, v in
+                          det.trunk.named_buffers() if 'running_' in k})
+            if keep_state and kept is None:
+                opt_state = state.opt_state
+                kept = dict(
+                    trunk={k: v.cpu().clone()
+                           for k, v in det.trunk.state_dict().items()},
+                    step=state.step, count=opt_state.count,
+                    mu={k: v.cpu().clone() for k, v in opt_state.mu.items()},
+                    nu={k: v.cpu().clone() for k, v in opt_state.nu.items()})
+    finally:
+        bn.moments, bn._group_sums = originals
+    out = dict(metrics=metrics, grads=grads, stats=stats, k4=k4, state=kept,
+               params={k: v.detach().cpu().clone()
+                       for k, v in det.trunk.named_parameters()})
+    if group is not None:
+        spent = [0.0, 0]
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = originals[1](*args)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return res
+        bn._group_sums = timed
+        try:
+            det.train_step(batch, state)
+        finally:
+            bn._group_sums = originals[1]
+        out['bn_all_reduce'] = dict(ms=spent[0] * 1e3, calls=spent[1])
+    return out
+
+
+def wd_rank(rank, world, store, repo, out):
+    """One rank of (wd) 1: gloo on the card (``cuda:0``, as torchrun's
+    ``LOCAL_RANK`` would say for one card), the config's detector from
+    seed 0 under the group, this rank's rows of the global batch, 2
+    checked steps and one timed one; saves :func:`wd_steps`' result."""
+    import datetime
+    import traceback
+    try:
+        sys.path.insert(0, repo)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import torch.distributed as dist
+        from mmdet3d_gaussian_tpu_torch.parallel.mesh import (
+            init_distributed, shard_batch)
+        group = init_distributed(
+            backend='gloo', init_method='file://' + store, rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=WD_TIMEOUT_S))
+        det = waymo_detector(waymo_config(repo), group=group)
+        batch = shard_batch(waymo_batch(WD_SEED), group)
+        torch.save(dict(wd_steps(det, batch, group=group,
+                                 keep_state=rank == 0), rank=rank,
+                        world=group.world,
+                        device=str(next(det.trunk.parameters()).device)),
+                   out)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(out + '.err', 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def wd_spawn(repo, tmp, world=2):
+    """Start (wd) 1's ranks and join them within WD_TIMEOUT_S (killed
+    past it); -> their results."""
+    import multiprocessing
+    ctx = multiprocessing.get_context('spawn')
+    outs = [os.path.join(tmp, f'rank{r}.pt') for r in range(world)]
+    procs = [ctx.Process(target=wd_rank, args=(r, world,
+                                               os.path.join(tmp, 'store'),
+                                               repo, outs[r]))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + WD_TIMEOUT_S
+    try:
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        alive = [proc for proc in procs if proc.is_alive()]
+        for proc in alive:
+            proc.kill()
+            proc.join(10)
+    errors = [open(o + '.err').read() for o in outs
+              if os.path.exists(o + '.err')]
+    check(not alive and not errors
+          and all(proc.exitcode == 0 for proc in procs),
+          f'(wd) ranks: {len(alive)} killed past {WD_TIMEOUT_S} s, exit '
+          f'codes {[proc.exitcode for proc in procs]}:\n'
+          + '\n'.join(e[-3000:] for e in errors))
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def rel_max(a, b):
+    """max |a - b| over the largest |b| (a leaf's difference relative to
+    its largest value)."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+def worst_of(got, want, rel):
+    """(largest of ``rel(got[k], want[k])`` over the keys, its key)."""
+    return max((rel(got[k], v), k) for k, v in want.items())
+
+
+def wd_two_ranks(repo, cfg, card):
+    """(wd) 1: the full-width Waymo step on two gloo ranks on the card
+    against one rank on the 4 samples, each step from the same state: the
+    first from the seed's weights, the second from rank 0's state after
+    the first (a random init's first AdamW step moves every weight by
+    about lr, so a sign flip of a gradient at its rounding carries into
+    the next step at full size).  -> summary."""
+    import tempfile
+    det = waymo_detector(cfg)
+    batch = waymo_batch(WD_SEED)
+    per, dropped = waymo_pillars(det, batch, '(wd)')
+    check(dropped == 0, f'(wd) the batch drops {dropped} pillars: a '
+          f'truncated batch keeps other pillars on two ranks than on one')
+    t0 = time.perf_counter()
+    one = [wd_steps(det, batch, steps=1)]
+    one_s = time.perf_counter() - t0
+    del det
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_wd_') as tmp:
+        ranks = wd_spawn(repo, tmp)
+    spawn_s = time.perf_counter() - t0
+    a, b = ranks
+    det = waymo_detector(cfg)
+    one.append(wd_steps(det, batch, steps=1, start=a['state']))
+    del det, batch
+    torch.cuda.empty_cache()
+    check(a['world'] == b['world'] == 2 and a['device'].startswith('cuda'),
+          f'(wd) ranks ran on {a["device"]}, world {a["world"]}')
+    for k in a['params']:
+        check(torch.equal(a['params'][k], b['params'][k]),
+              f'(wd) rank parameters differ: {k}')
+    for k in a['stats'][-1]:
+        check(torch.equal(a['stats'][-1][k], b['stats'][-1][k]),
+              f'(wd) rank running statistics differ: {k}')
+    worst = {}
+    for s in range(2):
+        ref = one[s]
+        worst[f'step{s + 1}'] = dict(
+            loss=worst_of(a['metrics'][s], {k: v for k, v in
+                                            ref['metrics'][0].items()
+                                            if k != 'grad_norm'},
+                          lambda g, w: abs(g - w) / max(abs(w), 1e-30)),
+            grad=worst_of(a['grads'][s], ref['grads'][0], rel_max),
+            stat=worst_of(a['stats'][s], ref['stats'][0], rel_max))
+    params = worst_of(a['params'], one[1]['params'], rel_max)
+    # K4: the all-reduced sums of each forward BatchNorm of step 1 against
+    # the plain moments of both ranks' rows, over the sums of magnitudes
+    k4_rel, n_calls = 0.0, len(a['k4']['reduced'])
+    check(n_calls == 19 and len(b['k4']['reduced']) == 19,
+          f'(wd) {n_calls} all-reduced K4 calls in step 1, want 19')
+    for i in range(n_calls):
+        for j in range(2):
+            got = a['k4']['reduced'][i][j]
+            check(torch.equal(got, b['k4']['reduced'][i][j]),
+                  f'(wd) ranks hold other K4 sums at BatchNorm {i}')
+            want = a['k4']['plain'][i][j] + b['k4']['plain'][i][j]
+            mag = a['k4']['mags'][i][j] + b['k4']['mags'][i][j]
+            k4_rel = max(k4_rel, float(((got - want).abs()
+                                        / mag.clamp(min=1e-30)).max()))
+    for step, w in worst.items():
+        print(f'(wd) {step}, two gloo ranks on one card at global B = 4 '
+              f'(2 + 2) against one rank on the 4 samples from the same '
+              f'state: loss terms within {w["loss"][0]:.3g} ({w["loss"][1]};'
+              f' tol {WD_LOSS_RTOL}), gradients within {w["grad"][0]:.3g} '
+              f'of the leaf\'s largest ({w["grad"][1]}; tol {WD_GRAD_TOL}), '
+              f'running statistics {w["stat"][0]:.3g} ({w["stat"][1]}; tol '
+              f'{WD_STAT_TOL}) [{card}]')
+    print(f'(wd) parameters after step 2 within {params[0]:.3g} of the '
+          f'leaf\'s largest ({params[1]}; AdamW moves each weight by about '
+          f'lr whatever its gradient\'s size: not checked); the ranks\' '
+          f'parameters and statistics bitwise equal; K4\'s all-reduced sums '
+          f'against the plain moments of the 4 samples {k4_rel:.3g} of the '
+          f'sums of magnitudes (tol 1e-5) [{card}]')
+    agree = (all(w['loss'][0] <= WD_LOSS_RTOL and w['grad'][0] <= WD_GRAD_TOL
+                 and w['stat'][0] <= WD_STAT_TOL for w in worst.values())
+             and k4_rel <= 1e-5)
+    ar = a['bn_all_reduce']
+    print(f'(wd) the step\'s {ar["calls"]} BatchNorm all-reduces (gloo, two '
+          f'ranks on one card; synchronized on each side, host clock): '
+          f'{ar["ms"]:.3f} ms a step on rank 0, {b["bn_all_reduce"]["ms"]:.3f}'
+          f' ms on rank 1; a one-rank step {one_s:.1f} s with its start, '
+          f'the two-rank run {spawn_s:.1f} s wall [{card}]')
+    check(ar['calls'] == 38, f'(wd) {ar["calls"]} all-reduces a step, '
+          f'want 38')
+    return dict({f'{step}_{k}': v[0] for step, w in worst.items()
+                 for k, v in w.items()}, params_rel=params[0],
+                k4_rel=k4_rel, all_reduce_ms=ar['ms'],
+                all_reduce_calls=ar['calls'], pillars_per_sample=per,
+                spawn_s=spawn_s, agree=agree)
+
+
+def nccl_all_reduce_ms(card, iters=20):
+    """Device ms of the 38 all-reduces of a Waymo step's BatchNorms
+    (2C + 1 floats each) over an NCCL group of one rank on the card, CUDA
+    events around ``iters`` steps' worth."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    widths = [64] * 4 + [128] * 6 + [256] * 6 + [128] * 3
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_nccl_') as tmp:
+        dist.init_process_group(
+            'nccl', init_method='file://' + os.path.join(tmp, 'store'),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+        try:
+            bufs = [torch.zeros(2 * c + 1, device='cuda')
+                    for c in widths for _ in range(2)]
+
+            def run():
+                for t in bufs:
+                    dist.all_reduce(t)
+            ms = cuda_ms(run, iters)
+        finally:
+            dist.destroy_process_group()
+    print(f'(wd) the 38 BatchNorm all-reduces of a step over NCCL, one '
+          f'rank: {ms:.4f} ms a step (CUDA events over {iters} steps) '
+          f'[{card}]')
+    return ms
+
+
+def write_waymo_tree(root, seed=0, n_train=WD_TRAIN, n_val=WD_VAL):
+    """A Waymo-format (KITTI-layout) tree of :func:`waymo_scene` frames:
+    6-column bins (x, y, z, intensity, elongation, timestamp) under
+    ``training/velodyne_reduced``, identity calibrations, camera-frame
+    boxes with their difficulty and point counts, and
+    ``waymo_infos_{train,val}.pkl``.  -> frames written."""
+    import pickle
+    rng = np.random.RandomState(seed)
+    vel = os.path.join(root, 'training', 'velodyne_reduced')
+    os.makedirs(vel, exist_ok=True)
+    calib = dict(R0_rect=np.eye(4), Tr_velo_to_cam=np.eye(4),
+                 P2=np.eye(3, 4))
+    infos = []
+    for i in range(n_train + n_val):
+        pts, boxes, cls = waymo_scene(rng)
+        np.c_[pts, np.zeros(len(pts))].astype(np.float32).tofile(
+            os.path.join(vel, f'{i:07d}.bin'))
+        # points inside each box (its bottom-centred frame)
+        d = pts[None, :, :3] - boxes[:, None, :3]
+        c, s = np.cos(-boxes[:, 6:7]), np.sin(-boxes[:, 6:7])
+        lx = c * d[..., 0] - s * d[..., 1]
+        ly = s * d[..., 0] + c * d[..., 1]
+        inside = ((np.abs(lx) <= boxes[:, 3:4] / 2)
+                  & (np.abs(ly) <= boxes[:, 4:5] / 2)
+                  & (d[..., 2] >= 0) & (d[..., 2] <= boxes[:, 5:6]))
+        g = len(boxes)
+        annos = dict(
+            name=np.asarray([WAYMO_CLASSES[k] for k in cls]),
+            location=boxes[:, :3].astype(np.float64),
+            dimensions=boxes[:, [3, 5, 4]].astype(np.float64),
+            rotation_y=(-boxes[:, 6] - np.pi / 2).astype(np.float64),
+            bbox=np.tile([0., 0., 100., 100.], (g, 1)),
+            occluded=np.zeros(g, np.int32), truncated=np.zeros(g),
+            difficulty=np.where(rng.rand(g) < 0.2, 2, 1).astype(np.int32),
+            num_points_in_gt=inside.sum(1).astype(np.int32))
+        infos.append(dict(
+            point_cloud=dict(velodyne_path=f'training/velodyne/{i:07d}.bin'),
+            calib=calib, annos=annos))
+    for name, part in (('train', infos[:n_train]), ('val', infos[n_train:])):
+        with open(os.path.join(root, f'waymo_infos_{name}.pkl'), 'wb') as f:
+            pickle.dump(part, f)
+    return len(infos)
+
+
+def waymo_derived_config(tmp, root, repo):
+    """``tmp/waymo.py``: the Waymo config by absolute path with only its
+    train and val data paths moved under ``root``; checked to load to that
+    config with those paths changed and nothing else.  -> its path."""
+    from mmdet3d_gaussian_tpu_torch.utils.config import Config
+    base = os.path.join(repo, WAYMO_CONFIG)
+    want = Config.fromfile(base).to_dict()
+    for split in ('train', 'val'):
+        want['data'][split]['data_root'] = root + '/'
+        want['data'][split]['ann_file'] = os.path.join(
+            root, f'waymo_infos_{split}.pkl')
+    text = f'_base_ = [{base!r}]\ndata = dict(\n' + ''.join(
+        f'    {split}=dict(data_root={want["data"][split]["data_root"]!r}, '
+        f'ann_file={want["data"][split]["ann_file"]!r}),\n'
+        for split in ('train', 'val')) + ')\n'
+    path = os.path.join(tmp, 'waymo.py')
+    with open(path, 'w') as f:
+        f.write(text)
+    check(Config.fromfile(path).to_dict() == want, 'the derived Waymo '
+          'config differs from the config beyond its data paths')
+    return path
+
+
+def wd_cli(repo, card):
+    """(wd) 2 and 3: ``torchrun --nproc_per_node 1`` of the train CLI with
+    ``--distributed`` (NCCL, world 1) on a Waymo-format tree written here,
+    WD_CLI_STEPS steps, then the test CLI with ``--metric waymo`` on its
+    checkpoint.  -> (launches per run, summary)."""
+    import tempfile
+    summary, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_waymo_') as tmp:
+        root = os.path.join(tmp, 'waymo')
+        t0 = time.perf_counter()
+        frames = write_waymo_tree(root)
+        cfg_path = waymo_derived_config(tmp, root, repo)
+        print(f'(wd) Waymo-format tree: {frames} frames ({WD_TRAIN} train, '
+              f'{WD_VAL} val), config {WAYMO_CONFIG} with its data paths '
+              f'moved [{time.perf_counter() - t0:.1f} s]')
+        runner = os.path.join(tmp, 'runner.py')
+        with open(runner, 'w') as f:
+            f.write(CLI_RUNNER)
+        counts = os.path.join(tmp, 'launches_train.json')
+        work = os.path.join(tmp, 'work')
+        env = dict(os.environ, PYTHONPATH=repo)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+             '--nproc_per_node', '1', runner, counts, 'train', cfg_path,
+             '--distributed', '--work-dir', work, '--max-steps',
+             str(WD_CLI_STEPS), '--log-interval', '1'],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        summary['train_s'] = time.perf_counter() - t0
+        check(out.returncode == 0, f'(wd) torchrun train exited '
+              f'{out.returncode}: {out.stderr[-3000:]}')
+        with open(counts) as f:
+            launches['train'] = {k: v for k, v in json.load(f).items() if v}
+        log = read_log(work)
+        check([r['step'] for r in log] == list(range(1, WD_CLI_STEPS + 1))
+              and all(math.isfinite(r['loss']) for r in log),
+              f'(wd) train log {log}')
+        check_launches('(wd) torchrun train', launches['train'],
+                       {k: v for k, v in WAYMO_STEP_LAUNCHES.items() if v},
+                       WD_CLI_STEPS)
+        print(f'(wd) torchrun --nproc_per_node 1 tools.train --distributed '
+              f'(NCCL, world 1): {WD_CLI_STEPS} steps in '
+              f'{summary["train_s"]:.1f} s, losses '
+              f'{[round(r["loss"], 4) for r in log]}, launches '
+              f'{launches["train"]} [{card}]')
+        ckpt = os.path.join(work, f'ckpt_{WD_CLI_STEPS}.pt')
+        stdout, launches['test'], summary['test_s'] = run_cli(
+            'test', [cfg_path, ckpt, '--metric', 'waymo'], tmp, repo)
+        report = report_json(stdout)
+        bad = {k: v for k, v in report.items()
+               if not (math.isfinite(v) and 0.0 <= v <= 1.0)}
+        check(report and not bad, f'(wd) waymo report outside [0, 1]: '
+              f'{bad or report}')
+        check_launches('(wd) test', launches['test'],
+                       {k: v for k, v in WAYMO_PREDICT_LAUNCHES.items()
+                        if v}, 1)
+        summary['report'] = report
+        print(f'(wd) tools.test --metric waymo on ckpt_{WD_CLI_STEPS}.pt: '
+              f'{len(report)} values in [0, 1] (mAP_L1 '
+              f'{report.get("mAPH_L1", float("nan")):.4f} mAPH_L1, '
+              f'{report["mAP_L2"]:.4f} mAP_L2) in {summary["test_s"]:.1f} s,'
+              f' launches {launches["test"]} [{card}]')
+    return launches, summary
+
+
+def waymo_phases(repo, card):
+    """Phases (w), (wt) and (wd).  -> (kernel numbers by call, launches by
+    path, summaries)."""
+    t0 = time.perf_counter()
+    cfg = waymo_config(repo)
+    det = waymo_detector(cfg)
+    check(det.trunk.voxelize_mode == 'hard' and not det.trunk.s2d
+          and det.trunk.grid() == (468, 468)
+          and det.featmap_size == (468, 468), '(w) the Waymo trunk')
+    print(f'(w) {WAYMO_CONFIG}: hard voxelize on a 468 x 468 canvas, '
+          f'first stage at stride 1, {det.anchors[..., 0].numel()} anchors '
+          f'a sample; B = {BATCH} x {WAYMO_POINTS} points of 5 channels')
+    batches = [waymo_batch(s) for s in WAYMO_SEEDS]
+    results, launches, summary = {}, {}, {}
+    k, launches['predict'], summary['w'] = waymo_predict_phase(det, batches,
+                                                               card)
+    for name, r in k.items():
+        results.setdefault(name, {}).update(r)
+    del det
+    torch.cuda.empty_cache()
+    k, step_launches, summary['wt'] = waymo_train_phase(cfg, batches[0],
+                                                        card)
+    for name, r in k.items():
+        results.setdefault(name, {}).update(r)
+    launches.update(step_launches)
+    del batches
+    torch.cuda.empty_cache()
+    summary['w_wt_s'] = time.perf_counter() - t0
+    dp = dict(two_ranks=wd_two_ranks(repo, cfg, card))
+    torch.cuda.empty_cache()
+    dp['nccl_all_reduce_ms'] = nccl_all_reduce_ms(card)
+    dp_launches, dp['cli'] = wd_cli(repo, card)
+    # (wd) 1's comparison fails the phase here, after the CLI runs
+    check(dp['two_ranks']['agree'], '(wd) two ranks disagree with one rank '
+          'beyond the tolerances')
+    summary['phases_s'] = time.perf_counter() - t0
+    print(f'(w), (wt), (wd) wall {summary["phases_s"]:.1f} s (limit '
+          f'{WAYMO_LIMIT_S:.0f} s) [{card}]')
+    check(summary['phases_s'] <= WAYMO_LIMIT_S,
+          f'(w)-(wd) took {summary["phases_s"]:.1f} s')
+    return results, launches, summary, dp, dp_launches
+
+
 def union_us(intervals):
     """Length of the union of (start, end) intervals."""
     total, cur_start, cur_end = 0.0, None, None
@@ -4928,6 +5649,14 @@ def main() -> int:
         _, mvx_launches, mvx_e2e = mvx_phases(card)
         print(f'(e) mvx launches {json.dumps(mvx_launches)} [{card}]')
         print(f'(e) mvx summary {json.dumps(mvx_e2e)} [{card}]')
+        return 0
+    if sys.argv[1:] == ['--only', 'waymo']:
+        # the Waymo and data-parallel phases alone (no result line)
+        _, w_launches, w_e2e, dp, dp_launches = waymo_phases(root, card)
+        print(f'(e) waymo launches {json.dumps(w_launches)} [{card}]')
+        print(f'(e) waymo summary {json.dumps(w_e2e)} [{card}]')
+        print(f'(e) dp launches {json.dumps(dp_launches)} [{card}]')
+        print(f'(e) dp summary {json.dumps(dp)} [{card}]')
         return 0
 
     # full-width detectors and requests: f32 on the plain canvas (K2), bf16
@@ -5054,6 +5783,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mvx_k, mvx_launches, mvx_e2e = mvx_phases(card)   # (c) mvx, (x)-(xt)
     torch.cuda.empty_cache()
+    w_k, w_launches, w_e2e, dp, dp_launches = waymo_phases(  # (w)-(wd)
+        root, card)
+    torch.cuda.empty_cache()
     loop_k, loop_launches, loop_e2e = loop_phase(root, card)   # (L)
 
     kernels = []                                       # (e)
@@ -5142,6 +5874,22 @@ def main() -> int:
         entry['mvx'] = dict(mvx_k.get(name, {}), launches={
             path: runs[name] for path, runs in mvx_launches.items()
             if runs.get(name)})
+        # phases (w)-(wt): launches per Waymo path, numbers on its inputs
+        entry['waymo'] = dict(w_k.get(name, {}), launches={
+            path: runs[name] for path, runs in w_launches.items()
+            if runs.get(name)})
+        # phase (wd): launches per data-parallel CLI run; for K4 its
+        # all-reduced sums against the plain moments of the whole batch
+        # and the cost of the step's BatchNorm all-reduces
+        entry['dp'] = dict(launches={
+            run: counts[name] for run, counts in dp_launches.items()
+            if counts.get(name)})
+        if name == 'bn_moments':
+            entry['dp'].update(
+                all_reduced_vs_plain=dp['two_ranks']['k4_rel'],
+                gloo_two_ranks_all_reduce_ms=dp['two_ranks'][
+                    'all_reduce_ms'],
+                nccl_one_rank_all_reduce_ms=dp['nccl_all_reduce_ms'])
         kernels.append(entry)
     print(f'(e) predict summary {json.dumps(e2e)} [{card}]')
     print(f'(e) bf16 predict summary {json.dumps(e2e16)} [{card}]')
@@ -5154,6 +5902,10 @@ def main() -> int:
     print(f'(e) mvf summary {json.dumps(mvf_e2e)} [{card}]')
     print(f'(e) pvrcnn summary {json.dumps(pv_e2e)} [{card}]')
     print(f'(e) mvx summary {json.dumps(mvx_e2e)} [{card}]')
+    print(f'(e) waymo summary {json.dumps(w_e2e)} [{card}]')
+    print(f'(e) dp summary {json.dumps(dp)} [{card}]')
+    print(f'(e) profiler misses (timed on CUDA events instead): '
+          f'{len(PROFILER_MISSES)}')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -1,10 +1,11 @@
-"""Dataset wrappers ``RepeatDataset`` and ``CBGSDataset``, and
-``NuScenesDataset``.
+"""Dataset wrappers ``RepeatDataset`` and ``CBGSDataset``,
+``WaymoDataset`` and ``NuScenesDataset``.
 
 The part of ``mmdet3d_gaussian_tpu/datasets/other_datasets.py`` that the
-KITTI configs (their train split is a ``RepeatDataset``, times=2) and the
-nuScenes configs (``NuScenesDataset`` under ``CBGSDataset``) need; the
-Waymo and Cowa datasets come with their model families.
+KITTI configs (their train split is a ``RepeatDataset``, times=2), the
+Waymo configs (``WaymoDataset``) and the nuScenes configs
+(``NuScenesDataset`` under ``CBGSDataset``) need; the Cowa dataset comes
+with its model family.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import numpy as np
 
 from ..core.evaluation.mean_ap import eval_map_flexible
 from ..registry import DATASETS
+from .kitti import KittiDataset
+from .mem_util import SharedList
 from .pipelines import Compose
 
 
@@ -88,6 +91,42 @@ class CBGSDataset:
 
     def evaluate(self, *args, **kwargs):
         return self.dataset.evaluate(*args, **kwargs)
+
+
+@DATASETS.register_module()
+class WaymoDataset(KittiDataset):
+    """KITTI-format Waymo infos (reference ``waymo_dataset.py:8-13``), the
+    annotation list optionally shared through ``/dev/shm``
+    (``use_shared_memory``) so the loader's workers map one copy."""
+    CLASSES = ('Car', 'Pedestrian', 'Cyclist')
+
+    def __init__(self, *args, use_shared_memory: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        if use_shared_memory:
+            self.data_infos = SharedList(list(self.data_infos))
+
+    def evaluate(self, results, metric='waymo', logger=None, **kwargs):
+        """'waymo' = the Waymo OD protocol (mAP / mAPH at LEVEL_1 and
+        LEVEL_2, Hungarian matching, per-class 3D-IoU thresholds 0.7 /
+        0.5 / 0.5: ``core/evaluation/waymo_metrics.py``); 'cowa' (any other
+        name) = flexible IoU3D mAP with a range breakdown."""
+        annotations = [self.get_ann_info(i) for i in range(len(self))]
+        if metric in ('waymo', ['waymo']):
+            from ..core.evaluation.waymo_metrics import eval_waymo
+            return eval_waymo(results, annotations,
+                              classes=list(self.CLASSES), logger=logger)
+        return eval_map_flexible(
+            results, annotations, match_thrs=[0.7, 0.5],
+            affinity_calculator=dict(type='LidarIOU3D', z_offset=0.5),
+            classes=list(self.CLASSES), logger=logger,
+            breakdowns=[dict(type='RangeBreakdown',
+                             ranges=dict(D0_30=(0, 30), D30_50=(30, 50),
+                                         D50_inf=(50, 1e5)))],
+            report_config=[
+                ('mAP_L_0.7', lambda k: (k['breakdown'] == 'All'
+                                         and k['match_threshold'] == 0.7)),
+                ('mAP', lambda k: k['breakdown'] == 'All'),
+            ])
 
 
 @DATASETS.register_module()

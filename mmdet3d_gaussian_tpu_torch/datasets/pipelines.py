@@ -251,12 +251,15 @@ class GlobalRotScaleTrans:
 @PIPELINES.register_module()
 class NormalizeIntensityTanh:
     """intensity -> post_gain * tanh(pre_gain * i) (reference
-    ``transfroms_3d.py:6-28``)."""
+    ``transfroms_3d.py:6-28``).  The intensity's column is
+    ``intensity_column``, the reference's name, which the Waymo configs
+    pass (the JAX package names it ``intensity_dim`` and so cannot build
+    their pipelines)."""
 
     def __init__(self, pre_gain: float = 1.0, post_gain: float = 1.0,
-                 intensity_dim: int = 3):
+                 intensity_column: int = 3):
         self.pre_gain, self.post_gain = pre_gain, post_gain
-        self.dim = intensity_dim
+        self.dim = intensity_column
 
     def __call__(self, results):
         p = results['points']

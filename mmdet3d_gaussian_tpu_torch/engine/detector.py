@@ -119,7 +119,40 @@ def init_weights(trunk: nn.Module, seed: int) -> None:
 
 class _Detector:
     """What both detectors share: the trunk's forward in training and in
-    eval mode, and the train step around ``parallel/train_state.py``."""
+    eval mode, and the train step around ``parallel/train_state.py``.
+
+    ``group`` (a ``parallel.mesh.Group``, from the constructor or
+    :meth:`init_train`; None: one process) makes the train step data
+    parallel: each rank's batch is its rows of the global batch, every
+    BatchNorm of the trunk takes the whole batch's statistics, the loss
+    normalizers are global and the gradients are summed over the ranks, so
+    a step on R ranks is the one-process step on all their rows.
+    ``predict`` runs on each rank's own rows."""
+
+    group = None
+
+    def _data_parallel(self) -> bool:
+        """Whether this family's train step is ported for more than one
+        rank."""
+        return False
+
+    def set_group(self, group) -> None:
+        """Train over ``group``'s ranks (see the class docstring): sync the
+        trunk's BatchNorms and broadcast rank 0's weights.  Raises for a
+        family whose data-parallel step is not ported when the group has
+        more than one rank."""
+        from ..parallel.mesh import replicate, sync_batchnorms
+        if group is not None and group.world > 1 \
+                and not self._data_parallel():
+            mode = getattr(self.trunk, 'voxelize_mode', None)
+            what = type(self).__name__ + (f' ({mode} trunk)' if mode else '')
+            raise NotImplementedError(
+                f'{what}: data-parallel training over {group.world} ranks '
+                f'is not ported yet (ROADMAP section 1, item 7b)')
+        self.group = group
+        sync_batchnorms(self.trunk, group)
+        if group is not None:
+            replicate(self.trunk, group)
 
     def apply_train(self, batch: Dict[str, torch.Tensor]):
         """-> the trunk's NHWC head outputs, differentiable in its
@@ -131,16 +164,19 @@ class _Detector:
                           batch['points_mask'].to(self.device))
 
     def init_train(self, base_lr: float = 1e-3, total_steps: int = 1000,
-                   optimizer: Optional[AdamW] = None,
+                   optimizer: Optional[AdamW] = None, group=None,
                    **optimizer_kw) -> TrainState:
         """Build the train step for :meth:`train_step` around
         ``optimizer`` (e.g. ``make_optimizer_from_cfg``) or else
-        ``make_optimizer(base_lr, total_steps, **optimizer_kw)``; returns
-        the initial :class:`TrainState`."""
+        ``make_optimizer(base_lr, total_steps, **optimizer_kw)``, data
+        parallel over ``group`` (:meth:`set_group`) or the constructor's;
+        returns the initial :class:`TrainState`."""
+        if group is not None:
+            self.set_group(group)
         self.optimizer = optimizer or make_optimizer(base_lr, total_steps,
                                                      **optimizer_kw)
         self._step_fn = make_train_step(self.apply_train, self.loss,
-                                        self.optimizer)
+                                        self.optimizer, self.group)
         return init_state(self.trunk, self.optimizer)
 
     def train_step(self, batch: Dict[str, torch.Tensor],
@@ -172,12 +208,13 @@ class PointPillarsDetector(_Detector):
     bf16 the parameters, their gradients and AdamW's moments stay f32, and
     there is no loss scaling, as in the JAX package's train step.
     ``apply_train`` and ``apply_eval`` return NHWC (cls_score, bbox_pred,
-    dir_pred, packed)."""
+    dir_pred, packed).  The hard and dynamic trunks train data parallel
+    over a ``group``; the MVF trunk does not yet."""
 
     def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
                  head_cfg: Optional[Dict[str, Any]] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0):
+                 seed: int = 0, group=None):
         self.device = resolve_device(device)
         mc = copy.deepcopy(KITTI_3CLASS_MODEL)
         mc.update(model_cfg or {})
@@ -193,17 +230,23 @@ class PointPillarsDetector(_Detector):
         self.featmap_size = (ny // stride, nx // stride)
         self.anchors = torch.from_numpy(
             self.head.anchors_for(self.featmap_size)).to(self.device)
+        if group is not None:
+            self.set_group(group)
+
+    def _data_parallel(self) -> bool:
+        return self.trunk.voxelize_mode != 'mvf'
 
     def loss(self, outputs, batch: Dict[str, torch.Tensor]):
         """Head outputs -> (total loss, {loss_cls, loss_bbox, loss_dir});
-        targets for the whole batch at once."""
+        targets for the whole batch at once (under a group, this rank's
+        share of the global batch's loss)."""
         cls, bbox, dirp, packed = outputs
         targets = self.head.get_targets(
             self.anchors, batch['gt_bboxes'].to(self.device),
             batch['gt_labels'].to(self.device),
             batch['gt_valid'].to(self.device))
         losses = self.head.loss(cls, bbox, dirp, self.anchors, targets,
-                                packed=packed)
+                                packed=packed, group=self.group)
         return sum(losses.values()), losses
 
     @torch.inference_mode()
@@ -260,7 +303,7 @@ class CenterPointDetector(_Detector):
     def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
                  head_cfg: Optional[Dict[str, Any]] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0):
+                 seed: int = 0, group=None):
         self.device = resolve_device(device)
         mc = copy.deepcopy(NUS_CENTERPOINT_MODEL)
         mc.update(model_cfg or {})
@@ -281,6 +324,8 @@ class CenterPointDetector(_Detector):
         nx, ny = self.trunk.grid()
         f = self.head.out_size_factor
         self.featmap_size = (ny // f, nx // f)
+        if group is not None:
+            self.set_group(group)
 
     def loss(self, preds, batch: Dict[str, torch.Tensor]):
         """Per-task maps -> (total loss, {task{t}.loss_*}); targets for

@@ -1,11 +1,17 @@
 """Training loop: data iterator, train step, checkpoints, logging, eval.
 
-Port of ``mmdet3d_gaussian_tpu/engine/loop.py`` for one process on one
-device (more processes raise ``NotImplementedError`` until the
-multi-device port): a Python loop around the detector's ``train_step``,
-checkpoints every ``checkpoint_config.interval`` epochs, JSON-lines logging
-every ``log_interval`` steps (the reference's TextLoggerHook) and an
-optional ``torch.profiler`` trace.
+Port of ``mmdet3d_gaussian_tpu/engine/loop.py``: a Python loop around the
+detector's ``train_step``, checkpoints every ``checkpoint_config.interval``
+epochs, JSON-lines logging every ``log_interval`` steps (the reference's
+TextLoggerHook) and an optional ``torch.profiler`` trace.
+
+Data parallel (a detector with a ``group``, ``parallel/mesh.py``), as the
+JAX loop on several processes: ``samples_per_gpu`` is the global batch B,
+which must divide by the R ranks; every rank draws the same seeded
+permutation and loads rows ``order[m B + r B / R : m B + (r + 1) B / R]``
+of global batch m.  Rank 0 alone writes the log and the checkpoints and
+runs the evaluation while the others wait; ``resume_from`` and
+``load_from`` load on every rank.
 
 Checkpoints are ``ckpt_{step}.pt``: a plain dict (``state_dict``: the
 trunk's parameters and BatchNorm buffers; ``opt_state``: AdamW's ``count``
@@ -16,6 +22,7 @@ weights (``state_dict``; a fresh optimizer at step 0).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -24,34 +31,27 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import barrier
 from ..parallel.train_state import (OptState, TrainState,
                                     make_optimizer_from_cfg)
 
 BATCH_KEYS = ('points', 'points_mask', 'gt_bboxes', 'gt_labels', 'gt_valid')
 
 
-def _single_process():
-    """Raise in a job of more than one process (``torch.distributed``)."""
-    dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise NotImplementedError('multi-process training is not ported '
-                                  'yet (ROADMAP section 1, item 7)')
-
-
-def build_dataloader(cfg, split: str = 'train'):
+def build_dataloader(cfg, split: str = 'train', group=None):
     """Dataset + ``iterator(seed)`` of collated numpy batches.
 
     ``data.workers_per_gpu`` threads map ``dataset[idx]`` (see
     ``engine/prefetch.py``).  Train shuffles (seeded) and drops the last
     partial batch; eval splits iterate in order and pad the last batch by
-    repeating its last sample (cut the results to ``len(dataset)``)."""
+    repeating its last sample (cut the results to ``len(dataset)``).
+    Under ``group`` the train iterator yields this rank's rows of each
+    global batch of ``samples_per_gpu`` (see the module docstring)."""
     from .. import datasets  # noqa: F401  (registers the datasets)
     from ..datasets.pipelines import collate_batch
     from ..registry import DATASETS
     from .prefetch import pooled_sample_iterator
 
-    _single_process()
     data_cfg = dict(cfg.get('data', {}).get(split, {}))
     if not data_cfg:
         raise KeyError(
@@ -61,11 +61,25 @@ def build_dataloader(cfg, split: str = 'train'):
     batch_size = int(cfg.get('data', {}).get('samples_per_gpu', 4))
     workers = int(cfg.get('data', {}).get('workers_per_gpu', 2))
     shuffle = split == 'train'
+    bsz = batch_size
+    if shuffle and group is not None:
+        if batch_size % group.world:
+            raise ValueError(f'samples_per_gpu {batch_size} (the global '
+                             f'batch) must divide by the {group.world} '
+                             f'ranks')
+        bsz = batch_size // group.world
 
     def iterator(seed: int = 0) -> Iterator[Dict]:
         rng = np.random.RandomState(seed)
         order = rng.permutation(len(ds)) if shuffle else range(len(ds))
-        return pooled_sample_iterator(ds, order, batch_size, collate_batch,
+        if bsz != batch_size:
+            # every rank draws the same order and takes its slice of each
+            # global batch
+            nb = len(ds) // batch_size
+            r = group.rank
+            order = order[:nb * batch_size].reshape(nb, batch_size)[
+                :, r * bsz:(r + 1) * bsz].reshape(-1)
+        return pooled_sample_iterator(ds, order, bsz, collate_batch,
                                       workers=workers,
                                       pad_partial=not shuffle)
 
@@ -82,7 +96,11 @@ def to_device(batch: Dict[str, Any], device: torch.device
     for k in BATCH_KEYS:
         t = torch.from_numpy(np.ascontiguousarray(batch[k]))
         if device.type == 'cuda':
-            t = t.pin_memory().to(device, non_blocking=True)
+            # this rank's card is current in the calling thread (the
+            # prefetch producer's too), so the pinned buffer and the copy
+            # belong to it and no other card gets a context
+            with torch.cuda.device(device):
+                t = t.pin_memory().to(device, non_blocking=True)
         else:
             t = t.to(device)
         out[k] = t
@@ -149,7 +167,8 @@ def run_training(det, cfg, work_dir: str, seed: int = 0,
     Log records: each loss term, ``loss``, ``grad_norm``, ``step``,
     ``epoch``, ``time`` (seconds since the loop began), ``data_time``
     (seconds this step waited for its batch) and, on a card, ``memory``
-    (peak MiB allocated)."""
+    (peak MiB allocated); under a group the losses are the whole batch's
+    and the times and memory rank 0's."""
     resume_from = resume_from or cfg.get('resume_from')
     load_from = load_from or cfg.get('load_from')
     if log_interval is None:
@@ -159,7 +178,15 @@ def run_training(det, cfg, work_dir: str, seed: int = 0,
     ckpt_interval = int((cfg.get('checkpoint_config') or {})
                         .get('interval', 1))
 
-    ds, make_iter = build_dataloader(cfg, 'train')
+    group = det.group
+    dist = torch.distributed
+    if (group is None and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        raise RuntimeError('a job of more than one process trains a '
+                           'detector built with its group '
+                           '(parallel.mesh.init_distributed)')
+    is_main = group is None or group.rank == 0
+    ds, make_iter = build_dataloader(cfg, 'train', group)
     epochs = int(cfg.get('max_epochs', 40))
     batch_size = int(cfg.get('data', {}).get('samples_per_gpu', 4))
     steps_per_epoch = max(1, len(ds) // batch_size)
@@ -186,7 +213,8 @@ def run_training(det, cfg, work_dir: str, seed: int = 0,
     step = state.step
     prof = None
     t0 = time.perf_counter()
-    with open(log_path, 'a') as logf:
+    with (open(log_path, 'a') if is_main
+          else contextlib.nullcontext()) as logf:
         for epoch in range(epochs):
             if step >= total_steps:
                 break
@@ -199,14 +227,15 @@ def run_training(det, cfg, work_dir: str, seed: int = 0,
                     except StopIteration:
                         break
                     data_time = time.perf_counter() - t_wait
-                    if profile_steps and step == profile_steps[0]:
+                    if is_main and profile_steps \
+                            and step == profile_steps[0]:
                         prof = _start_profile()
                     state, metrics = det.train_step(batch, state)
                     step = state.step
                     if prof is not None and step == profile_steps[1]:
                         _stop_profile(prof, work_dir)
                         prof = None
-                    if step % log_interval == 0:
+                    if is_main and step % log_interval == 0:
                         rec = {k: float(v) for k, v in metrics.items()}
                         rec.update(step=step, epoch=epoch,
                                    time=time.perf_counter() - t0,
@@ -222,7 +251,7 @@ def run_training(det, cfg, work_dir: str, seed: int = 0,
             finally:
                 pf.close()   # unblock the producer on an early exit
             last_epoch = (epoch + 1 == epochs) or step >= total_steps
-            if (epoch + 1) % ckpt_interval == 0 or last_epoch:
+            if is_main and ((epoch + 1) % ckpt_interval == 0 or last_epoch):
                 meta = dict(step=step, epoch=epoch,
                             classes=list(getattr(ds, 'CLASSES', []) or []),
                             torch_version=torch.__version__,
@@ -230,7 +259,8 @@ def run_training(det, cfg, work_dir: str, seed: int = 0,
                             else None)
                 save_checkpoint(work_dir, state, step, meta=meta)
             # the reference's evaluation hook (`evaluation = dict(interval)`)
-            if (eval_interval and (epoch + 1) % eval_interval == 0
+            if (is_main and eval_interval
+                    and (epoch + 1) % eval_interval == 0
                     and cfg.get('data', {}).get('val')):
                 report = run_evaluation(det, cfg)
                 rec = {f'val/{k}': float(v) for k, v in report.items()}
@@ -238,6 +268,8 @@ def run_training(det, cfg, work_dir: str, seed: int = 0,
                 logf.write(json.dumps(rec) + '\n')
                 logf.flush()
                 print(f'eval @ epoch {epoch}: {rec}')
+            if group is not None:
+                barrier(group)      # the others wait for rank 0's writes
     if prof is not None:
         _stop_profile(prof, work_dir)
     return state

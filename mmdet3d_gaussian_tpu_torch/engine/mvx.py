@@ -57,7 +57,7 @@ class MVXDetector(PointPillarsDetector):
     def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
                  head_cfg: Optional[Dict[str, Any]] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0):
+                 seed: int = 0, group=None):
         self.device = resolve_device(device)
         mc = copy.deepcopy(KITTI_MVX_MODEL)
         mc.update(model_cfg or {})
@@ -73,6 +73,11 @@ class MVXDetector(PointPillarsDetector):
         self.featmap_size = (ny // stride, nx // stride)
         self.anchors = torch.from_numpy(
             self.head.anchors_for(self.featmap_size)).to(self.device)
+        if group is not None:
+            self.set_group(group)
+
+    def _data_parallel(self) -> bool:
+        return False
 
     def _inputs(self, batch: Dict[str, torch.Tensor]):
         return [batch[k].to(self.device)

@@ -233,7 +233,8 @@ class PVRCNNDetector(_Detector):
                  rpn_head_cfg: Optional[Dict[str, Any]] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0,
-                 dropout_generator: Optional[torch.Generator] = None):
+                 dropout_generator: Optional[torch.Generator] = None,
+                 group=None):
         self.device = resolve_device(device)
         c = copy.deepcopy(KITTI_PVRCNN)
         c.update(model_cfg or {})
@@ -242,7 +243,8 @@ class PVRCNNDetector(_Detector):
                              f'{c["compute_dtype"]!r}')
         if c.get('axis_name') is not None:
             raise NotImplementedError('PV-RCNN with axis_name (cross-device '
-                                      'BatchNorm) is not ported')
+                                      'BatchNorm) is not ported yet (ROADMAP '
+                                      'section 1, item 7b)')
         hc = copy.deepcopy(KITTI_PVRCNN_RPN_HEAD)
         hc.update(rpn_head_cfg or {})
         self.rpn_head = GDAnchor3DHead(**hc)
@@ -264,6 +266,8 @@ class PVRCNNDetector(_Detector):
         self.featmap_size = (ny // 8, nx // 8)
         self.anchors = torch.from_numpy(
             self.rpn_head.anchors_for(self.featmap_size)).to(self.device)
+        if group is not None:
+            self.set_group(group)
 
     # ------------------------------------------------------------------
     def scatter(self, batch: Dict[str, torch.Tensor]):

@@ -64,11 +64,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``promote=True`` is flax's ``nn.BatchNorm`` with no dtype instead (the
     image branch of MVX): the same formula, its output left f32 whatever
     the input's type (the result type of the input and the f32
-    parameters)."""
+    parameters).
+
+    ``group`` (a ``parallel.mesh.Group``, set by the detector of a
+    data-parallel step; None by default): the training statistics are
+    those of every rank's rows (SyncBN)."""
 
     def __init__(self, *args, promote: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
         self.promote = promote
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = torch.float32 if self.promote else x.dtype
@@ -80,7 +85,7 @@ class BatchNorm2d(nn.BatchNorm2d):
                     * inv[:, None, None]
                     + self.bias[:, None, None]).to(out_dtype)
         y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
-                                out_dtype)
+                                out_dtype, self.group)
         with torch.no_grad():
             self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
             self.running_var.mul_(MOMENTUM).add_(var, alpha=1 - MOMENTUM)

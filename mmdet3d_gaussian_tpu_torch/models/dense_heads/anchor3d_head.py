@@ -244,17 +244,25 @@ class GDAnchor3DHead:
         return total
 
     def loss(self, cls_score, bbox_pred, dir_pred, anchors: torch.Tensor,
-             targets: AnchorTargets, packed=None) -> Dict[str, torch.Tensor]:
+             targets: AnchorTargets, packed=None,
+             group=None) -> Dict[str, torch.Tensor]:
         """Batched loss terms {loss_cls, loss_bbox, loss_dir}.
 
         cls_score (B, H, W, A*C), bbox_pred (B, H, W, A*7), dir_pred
         (B, H, W, A*2) NHWC maps; anchors (H, W, S, R, 7); targets from
         :meth:`get_targets`; packed: the fused head conv output, gathered
-        from by the sparse form."""
+        from by the sparse form.  Every term is divided by ``max(sum of
+        num_pos, 1)``; under ``group`` (a ``parallel.mesh.Group``) that sum
+        is over every rank's samples (no gradient), so each rank's terms
+        are its share of the whole batch's."""
         b, hh, ww = cls_score.shape[:3]
         a = anchors.shape[2] * anchors.shape[3]
         c = self.num_classes
-        avg = targets.num_pos.sum().float().clamp(min=1.0)
+        avg = targets.num_pos.sum().float()
+        if group is not None:
+            from ...parallel.mesh import all_reduce_sum
+            avg, = all_reduce_sum([avg], group)
+        avg = avg.clamp(min=1.0)
         losses = {'loss_cls': self.loss_cls(
             cls_score.reshape(b, hh, ww, a, c),
             targets.labels.reshape(b, hh, ww, a),

@@ -67,8 +67,11 @@ class PointPillarsNet(nn.Module):
     the dynamic branch only, the hard branch always takes the plain canvas.
     ``fold_w2`` (the JAX package's W-folded stage 0 after the s2d canvas, a
     layout of the same function) is accepted so that a JAX config builds,
-    and has no effect.  ``axis_name`` (cross-replica BatchNorm) must be
-    None: multi-device is not ported."""
+    and has no effect.  ``axis_name`` (the JAX trunk's cross-replica
+    BatchNorm) is accepted and means what a data-parallel step does anyway:
+    the detector's group (``parallel/mesh.py``) syncs every BatchNorm of
+    the trunk, as GSPMD makes the JAX step's statistics global with or
+    without it."""
 
     def __init__(self, voxel_size: Sequence[float] = (0.16, 0.16, 4.0),
                  point_cloud_range: Sequence[float] = (
@@ -93,10 +96,6 @@ class PointPillarsNet(nn.Module):
         if hard_encoder not in ('packed', 'sorted'):
             raise ValueError(f'hard_encoder must be packed or sorted, got '
                              f'{hard_encoder!r}')
-        if axis_name is not None:
-            raise NotImplementedError(
-                f'axis_name={axis_name!r}: multi-device BatchNorm is not '
-                f'ported yet')
         if head_type not in ('anchor', 'center'):
             raise ValueError(f'head_type must be anchor or center, got '
                              f'{head_type!r}')

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.scatter import Scatter
+from ..parallel.mesh import all_reduce_with_grad
 from ..registry import MODELS
 from .backbones import MOMENTUM, compute_dtype as _compute_dtype
 
@@ -25,12 +26,12 @@ from .backbones import MOMENTUM, compute_dtype as _compute_dtype
 def masked_sums(flat: torch.Tensor, mask=None):
     """(count, per-channel sum, sum of squares) of the f32 rows ``flat``
     (M, C) where ``mask`` (M elements, or None: every row) is set; the
-    count at least 1."""
+    count a 0-d tensor."""
     if mask is None:
-        return float(flat.shape[0]), flat.sum(0), (flat * flat).sum(0)
+        return (flat.new_tensor(float(flat.shape[0])), flat.sum(0),
+                (flat * flat).sum(0))
     m = mask.reshape(-1, 1).to(flat.dtype)
-    return (m.sum().clamp(min=1.0), (flat * m).sum(0),
-            (flat * flat * m).sum(0))
+    return m.sum(), (flat * m).sum(0), (flat * flat * m).sum(0)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -40,11 +41,18 @@ class MaskedBatchNorm(nn.Module):
     as ``0.99 old + 0.01 batch``.  Plain PyTorch, as the JAX module
     computes it outside Pallas.
 
+    ``group`` (a ``parallel.mesh.Group``, set by the detector of a
+    data-parallel step; None by default): the count and sums are summed
+    over the ranks before the count is clamped (SyncBN, the statistics of
+    the whole batch), by an all-reduce that carries their gradient, as JAX
+    differentiates through the mean and variance here.
+
     Parameter names follow ``nn.BatchNorm1d`` (weight, bias, running_mean,
     running_var); eps 1e-3 as the reference norm_cfg."""
 
     def __init__(self, num_features: int, eps: float = 1e-3):
         super().__init__()
+        self.group = None
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
@@ -57,6 +65,12 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             cnt, s1, s2 = masked_sums(xf.reshape(-1, xf.shape[-1]), mask)
+            if self.group is not None:
+                c = s1.shape[0]
+                flat = all_reduce_with_grad(
+                    torch.cat([cnt.reshape(1), s1, s2]), self.group)
+                cnt, s1, s2 = flat[0], flat[1:1 + c], flat[1 + c:]
+            cnt = cnt.clamp(min=1.0)
             mean = s1 / cnt
             var = torch.clamp_min(s2 / cnt - mean * mean, 0.0)
             with torch.no_grad():

@@ -140,7 +140,13 @@ def _compile(so: Path) -> str:
         if link.returncode:
             raise RuntimeError(f'nvcc link failed:\n{link.stderr}')
         text = '\n'.join(report)
-        so.with_suffix('.log').write_text(text)
+        # several processes (the ranks of a job) may build at once: each
+        # in its own directory, each file moved into place whole, the log
+        # before the library that a later process takes as the sign of a
+        # finished build
+        log_tmp = tmp / so.with_suffix('.log').name
+        log_tmp.write_text(text)
+        os.replace(log_tmp, so.with_suffix('.log'))
         os.replace(lib_tmp, so)
         return text
     finally:

@@ -24,6 +24,13 @@ type, computed in f32 and rounded once, as the JAX module's (or is left
 f32 with ``out_dtype``, as flax's ``nn.BatchNorm`` leaves it).  Each wrapper
 computes its plain PyTorch version for CPU tensors and launches the kernel
 for CUDA tensors; there is no fallback between the two.
+
+Under a data-parallel group (``parallel/mesh.py``) :func:`bn_train` is
+SyncBN, the JAX ``bn_train`` with ``axis_name``: K4's sums of this rank's
+rows and its row count go through one ``all_reduce`` of ``2C + 1`` values
+forward and one backward, so the statistics and ``dx`` are those of the
+whole batch.  ``dscale`` and ``dbias`` stay this rank's sums: the step's
+gradient all-reduce adds them up.
 """
 from __future__ import annotations
 
@@ -294,9 +301,22 @@ def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (mean, biased variance) of x from K4's sums, f32:
     ``var = max(sum x^2 / M - mean^2, 0)``."""
     su, sq = moments(x)
-    cnt = float(x.numel() // x.shape[1])
+    return _stats(su, sq, float(x.numel() // x.shape[1]))
+
+
+def _stats(su, sq, cnt):
     mean = su / cnt
     return mean, torch.clamp_min(sq / cnt - mean * mean, 0.0)
+
+
+def _group_sums(a: torch.Tensor, b: torch.Tensor, cnt: float, group):
+    """(a, b, cnt) summed over ``group``'s ranks by one ``all_reduce`` of a
+    flat ``2C + 1`` f32 buffer; cnt comes back a 0-d tensor."""
+    from ..parallel.mesh import all_reduce_sum
+    c = a.shape[0]
+    flat, = all_reduce_sum([torch.cat([a, b, a.new_full((1,), cnt)])],
+                           group)
+    return flat[:c], flat[c:2 * c], flat[2 * c]
 
 
 def _channel_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -304,21 +324,26 @@ def _channel_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 class BNTrain(torch.autograd.Function):
-    """``bn_train(x, scale, bias, eps, out_dtype) -> (y, mean, var)``;
-    mean and var (biased) carry no gradient (they feed the running
+    """``bn_train(x, scale, bias, eps, out_dtype, group) -> (y, mean,
+    var)``; mean and var (biased) carry no gradient (they feed the running
     statistics)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps: float,
-                out_dtype: Optional[torch.dtype] = None):
-        mean, var = batch_stats(x)
+                out_dtype: Optional[torch.dtype] = None, group=None):
         cnt = float(x.numel() // x.shape[1])
+        if group is None:
+            mean, var = batch_stats(x)
+        else:
+            su, sq, cnt = _group_sums(*moments(x), cnt, group)
+            mean, var = _stats(su, sq, cnt)
         inv = torch.rsqrt(var + eps)
         k = _channel_view(inv * scale, x.dim())
         y = ((x.float() - _channel_view(mean, x.dim())) * k + _channel_view(
             bias, x.dim())).to(out_dtype or x.dtype)
         ctx.save_for_backward(x, scale, mean, inv)
-        ctx.cnt = cnt
+        ctx.cnt = float(x.numel() // x.shape[1])
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -333,19 +358,26 @@ class BNTrain(torch.autograd.Function):
             gy = gy.float()
         sg, sgx = grad_moments(gy, x, mean, inv)
         cnt = ctx.cnt
+        # dscale, dbias: this rank's sums (the gradient all-reduce adds
+        # them up); dx: the whole batch's
+        dscale, dbias = sgx, sg
+        if ctx.group is not None:
+            sg, sgx, cnt = _group_sums(sg, sgx, cnt, ctx.group)
         nd = x.dim()
         xhat = (x.float() - _channel_view(mean, nd)) * _channel_view(inv, nd)
         dx = _channel_view(inv * scale, nd) * (
             gy.float() - _channel_view(sg / cnt, nd)
             - xhat * _channel_view(sgx / cnt, nd))
-        return dx.to(dtype), sgx, sg, None, None
+        return dx.to(dtype), dscale, dbias, None, None, None
 
 
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-             eps: float, out_dtype: Optional[torch.dtype] = None):
+             eps: float, out_dtype: Optional[torch.dtype] = None,
+             group=None):
     """Training-mode BN over the channel dim 1 of an (M, C) or (B, C, H, W)
     f32 or bf16 tensor -> (y of ``out_dtype`` (None: x's type), batch mean,
     batch biased var, both f32).  ``out_dtype=torch.float32`` on a bf16 x
     is flax's ``nn.BatchNorm`` rule (the result type of x and the f32
-    parameters); the gradient of x then has x's type."""
-    return BNTrain.apply(x, scale, bias, eps, out_dtype)
+    parameters); the gradient of x then has x's type.  ``group`` (a
+    ``parallel.mesh.Group``): the batch is every rank's rows (SyncBN)."""
+    return BNTrain.apply(x, scale, bias, eps, out_dtype, group)

@@ -209,30 +209,46 @@ def init_state(model: nn.Module, optimizer: AdamW) -> TrainState:
 
 
 def make_train_step(apply_fn: Callable, loss_fn: Callable,
-                    optimizer: AdamW) -> Callable:
+                    optimizer: AdamW, group=None) -> Callable:
     """Build ``step(state, batch) -> (state, metrics)``.
 
     ``apply_fn(batch) -> outputs`` runs the model that owns
     ``state.params`` in training mode (its BatchNorms update
     ``state.batch_stats`` in place); ``loss_fn(outputs, batch) -> (total,
     loss dict)``.  Metrics: each loss term, ``loss`` and ``grad_norm`` (of
-    the unclipped gradients), as 0-d tensors on the device."""
+    the unclipped gradients), as 0-d tensors on the device.
+
+    ``group`` (a ``parallel.mesh.Group``; the JAX step's ``axis_name``):
+    the batch is this rank's rows of a global batch and ``loss_fn`` gives
+    this rank's share of the global loss (its normalizers global), so the
+    gradients are summed over the ranks, in one ``all_reduce`` of a flat
+    buffer, before the norm, the clipping and AdamW; the metrics are
+    summed over the ranks in another.  Every rank then applies the same
+    update."""
+    from .mesh import all_reduce_sum
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Tensors]:
         total, losses = loss_fn(apply_fn(batch), batch)
         names = list(state.params)
         leaves = [state.params[k] for k in names]
         raw = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for k, p, g in zip(names, leaves, raw)}
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, raw)]
+        if group is not None:
+            grads = all_reduce_sum(grads, group)
+        grads = dict(zip(names, grads))
         g_norm = global_norm(grads.values())
         updates, opt_state = optimizer.update(grads, state.opt_state,
                                               state.params, g_norm)
         with torch.no_grad():
             for k in names:
                 state.params[k].add_(updates[k])
-        metrics = {k: torch.as_tensor(v).detach() for k, v in losses.items()}
+        metrics = {k: torch.as_tensor(v, device=total.device).detach()
+                   for k, v in losses.items()}
         metrics['loss'] = total.detach()
+        if group is not None:
+            metrics = dict(zip(metrics, all_reduce_sum(
+                [v.reshape(()) for v in metrics.values()], group)))
         metrics['grad_norm'] = g_norm
         return state._replace(step=state.step + 1,
                               opt_state=opt_state), metrics

@@ -26,12 +26,13 @@ def load_config(path: str, cfg_options: Sequence[str] = ()) -> Config:
 
 
 def build_detector(cfg, device: Optional[str], seed: int = 0,
-                   model_overrides: Optional[Dict] = None):
+                   model_overrides: Optional[Dict] = None, group=None):
     """The config's ``model`` and ``head`` dicts -> a ``PVRCNNDetector``
     (``type='PVRCNN'``, ``head`` its RPN head; f32 only, so a
     ``compute_dtype`` override is dropped), a ``CenterPointDetector``
     (``head_type='center'``) or else a ``PointPillarsDetector``, on
-    ``device`` (``cuda`` unless given)."""
+    ``device`` (``cuda`` unless given), data parallel over ``group`` (a
+    ``parallel.mesh.Group``) if given."""
     from ..engine.detector import CenterPointDetector, PointPillarsDetector
     mcfg = dict(cfg.get('model') or {})
     mtype = mcfg.pop('type', None)
@@ -40,8 +41,8 @@ def build_detector(cfg, device: Optional[str], seed: int = 0,
         from ..engine.pvrcnn import PVRCNNDetector
         mcfg.pop('compute_dtype', None)
         return PVRCNNDetector(model_cfg=mcfg, rpn_head_cfg=cfg.get('head'),
-                              device=device, seed=seed)
+                              device=device, seed=seed, group=group)
     cls = (CenterPointDetector if mcfg.get('head_type') == 'center'
            else PointPillarsDetector)
     return cls(model_cfg=mcfg, head_cfg=cfg.get('head'), device=device,
-               seed=seed)
+               seed=seed, group=group)

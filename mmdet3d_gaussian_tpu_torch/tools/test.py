@@ -2,7 +2,7 @@
 counterpart).
 
     python -m mmdet3d_gaussian_tpu_torch.tools.test CONFIG CKPT \
-        [--metric kitti|cowa|nds|iou3d_err] [--bf16] [--device cpu]
+        [--metric kitti|cowa|waymo|nds|iou3d_err] [--bf16] [--device cpu]
 
 Loads a config and a ``ckpt_{step}.pt`` (its weights), predicts over the
 val split on the card (``--device`` names another device), turns the
@@ -25,7 +25,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument('--metric', default='kitti',
                    help="KITTI: 'kitti' = official Easy/Mod/Hard AP "
                         "(R11+R40), 'cowa' = the reference's flexible "
-                        "metric; nuScenes: 'nds' = centre-distance mAP, TP "
+                        "metric; Waymo: 'waymo' = mAP / mAPH at LEVEL_1 "
+                        "and LEVEL_2, 'cowa' = flexible IoU3D mAP by "
+                        "range; nuScenes: 'nds' = centre-distance mAP, TP "
                         "errors and NDS, 'iou3d_err' = IoU3D-matched mAP "
                         "(mAIE; any name but 'nds' gives it, the default "
                         "too)")

@@ -1,11 +1,20 @@
 """Training CLI of the port (``tools/train.py`` counterpart).
 
     python -m mmdet3d_gaussian_tpu_torch.tools.train CONFIG [--device cpu]
+    torchrun --nproc_per_node N -m mmdet3d_gaussian_tpu_torch.tools.train \
+        CONFIG --distributed
 
 Loads a config (``--cfg-options`` nested overrides), builds the detector on
 the card (``--device`` names another device; without a card and without
 ``--device cpu`` it raises) and runs ``engine.loop.run_training``:
 checkpoints ``ckpt_{step}.pt`` and the JSON-lines log in ``--work-dir``.
+
+``--distributed`` trains data parallel over the job torchrun started (the
+reference's ``tools/dist_train.sh``): one rank a card over NCCL, or gloo
+ranks on the CPU with ``--device cpu``; ``samples_per_gpu`` is the global
+batch, split over the ranks (``engine/loop.py``).  In a job of more than
+one process the CLI refuses to run without ``--distributed``: it would
+train that many independent copies.
 """
 from __future__ import annotations
 
@@ -38,7 +47,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument('--cfg-options', nargs='+', default=[],
                    help='key=value nested config overrides')
     p.add_argument('--distributed', action='store_true',
-                   help='multi-process training (not ported yet)')
+                   help='data-parallel training over the ranks torchrun '
+                        'started (NCCL on cards, gloo with --device cpu)')
     p.add_argument('--device', default=None,
                    help='torch device (default cuda)')
     return p.parse_args(argv)
@@ -46,9 +56,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError('--distributed is not ported yet (ROADMAP '
-                                  'section 1, item 7)')
+    world = int(os.environ.get('WORLD_SIZE', 1))
+    if world > 1 and not args.distributed:
+        raise RuntimeError(f'WORLD_SIZE={world}: a job of several processes '
+                           f'trains with --distributed')
     from ..engine.loop import run_training
     from .common import build_detector, load_config
 
@@ -56,7 +67,12 @@ def main(argv: Optional[Sequence[str]] = None):
     work_dir = args.work_dir or cfg.get('work_dir') or os.path.join(
         'work_dirs', os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(work_dir, exist_ok=True)
-    det = build_detector(cfg, args.device, seed=args.seed)
+    group, device = None, args.device
+    if args.distributed:
+        from ..parallel.mesh import init_distributed
+        group = init_distributed(device=args.device)
+        device = group.device
+    det = build_detector(cfg, device, seed=args.seed, group=group)
     return run_training(det, cfg, work_dir, seed=args.seed,
                         max_steps=args.max_steps,
                         resume_from=args.resume_from,
@@ -69,3 +85,6 @@ def main(argv: Optional[Sequence[str]] = None):
 
 if __name__ == '__main__':
     main()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

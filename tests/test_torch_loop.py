@@ -282,18 +282,32 @@ def test_clis_on_cpu(runs):
         assert 'CUDA is not available' in out.stderr, out.stderr[-2000:]
 
 
-def test_unported_paths_raise(tmp_path):
-    """``--distributed`` and ``--show-dir`` name what is missing instead
-    of running (PV-RCNN configs, once here too, now build: see
-    ``tests/test_torch_pvrcnn_loop.py``)."""
+def test_unported_paths_raise(tmp_path, monkeypatch):
+    """``--show-dir`` names what is missing instead of running; the train
+    CLI in a job of several processes refuses to run without
+    ``--distributed`` (it would train independent copies); and the
+    families whose data-parallel step is not ported (PV-RCNN here, the MVX
+    detector) raise under a group of more than one rank.  (``--distributed``
+    itself runs: ``tests/test_torch_dist.py``.)"""
+    from mmdet3d_gaussian_tpu_torch.engine.mvx import MVXDetector
+    from mmdet3d_gaussian_tpu_torch.engine.pvrcnn import PVRCNNDetector
+    from mmdet3d_gaussian_tpu_torch.parallel.mesh import Group
     from mmdet3d_gaussian_tpu_torch.tools import test, train
+    from tests.test_mvx_fusion import TINY_MVX, TINY_MVX_HEAD
+    from tests.test_pvrcnn import TINY_PVRCNN, TINY_RPN
     cfg_path = tmp_path / 'cfg.py'
     cfg_path.write_text('model = dict()\n')
-    with pytest.raises(NotImplementedError, match='item 7'):
-        train.main([str(cfg_path), '--distributed', '--device', 'cpu'])
     with pytest.raises(NotImplementedError, match='item 8'):
         test.main([str(cfg_path), '--show-dir', str(tmp_path),
                    '--device', 'cpu'])
+    monkeypatch.setenv('WORLD_SIZE', '2')
+    with pytest.raises(RuntimeError, match='--distributed'):
+        train.main([str(cfg_path), '--device', 'cpu'])
+    two = Group(rank=1, world=2, device=torch.device('cpu'))
+    with pytest.raises(NotImplementedError, match='item 7b'):
+        PVRCNNDetector(TINY_PVRCNN, TINY_RPN, device='cpu', group=two)
+    with pytest.raises(NotImplementedError, match='item 7b'):
+        MVXDetector(TINY_MVX, TINY_MVX_HEAD, device='cpu', group=two)
 
 
 def _eval_boxes(maps, decode):

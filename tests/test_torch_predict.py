@@ -329,9 +329,25 @@ def test_voxelize_mode_defaults_to_hard():
 
 
 def test_unported_fields_raise():
+    """``axis_name`` builds (the detector's data-parallel group syncs the
+    trunk's BatchNorms); what still raises: a data-parallel group of more
+    than one rank on a family whose step is not ported (the MVF trunk,
+    CenterPoint), before any collective, and unknown fields."""
+    from mmdet3d_gaussian_tpu_torch.parallel.mesh import Group
+    from tests.test_centerpoint import TINY_CP_MODEL
+    from tests.test_torch_mvf import TINY_MVF
     cfg = dict(TINY_MODEL, s2d_canvas='off')
-    with pytest.raises(NotImplementedError, match='axis_name'):
-        PointPillarsNet(**cfg, axis_name='x')
+    assert PointPillarsNet(**cfg, axis_name='x').voxelize_mode == 'dynamic'
+    two = Group(rank=0, world=2, device=torch.device('cpu'))
+    for make in (lambda g: tdet.PointPillarsDetector(TINY_MVF, TINY_HEAD,
+                                                     device='cpu', group=g),
+                 lambda g: tdet.CenterPointDetector(TINY_CP_MODEL,
+                                                    device='cpu', group=g)):
+        with pytest.raises(NotImplementedError, match='item 7b'):
+            make(two)
+        det = make(None)
+        with pytest.raises(NotImplementedError, match='item 7b'):
+            det.init_train(group=two)
     with pytest.raises(ValueError, match='hard_encoder'):
         PointPillarsNet(**cfg, hard_encoder='dense')
     with pytest.raises(ValueError, match='deconv_impl'):

@@ -1,0 +1,328 @@
+"""What the ranks of ``tests/test_torch_dist.py`` run (no JAX here: the
+ranks are spawned processes that import this module, not the test file).
+
+:func:`spawn` starts ``world`` gloo ranks on the CPU that meet through a
+``file://`` store (no TCP port to race for between test workers), with a
+60 s timeout on every collective, and joins them within a hard limit:
+past it the ranks are killed and the test fails.  Each rank runs
+:func:`rank_main`: the BatchNorm checks on its rows (:func:`bn_checks`),
+the TINY PointPillars train steps on its rows of a global batch
+(:func:`step_run`), the train CLI with ``--distributed`` and a CenterPoint
+config under the group, and saves what it got to ``rank{r}.pt``.
+"""
+import datetime
+import multiprocessing
+import os
+import traceback
+
+import numpy as np
+import torch
+
+DIST_TIMEOUT = datetime.timedelta(seconds=60)
+JOIN_LIMIT_S = 90.0
+WORLD = 2
+EPS = 1e-3
+
+
+def spawn(plan, out_dir, world=WORLD, limit_s=JOIN_LIMIT_S):
+    """Run :func:`rank_main` on ``world`` ranks; -> each rank's results.
+    Raises if a rank fails or the job outlasts ``limit_s`` (its ranks are
+    then killed)."""
+    import time
+    ctx = multiprocessing.get_context('spawn')
+    store = os.path.join(out_dir, 'store')
+    procs = [ctx.Process(target=rank_main, args=(r, world, store, out_dir,
+                                                 plan))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + limit_s
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(10)
+    if alive:
+        raise TimeoutError(f'{len(alive)} of {world} ranks still running '
+                           f'after {limit_s} s: killed')
+    errors = [open(os.path.join(out_dir, f'rank{r}.err')).read()
+              for r in range(world)
+              if os.path.exists(os.path.join(out_dir, f'rank{r}.err'))]
+    codes = [p.exitcode for p in procs]
+    if errors or any(codes):
+        raise RuntimeError(f'ranks exited {codes}:\n' + '\n'.join(errors))
+    return [torch.load(os.path.join(out_dir, f'rank{r}.pt'),
+                       weights_only=False) for r in range(world)]
+
+
+def rank_main(rank, world, store, out_dir, plan):
+    torch.set_num_threads(2)
+    try:
+        from mmdet3d_gaussian_tpu_torch.parallel.mesh import init_distributed
+        group = init_distributed(backend='gloo',
+                                 init_method='file://' + store,
+                                 device='cpu', rank=rank, world_size=world,
+                                 timeout=DIST_TIMEOUT)
+        out = dict(rank=rank, world=group.world,
+                   bn=bn_checks(bn_inputs(), group))
+        out['steps'] = {name: step_run(case, group)
+                        for name, case in plan['steps'].items()}
+        out['cli'] = cli_run(plan['cli'], group)
+        torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f'rank{rank}.err'), 'w') as f:
+            f.write(f'rank {rank}:\n{traceback.format_exc()}')
+        raise
+
+
+# ---------------------------------------------------------------- BatchNorm
+def bn_inputs():
+    """The global rows of every BatchNorm check, from seed 0."""
+    rng = np.random.RandomState(0)
+
+    def normal(shape, mu=0.0, sd=1.0):
+        return rng.normal(mu, sd, shape).astype(np.float32)
+    mask = rng.rand(16, 6) < 0.7
+    mask[10:] = False           # rank 1's pillars: 2 live slots in all
+    mask[11, 0] = mask[13, 2] = True
+    return dict(
+        nchw=normal((4, 8, 3, 5), 0.5, 2.0), nchw_g=normal((4, 8, 3, 5)),
+        mat=normal((40, 16), -1.0, 3.0), mat_g=normal((40, 16)),
+        pfn=normal((16, 6, 12), 1.0, 2.0), pfn_g=normal((16, 6, 12)),
+        pfn_mask=mask, pts=normal((50, 12), 0.0, 1.5),
+        pts_g=normal((50, 12)),
+        scale8=rng.uniform(0.5, 1.5, 8).astype(np.float32),
+        bias8=normal(8, 0.0, 0.5),
+        scale16=rng.uniform(0.5, 1.5, 16).astype(np.float32),
+        bias16=normal(16, 0.0, 0.5),
+        scale12=rng.uniform(0.5, 1.5, 12).astype(np.float32),
+        bias12=normal(12, 0.0, 0.5),
+        mean12=normal(12, 0.0, 0.3),
+        var12=rng.uniform(0.5, 2.0, 12).astype(np.float32))
+
+
+# rows of rank 0 of each check's input (rank 1 has the rest): the NCHW
+# checks split the batch evenly, the others unevenly
+SPLIT = dict(nchw=2, mat=25, pfn=10, pts=35)
+
+
+def rows_of(name, group):
+    """The slice of ``name``'s rows this rank holds (all without a
+    group)."""
+    if group is None:
+        return slice(None)
+    k = SPLIT[name]
+    return slice(0, k) if group.rank == 0 else slice(k, None)
+
+
+def bn_checks(inp, group):
+    """Each BatchNorm on this rank's rows (all of them without a group):
+    output, batch or running statistics, and the gradients of
+    ``sum(y * g)`` for x, scale and bias (the parameters' this rank's
+    share)."""
+    from mmdet3d_gaussian_tpu_torch.models.backbones import BatchNorm2d
+    from mmdet3d_gaussian_tpu_torch.models.voxel_encoders import \
+        MaskedBatchNorm
+    from mmdet3d_gaussian_tpu_torch.ops.bn import bn_train
+    out = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    def grads(y, g, x, params):
+        gx, *gp = torch.autograd.grad((y.float() * g).sum(), [x] + params)
+        return dict(dx=gx, dscale=gp[0], dbias=gp[1])
+
+    # bn_train (K4's plain version here) on channels-last NCHW and on an
+    # (M, C) matrix
+    for name, c, layout in (('nchw', 8, torch.channels_last),
+                            ('mat', 16, None)):
+        sl = rows_of(name, group)
+        x = t(inp[name][sl])
+        if layout is not None:
+            x = x.contiguous(memory_format=layout)
+        x.requires_grad_(True)
+        scale = t(inp[f'scale{c}']).requires_grad_(True)
+        bias = t(inp[f'bias{c}']).requires_grad_(True)
+        y, mean, var = bn_train(x, scale, bias, EPS, None, group)
+        out[f'bn_train_{name}'] = dict(
+            y=y.detach(), mean=mean, var=var,
+            **grads(y, t(inp[name + '_g'][sl]), x, [scale, bias]))
+
+    # BatchNorm2d: f32, bf16 (output rounded to bf16) and bf16 promoted
+    sl = rows_of('nchw', group)
+    for name, dtype, promote in (('bn2d_f32', torch.float32, False),
+                                 ('bn2d_bf16', torch.bfloat16, False),
+                                 ('bn2d_bf16_promote', torch.bfloat16, True)):
+        m = BatchNorm2d(8, eps=EPS, promote=promote)
+        m.group = group
+        with torch.no_grad():
+            m.weight.copy_(t(inp['scale8']))
+            m.bias.copy_(t(inp['bias8']))
+        m.train()
+        x = t(inp['nchw'][sl]).to(dtype).contiguous(
+            memory_format=torch.channels_last).requires_grad_(True)
+        y = m(x)
+        out[name] = dict(y=y.detach(), running_mean=m.running_mean.clone(),
+                         running_var=m.running_var.clone(),
+                         **grads(y, t(inp['nchw_g'][sl]), x,
+                                 [m.weight, m.bias]))
+
+    # MaskedBatchNorm: pillars with a slot mask (rank 1 nearly empty) and
+    # point rows without one
+    for name, mask in (('masked_pfn', 'pfn_mask'), ('masked_pts', None)):
+        base = 'pfn' if name == 'masked_pfn' else 'pts'
+        sl = rows_of(base, group)
+        m = MaskedBatchNorm(12, eps=EPS)
+        m.group = group
+        with torch.no_grad():
+            m.weight.copy_(t(inp['scale12']))
+            m.bias.copy_(t(inp['bias12']))
+            m.running_mean.copy_(t(inp['mean12']))
+            m.running_var.copy_(t(inp['var12']))
+        m.train()
+        x = t(inp[base][sl]).requires_grad_(True)
+        y = m(x, None if mask is None else t(inp[mask][sl]))
+        out[name] = dict(y=y.detach(), running_mean=m.running_mean.clone(),
+                         running_var=m.running_var.clone(),
+                         **grads(y, t(inp[base + '_g'][sl]), x,
+                                 [m.weight, m.bias]))
+    return out
+
+
+# --------------------------------------------------------------- train steps
+def step_run(case, group=None, steps=2, replay=None, start=None):
+    """``steps`` TINY PointPillars train steps from the weights in
+    ``case['weights']`` (or from ``start``, a state this function
+    returned) on this rank's rows of the global batch in ``case['batch']``
+    (all of them without a group): each step's metrics, the summed
+    gradients AdamW was given, the running statistics after each step, the
+    state (parameters, buffers, AdamW's) after each step, the parameters
+    after the last, and (under a group) each step's forward BatchNorms'
+    summed statistics in call order: K4's (su, sq, count) and the pillar
+    encoder's masked (count, s1, s2).  ``replay``: such statistics of as
+    many steps, which then stand in for a one-process run's own (the
+    masked sums keep their gradient), so that a bf16 run does not carry
+    their other f32 summation order through every later bf16 rounding."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import \
+        PointPillarsDetector
+    from mmdet3d_gaussian_tpu_torch.models import voxel_encoders
+    from mmdet3d_gaussian_tpu_torch.ops import bn
+    from mmdet3d_gaussian_tpu_torch.parallel.mesh import shard_batch
+    from mmdet3d_gaussian_tpu_torch.parallel.train_state import (
+        OptState, make_optimizer)
+    det = PointPillarsDetector(case['model'], case['head'], device='cpu',
+                               group=group)
+    det.trunk.load_state_dict(torch.load(case['weights'], weights_only=True),
+                              strict=True)
+    opt = make_optimizer(case['lr'], case['total_steps'])
+    seen = []
+    update = opt.update
+
+    def recording(grads, *args, **kw):
+        seen.append({k: g.clone() for k, g in grads.items()})
+        return update(grads, *args, **kw)
+    opt.update = recording
+
+    sums = []
+    forward = [False]
+    apply_train = det.apply_train
+
+    def apply(batch):
+        sums.append(dict(bn=[], masked=[]))
+        forward[0] = True
+        try:
+            return apply_train(batch)
+        finally:
+            forward[0] = False
+    det.apply_train = apply
+    originals = dict(group_sums=bn._group_sums, batch_stats=bn.batch_stats,
+                     all_reduce=voxel_encoders.all_reduce_with_grad,
+                     masked_sums=voxel_encoders.masked_sums)
+
+    def group_sums(*args):
+        out = originals['group_sums'](*args)
+        if forward[0]:
+            sums[-1]['bn'].append(tuple(o.clone() for o in out))
+        return out
+
+    def all_reduce(x, grp):
+        out = originals['all_reduce'](x, grp)
+        sums[-1]['masked'].append(out.detach().clone())
+        return out
+    replayed = None if replay is None else dict(
+        bn=iter([x for r in replay for x in r['bn']]),
+        masked=iter([x for r in replay for x in r['masked']]))
+
+    def batch_stats(x):
+        su, sq, cnt = next(replayed['bn'])
+        return bn._stats(su, sq, cnt)
+
+    def masked_sums(flat, mask=None):
+        out = originals['masked_sums'](flat, mask)
+        c = out[1].shape[0]
+        rec = next(replayed['masked'])
+        card = (rec[0], rec[1:1 + c], rec[1 + c:])
+        return tuple(o + (r - o).detach() for o, r in zip(out, card))
+    if group is not None:
+        bn._group_sums = group_sums
+        voxel_encoders.all_reduce_with_grad = all_reduce
+    if replay is not None:
+        bn.batch_stats = batch_stats
+        voxel_encoders.masked_sums = masked_sums
+    try:
+        state = det.init_train(optimizer=opt)
+        if start is not None:
+            det.trunk.load_state_dict(start['trunk'], strict=True)
+            state = state._replace(step=start['step'], opt_state=OptState(
+                start['count'], dict(start['mu']), dict(start['nu'])))
+        batch = torch.load(case['batch'], weights_only=True)
+        if group is not None:
+            batch = shard_batch(batch, group)
+        metrics, stats, states = [], [], []
+        for _ in range(steps):
+            state, m = det.train_step(batch, state)
+            metrics.append({k: float(v) for k, v in m.items()})
+            stats.append({k: v.clone() for k, v in det.trunk.named_buffers()
+                          if 'running_' in k})
+            opt_state = state.opt_state
+            states.append(dict(
+                trunk={k: v.clone() for k, v in
+                       det.trunk.state_dict().items()},
+                step=state.step, count=opt_state.count,
+                mu={k: v.clone() for k, v in opt_state.mu.items()},
+                nu={k: v.clone() for k, v in opt_state.nu.items()}))
+    finally:
+        bn._group_sums = originals['group_sums']
+        bn.batch_stats = originals['batch_stats']
+        voxel_encoders.all_reduce_with_grad = originals['all_reduce']
+        voxel_encoders.masked_sums = originals['masked_sums']
+    if replay is not None:
+        assert next(replayed['bn'], None) is None
+        assert next(replayed['masked'], None) is None
+    return dict(metrics=metrics, grads=seen, stats=stats, sums=sums,
+                states=states,
+                params={k: v.detach().clone()
+                        for k, v in det.trunk.named_parameters()})
+
+
+# ------------------------------------------------------------------ the CLI
+def cli_run(plan, group):
+    """The train CLI with ``--distributed --device cpu`` on this group (it
+    joins the job the rank is in), then a CenterPoint config under the
+    same group, which must raise; -> the raise's message."""
+    from mmdet3d_gaussian_tpu_torch.tools import train
+    train.main([plan['config'], '--distributed', '--device', 'cpu',
+                '--work-dir', plan['work_dir'], '--max-steps',
+                str(plan['steps']), '--log-interval', '1'])
+    try:
+        train.main([plan['cp_config'], '--distributed', '--device', 'cpu',
+                    '--work-dir', plan['work_dir'] + '_cp'])
+    except NotImplementedError as e:
+        return dict(raised=str(e))
+    return dict(raised=None)
