@@ -5117,8 +5117,11 @@ def wd_steps(det, batch, steps=2, group=None, start=None,
     the parameters after the last, with ``keep_state`` the state after
     the first step; under ``group`` also the first step's K4 sums after
     the all-reduce beside the plain moments (and sums of magnitudes) of
-    this rank's rows, and the host time of the step's BatchNorm
-    all-reduces in one more step."""
+    this rank's rows, each step's forward BatchNorm sums after the
+    all-reduce (``sums``, as :func:`wf_steps` records them for a replay),
+    and the host time of the step's BatchNorm all-reduces in one more
+    step."""
+    from mmdet3d_gaussian_tpu_torch.models import voxel_encoders
     from mmdet3d_gaussian_tpu_torch.ops import bn
     from mmdet3d_gaussian_tpu_torch.parallel.train_state import (
         OptState, make_optimizer)
@@ -5130,6 +5133,17 @@ def wd_steps(det, batch, steps=2, group=None, start=None,
         grads.append({k: v.detach().cpu().clone() for k, v in g.items()})
         return update(g, *args, **kw)
     opt.update = recording
+    sums, forward = [], [False]
+    apply_train = det.apply_train
+
+    def apply(b):
+        forward[0] = True
+        sums.append(dict(bn=[], masked=[]))
+        try:
+            return apply_train(b)
+        finally:
+            forward[0] = False
+    det.apply_train = apply
     state = det.init_train(optimizer=opt)
     if start is not None:
         det.trunk.load_state_dict(start['trunk'], strict=True)
@@ -5155,7 +5169,17 @@ def wd_steps(det, batch, steps=2, group=None, start=None,
         out = originals[1](*args)
         if first[0] and len(k4['reduced']) < len(k4['plain']):
             k4['reduced'].append(tuple(t.cpu() for t in out[:2]))
+        if forward[0]:
+            sums[-1]['bn'].append(tuple(t.detach().cpu() for t in out))
         return out
+    all_reduce = voxel_encoders.all_reduce_with_grad
+
+    def masked_all_reduce(x, grp):
+        out = all_reduce(x, grp)
+        sums[-1]['masked'].append(out.detach().cpu())
+        return out
+    if group is not None:
+        voxel_encoders.all_reduce_with_grad = masked_all_reduce
     bn.moments, bn._group_sums = moments, group_sums
     metrics, stats, kept = [], [], None
     try:
@@ -5175,7 +5199,10 @@ def wd_steps(det, batch, steps=2, group=None, start=None,
                     nu={k: v.cpu().clone() for k, v in opt_state.nu.items()})
     finally:
         bn.moments, bn._group_sums = originals
+        voxel_encoders.all_reduce_with_grad = all_reduce
+        forward[0] = False
     out = dict(metrics=metrics, grads=grads, stats=stats, k4=k4, state=kept,
+               sums=sums,
                params={k: v.detach().cpu().clone()
                        for k, v in det.trunk.named_parameters()})
     if group is not None:
@@ -5198,13 +5225,14 @@ def wd_steps(det, batch, steps=2, group=None, start=None,
     return out
 
 
-def wd_rank(rank, world, store, repo, out):
+def wd_rank(rank, world, store, repo, tmp):
     """One rank of (wd) 1: gloo on the card (``cuda:0``, as torchrun's
     ``LOCAL_RANK`` would say for one card), the config's detector from
     seed 0 under the group, this rank's rows of the global batch, 2
     checked steps and one timed one; saves :func:`wd_steps`' result."""
     import datetime
     import traceback
+    out = os.path.join(tmp, f'rank{rank}.pt')
     try:
         sys.path.insert(0, repo)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -5230,37 +5258,6 @@ def wd_rank(rank, world, store, repo, out):
         raise
 
 
-def wd_spawn(repo, tmp, world=2):
-    """Start (wd) 1's ranks and join them within WD_TIMEOUT_S (killed
-    past it); -> their results."""
-    import multiprocessing
-    ctx = multiprocessing.get_context('spawn')
-    outs = [os.path.join(tmp, f'rank{r}.pt') for r in range(world)]
-    procs = [ctx.Process(target=wd_rank, args=(r, world,
-                                               os.path.join(tmp, 'store'),
-                                               repo, outs[r]))
-             for r in range(world)]
-    for proc in procs:
-        proc.start()
-    deadline = time.monotonic() + WD_TIMEOUT_S
-    try:
-        for proc in procs:
-            proc.join(max(0.0, deadline - time.monotonic()))
-    finally:
-        alive = [proc for proc in procs if proc.is_alive()]
-        for proc in alive:
-            proc.kill()
-            proc.join(10)
-    errors = [open(o + '.err').read() for o in outs
-              if os.path.exists(o + '.err')]
-    check(not alive and not errors
-          and all(proc.exitcode == 0 for proc in procs),
-          f'(wd) ranks: {len(alive)} killed past {WD_TIMEOUT_S} s, exit '
-          f'codes {[proc.exitcode for proc in procs]}:\n'
-          + '\n'.join(e[-3000:] for e in errors))
-    return [torch.load(o, weights_only=False) for o in outs]
-
-
 def rel_max(a, b):
     """max |a - b| over the largest |b| (a leaf's difference relative to
     its largest value)."""
@@ -5283,9 +5280,9 @@ def wd_two_ranks(repo, cfg, card):
     import tempfile
     det = waymo_detector(cfg)
     batch = waymo_batch(WD_SEED)
+    # the capacity is the global batch's on two ranks as on one, so a
+    # batch that drops pillars keeps the same ones ((wf) holds that)
     per, dropped = waymo_pillars(det, batch, '(wd)')
-    check(dropped == 0, f'(wd) the batch drops {dropped} pillars: a '
-          f'truncated batch keeps other pillars on two ranks than on one')
     t0 = time.perf_counter()
     one = [wd_steps(det, batch, steps=1)]
     one_s = time.perf_counter() - t0
@@ -5293,13 +5290,26 @@ def wd_two_ranks(repo, cfg, card):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix='chip_smoke_wd_') as tmp:
-        ranks = wd_spawn(repo, tmp)
+        ranks = spawn_ranks(wd_rank, repo, tmp, 2, WD_TIMEOUT_S, '(wd)')
     spawn_s = time.perf_counter() - t0
     a, b = ranks
     det = waymo_detector(cfg)
     one.append(wd_steps(det, batch, steps=1, start=a['state']))
-    del det, batch
+    del det
     torch.cuda.empty_cache()
+    # the gradients against one rank that replays the ranks' forward
+    # BatchNorm sums of the step: their other f32 order otherwise moves an
+    # activation at a ReLU's kink to its other side (the one rank's
+    # loss terms and statistics stay its own)
+    replayed = []
+    for s in range(2):
+        det = waymo_detector(cfg)
+        replayed.append(wf_steps(
+            det, batch, 1, start=a['state'] if s else None,
+            replay=_sums_to(a['sums'][s:s + 1], 'cuda')))
+        del det
+        torch.cuda.empty_cache()
+    del batch
     check(a['world'] == b['world'] == 2 and a['device'].startswith('cuda'),
           f'(wd) ranks ran on {a["device"]}, world {a["world"]}')
     for k in a['params']:
@@ -5316,7 +5326,7 @@ def wd_two_ranks(repo, cfg, card):
                                             ref['metrics'][0].items()
                                             if k != 'grad_norm'},
                           lambda g, w: abs(g - w) / max(abs(w), 1e-30)),
-            grad=worst_of(a['grads'][s], ref['grads'][0], rel_max),
+            grad=worst_of(a['grads'][s], replayed[s]['grads'][0], rel_max),
             stat=worst_of(a['stats'][s], ref['stats'][0], rel_max))
     params = worst_of(a['params'], one[1]['params'], rel_max)
     # K4: the all-reduced sums of each forward BatchNorm of step 1 against
@@ -5337,7 +5347,8 @@ def wd_two_ranks(repo, cfg, card):
         print(f'(wd) {step}, two gloo ranks on one card at global B = 4 '
               f'(2 + 2) against one rank on the 4 samples from the same '
               f'state: loss terms within {w["loss"][0]:.3g} ({w["loss"][1]};'
-              f' tol {WD_LOSS_RTOL}), gradients within {w["grad"][0]:.3g} '
+              f' tol {WD_LOSS_RTOL}), gradients (one rank replaying the '
+              f'ranks\' forward BatchNorm sums) within {w["grad"][0]:.3g} '
               f'of the leaf\'s largest ({w["grad"][1]}; tol {WD_GRAD_TOL}), '
               f'running statistics {w["stat"][0]:.3g} ({w["stat"][1]}; tol '
               f'{WD_STAT_TOL}) [{card}]')
@@ -5362,6 +5373,7 @@ def wd_two_ranks(repo, cfg, card):
                  for k, v in w.items()}, params_rel=params[0],
                 k4_rel=k4_rel, all_reduce_ms=ar['ms'],
                 all_reduce_calls=ar['calls'], pillars_per_sample=per,
+                pillars_dropped=dropped,
                 spawn_s=spawn_s, agree=agree)
 
 
@@ -5525,6 +5537,742 @@ def wd_cli(repo, card):
     return launches, summary
 
 
+# phase (wf): data parallel for CenterPoint, MVF, MVX and PV-RCNN.  One
+# group of two gloo ranks on the card (NCCL refuses two ranks on one device)
+# runs each family's TINY train step (tests/torch_dist_families.py's cases)
+# at global B = 4 (2 + 2), 2 steps each, on batches whose voxels and sites
+# overflow the global capacity unevenly over the ranks; one rank on the
+# whole batch is the reference, step by step from the same state.
+WF_TIMEOUT_S = 240
+WF_LIMIT_S = 75.0
+WF_B = 4
+WF_GWD = dict(type='GDLoss', loss_type='gwd3d', fun='log1p', tau=1.0,
+              loss_weight=5.0)
+WF_CP_PCR = (-12.8, -12.8, -3.0, 12.8, 12.8, 1.0)
+WF_MVF_PCR = (0., -9.6, -3., 25.6, 9.6, 1.)
+WF_ANCHOR_TEST = dict(use_rotate_nms=True, nms_thr=0.01, score_thr=0.05,
+                      nms_pre=128, max_num=32)
+# family -> (detector, model, head, pile voxel size or None); capacities
+# below the batches' live voxels (1,033 + 1,815 pillars against 2,400 for
+# CenterPoint, both MVF views against their config's 1,100, 864 + 1,301
+# against 1,800 for MVX; PV-RCNN's level 1 keeps no site of rank 1)
+WF_CASES = {
+    'centerpoint': ('CenterPointDetector', dict(
+        voxel_size=(0.4, 0.4, 4.0), point_cloud_range=WF_CP_PCR,
+        max_voxels_per_sample=600, voxelize_mode='dynamic',
+        head_type='center',
+        encoder_cfg=dict(in_channels=4, feat_channels=(16,)),
+        backbone_cfg=dict(in_channels=16, out_channels=(16, 32, 64),
+                          layer_nums=(1, 1, 1), layer_strides=(2, 2, 2)),
+        neck_cfg=dict(in_channels=(16, 32, 64), out_channels=(16, 16, 16),
+                      upsample_strides=(0.5, 1, 2))),
+        dict(tasks=[dict(num_classes=2), dict(num_classes=1)],
+             out_size_factor=4, with_vel=False, code_weights=None,
+             max_objs=16, yaw_mode=True, loss_gd=WF_GWD,
+             test_cfg=dict(max_per_img=32, score_threshold=0.05,
+                           nms_type='rotate', nms_thr=0.2,
+                           post_max_size=16))),
+    'mvf': ('PointPillarsDetector', dict(
+        voxel_size=(0.4, 0.4, 4.0), point_cloud_range=WF_MVF_PCR,
+        max_points_per_voxel=16, max_voxels_per_sample=1024,
+        voxelize_mode='mvf',
+        encoder_cfg=dict(in_channels=4, feat_channels=16,
+                         views=('cartesian', 'cylindrical'),
+                         voxel_size=((0.4, 0.4, 4.0), (0.04, 0.4, 40.0)),
+                         point_cloud_range=(
+                             WF_MVF_PCR, (-0.78, -3.0, 0.0, 0.78, 1.4,
+                                          40.0)),
+                         max_voxels=1100),
+        backbone_cfg=dict(in_channels=16, out_channels=(16, 32, 64),
+                          layer_nums=(1, 1, 1), layer_strides=(2, 2, 2)),
+        neck_cfg=dict(in_channels=(16, 32, 64), out_channels=(16, 16, 16),
+                      upsample_strides=(1, 2, 4)),
+        head_cfg=dict(num_classes=3, num_anchors=6, feat_channels=48)),
+        dict(test_cfg=dict(WF_ANCHOR_TEST, nms_pre=128), pos_cap=0)),
+    'mvx': ('MVXDetector', dict(TINY_MVX, max_voxels_per_sample=450),
+            TINY_MVX_HEAD),
+    'pvrcnn': ('PVRCNNDetector', TINY_PVRCNN, TINY_PV_RPN),
+}
+# the kernels each family's step must launch on both ranks (K3 in MVF's
+# dense step, K5 and K6 in PV-RCNN's proposals)
+WF_KERNELS = {
+    'centerpoint': ('bn_moments', 'bn_grad_moments', 'segment_max_winner',
+                    'segment_reduce_mapback', 'bev_splat_pairs'),
+    'mvf': ('bn_moments', 'bn_grad_moments', 'segment_max_winner',
+            'segment_reduce_mapback', 'bev_splat', 'gd_loss_fwd',
+            'gd_loss_bwd'),
+    'mvx': ('bn_moments', 'bn_grad_moments', 'segment_max_winner',
+            'segment_reduce_mapback', 'bev_splat'),
+    'pvrcnn': ('bn_moments', 'bn_grad_moments', 'segment_reduce',
+               'rotated_iou', 'nms_sweep'),
+}
+# the modules that voxelize through build_scatter
+WF_SCATTER_USERS = ('ops.voxelize', 'models.detectors.voxelnet',
+                    'models.mvf_encoder', 'ops.sparse_conv', 'engine.pvrcnn')
+
+
+def wf_detector(name, group=None):
+    """The family's TINY detector on the card from seed 0."""
+    from mmdet3d_gaussian_tpu_torch.engine import detector, mvx, pvrcnn
+    cls_name, model, head = WF_CASES[name]
+    cls = dict(CenterPointDetector=detector.CenterPointDetector,
+               PointPillarsDetector=detector.PointPillarsDetector,
+               MVXDetector=mvx.MVXDetector,
+               PVRCNNDetector=pvrcnn.PVRCNNDetector)[cls_name]
+    return cls(model, head, device='cuda', seed=0, group=group)
+
+
+def wf_batch(name, det=None):
+    """The family's global batch on the CPU: ``crowded_batch``'s piles on
+    rank 0's samples (CenterPoint, MVF, MVX); for PV-RCNN
+    ``synthetic_batch`` with RPN and RoI positives from ``det``."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import (crowded_batch,
+                                                            synthetic_batch)
+    from mmdet3d_gaussian_tpu_torch.engine.mvx import synthetic_mvx_batch
+    from mmdet3d_gaussian_tpu_torch.engine.pvrcnn import positive_batch
+    model = WF_CASES[name][1]
+    pcr = model['point_cloud_range']
+    if name == 'pvrcnn':
+        return positive_batch(det, synthetic_batch(WF_B, 512, 4, pc_range=pcr,
+                                                   device='cpu'))
+    if name == 'mvx':
+        batch = synthetic_mvx_batch(WF_B, 1024, 8, img_hw=TINY_MVX_IMG_HW,
+                                    pc_range=pcr, device='cpu')
+    else:
+        batch = synthetic_batch(WF_B, 1024, 8, pc_range=pcr, device='cpu')
+    piles = crowded_batch(WF_B, 1024, 8, pc_range=pcr,
+                          voxel_size=(0.4, 0.4, 4.0), device='cpu')
+    batch['points'][:WF_B // 2] = piles['points'][:WF_B // 2]
+    return batch
+
+
+def wf_steps(det, batch, steps, group=None, start=None, replay=None):
+    """``steps`` train steps of ``det`` on ``batch`` (on the card), from
+    ``start`` (a state this function kept) if given: each step's metrics,
+    the summed gradients AdamW was given, the running statistics, the
+    kept voxel and site coords of each voxelization and sparse level (the
+    batch column made global) with their overflow, the launches of the
+    steps, the state after each step (on the host), PV-RCNN's RoI samples
+    of each step, and under a group each step's forward BatchNorm sums
+    after the all-reduce (K4's and the masked ones).  ``replay``: such
+    sums of as many steps (and PV-RCNN's samples, the ranks' concatenated
+    on the batch axis), which then stand in for a one-rank run's own (the
+    masked sums keep their gradient), so that an activation at a ReLU's
+    kink, or a proposal at the top-k's edge, does not fall on its other
+    side on one of the runs."""
+    import importlib
+    from mmdet3d_gaussian_tpu_torch.engine import pvrcnn
+    from mmdet3d_gaussian_tpu_torch.models import voxel_encoders
+    from mmdet3d_gaussian_tpu_torch.ops import _cuda, bn
+    from mmdet3d_gaussian_tpu_torch.parallel.train_state import (
+        OptState, make_optimizer)
+    opt = make_optimizer(LR, 100)
+    grads = []
+    update = opt.update
+
+    def recording(g, *args, **kw):
+        grads.append({k: v.detach().cpu().clone() for k, v in g.items()})
+        return update(g, *args, **kw)
+    opt.update = recording
+    batch = {k: v.to(det.device) for k, v in batch.items()}
+    offset = 0 if group is None else group.rank * batch['points'].shape[0]
+    forward, kept, sums = [False], [], []
+    users = [importlib.import_module('mmdet3d_gaussian_tpu_torch.' + m)
+             for m in WF_SCATTER_USERS]
+    originals = dict(scatters=[u.build_scatter for u in users],
+                     group_sums=bn._group_sums, batch_stats=bn.batch_stats,
+                     all_reduce=voxel_encoders.all_reduce_with_grad,
+                     masked_sums=voxel_encoders.masked_sums,
+                     sample=pvrcnn.assign_and_sample)
+    samples = []
+    played_samples = None if replay is None else iter(
+        [r['samples'] for r in replay if r.get('samples') is not None])
+
+    def assign_and_sample(*args, **kw):
+        out = originals['sample'](*args, **kw)
+        if played_samples is not None:
+            rec = next(played_samples)
+            out = type(out)(*(t.to(out.rois.device) for t in rec))
+        samples.append(tuple(t.detach().cpu() for t in out))
+        return out
+
+    def wrap(original):
+        def build_scatter(coords, spatial_shape, max_voxels,
+                          key_order=None, group=None):
+            sc = original(coords, spatial_shape, max_voxels,
+                          key_order=key_order, group=group)
+            if forward[0]:
+                rows = sc.voxel_coords[sc.voxel_counts > 0].cpu().clone()
+                rows[:, 0] += offset
+                c = coords.to(torch.int32)
+                live = torch.unique(c[(c >= 0).all(-1)], dim=0).shape[0]
+                kept[-1].append(dict(rows=rows, live=live,
+                                     capacity=max_voxels,
+                                     overflow=int(sc.num_overflow)))
+            return sc
+        return build_scatter
+
+    def group_sums(*args):
+        out = originals['group_sums'](*args)
+        if forward[0]:
+            sums[-1]['bn'].append(tuple(o.detach().clone() for o in out))
+        return out
+
+    def all_reduce(x, grp):
+        out = originals['all_reduce'](x, grp)
+        sums[-1]['masked'].append(out.detach().clone())
+        return out
+    played = None if replay is None else dict(
+        bn=iter([x for r in replay for x in r['bn']]),
+        masked=iter([x for r in replay for x in r['masked']]))
+
+    def batch_stats(x):
+        su, sq, cnt = next(played['bn'])
+        return bn._stats(su, sq, cnt)
+
+    def masked_sums(flat, mask=None):
+        out = originals['masked_sums'](flat, mask)
+        c = out[1].shape[0]
+        rec = next(played['masked'])
+        got = (rec[0], rec[1:1 + c], rec[1 + c:])
+        return tuple(o + (r - o).detach() for o, r in zip(out, got))
+    apply_train = det.apply_train
+
+    def apply(b):
+        forward[0] = True
+        kept.append([])
+        sums.append(dict(bn=[], masked=[]))
+        try:
+            return apply_train(b)
+        finally:
+            forward[0] = False
+    det.apply_train = apply
+    state = det.init_train(optimizer=opt)
+    if start is not None:
+        det.trunk.load_state_dict(start['trunk'], strict=True)
+        dev = det.device
+        state = state._replace(step=start['step'], opt_state=OptState(
+            start['count'], {k: v.to(dev) for k, v in start['mu'].items()},
+            {k: v.to(dev) for k, v in start['nu'].items()}))
+    for u in users:
+        u.build_scatter = wrap(u.build_scatter)
+    if group is not None:
+        bn._group_sums = group_sums
+        voxel_encoders.all_reduce_with_grad = all_reduce
+    if replay is not None:
+        bn.batch_stats = batch_stats
+        voxel_encoders.masked_sums = masked_sums
+    pvrcnn.assign_and_sample = assign_and_sample
+    metrics, stats, states = [], [], []
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        for _ in range(steps):
+            state, m = det.train_step(batch, state)
+            metrics.append({k: float(v) for k, v in m.items()})
+            stats.append({k: v.cpu().clone() for k, v in
+                          det.trunk.named_buffers() if 'running_' in k})
+            opt_state = state.opt_state
+            states.append(dict(
+                trunk={k: v.cpu().clone()
+                       for k, v in det.trunk.state_dict().items()},
+                step=state.step, count=opt_state.count,
+                mu={k: v.cpu().clone() for k, v in opt_state.mu.items()},
+                nu={k: v.cpu().clone() for k, v in opt_state.nu.items()}))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    finally:
+        for u, f in zip(users, originals['scatters']):
+            u.build_scatter = f
+        bn._group_sums = originals['group_sums']
+        bn.batch_stats = originals['batch_stats']
+        voxel_encoders.all_reduce_with_grad = originals['all_reduce']
+        voxel_encoders.masked_sums = originals['masked_sums']
+        pvrcnn.assign_and_sample = originals['sample']
+        del det.apply_train
+    if replay is not None:
+        check(next(played['bn'], None) is None
+              and next(played['masked'], None) is None,
+              '(wf) replayed BatchNorm sums left over')
+    return dict(metrics=metrics, grads=grads, stats=stats, kept=kept,
+                launches=launches, states=states,
+                sums=[dict({k: [tuple(t.cpu() for t in x)
+                                if isinstance(x, tuple) else x.cpu()
+                                for x in v] for k, v in s.items()},
+                           samples=samples[i] if i < len(samples) else None)
+                      for i, s in enumerate(sums)])
+
+
+def wf_joined_sums(a, b):
+    """The ranks' recorded sums of each step (the same on both) with
+    their PV-RCNN samples concatenated on the batch axis (rank order)."""
+    out = []
+    for sa, sb in zip(a['sums'], b['sums']):
+        joined = dict(sa)
+        if sa['samples'] is not None:
+            joined['samples'] = tuple(torch.cat([x, y]) for x, y in
+                                      zip(sa['samples'], sb['samples']))
+        out.append(joined)
+    return out
+
+
+def _sums_to(sums, dev):
+    return [dict({k: [tuple(t.to(dev) for t in x) if isinstance(x, tuple)
+                      else x.to(dev) for x in s[k]]
+                  for k in ('bn', 'masked')}, samples=s.get('samples'))
+            for s in sums]
+
+
+def wf_rank(rank, world, store, repo, tmp):
+    """One rank of (wf): gloo on the card, each family's detector from
+    seed 0 under the group, this rank's rows of its global batch, 2 steps;
+    saves :func:`wf_steps`' results by family."""
+    import datetime
+    import traceback
+    out = os.path.join(tmp, f'rank{rank}.pt')
+    try:
+        sys.path.insert(0, repo)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import torch.distributed as dist
+        from mmdet3d_gaussian_tpu_torch.parallel.mesh import (
+            init_distributed, shard_batch)
+        group = init_distributed(
+            backend='gloo', init_method='file://' + store, rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=WF_TIMEOUT_S))
+        res = {}
+        for name in WF_CASES:
+            det = wf_detector(name, group)
+            batch = shard_batch(torch.load(os.path.join(
+                tmp, f'{name}_batch.pt'), weights_only=True), group)
+            res[name] = wf_steps(det, batch, 2, group=group)
+            del det
+        torch.save(dict(res, rank=rank, world=group.world), out)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(out + '.err', 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def spawn_ranks(target, repo, tmp, world, timeout_s, tag, extra=()):
+    """Start ``target(rank, world, store, repo, tmp, *extra)`` on ``world``
+    spawned processes and join them within ``timeout_s`` (killed past
+    it); fails the phase on a rank's error.  -> each rank's
+    ``rank{r}.pt``."""
+    import multiprocessing
+    ctx = multiprocessing.get_context('spawn')
+    store = os.path.join(tmp, 'store')
+    procs = [ctx.Process(target=target,
+                         args=(r, world, store, repo, tmp) + tuple(extra))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        alive = [proc for proc in procs if proc.is_alive()]
+        for proc in alive:
+            proc.kill()
+            proc.join(10)
+    outs = [os.path.join(tmp, f'rank{r}.pt') for r in range(world)]
+    errors = [open(o + '.err').read() for o in outs
+              if os.path.exists(o + '.err')]
+    check(not alive and not errors
+          and all(proc.exitcode == 0 for proc in procs),
+          f'{tag} ranks: {len(alive)} killed past {timeout_s} s, exit '
+          f'codes {[proc.exitcode for proc in procs]}:\n'
+          + '\n'.join(e[-3000:] for e in errors))
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def wf_rows(t):
+    """(n, 4) coords -> their set as sorted unique rows."""
+    return np.unique(t.numpy(), axis=0).reshape(-1, t.shape[1])
+
+
+def wf_trash_tables(card):
+    """K1, K2 and K7 on tables whose live rows end early and on tables
+    with no live row (every point in the trash), as a rank that keeps
+    fewer voxels than the capacity, or none, hands them: each equal to
+    its plain version."""
+    from mmdet3d_gaussian_tpu_torch.ops import segment, voxelize
+    from mmdet3d_gaussian_tpu_torch.ops.scatter import build_scatter
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    n, c, cap = 4096, 16, 3000
+    coords = torch.randint(0, 40, (n, 4), generator=gen, device='cuda',
+                           dtype=torch.int32)
+    coords[:, 0] = coords[:, 0] % 2
+    coords[:, 3] = 0
+    worst = 0.0
+    for what, cc in (('live rows end early', coords),
+                     ('no live row', torch.full_like(coords, -1))):
+        sc = build_scatter(cc, (2, 40, 40, 1), cap,
+                           key_order=voxelize.CANVAS_KEY_ORDER)
+        rows = torch.randn((n, c), generator=gen, device='cuda')
+        sv = rows[sc.sort_order].contiguous()
+        ids, starts, counts = sc.sorted_ids, sc.sorted_starts, sc.voxel_counts
+        # (kernel, plain, tolerance): the sums in another order, as (p)
+        # holds the voxel mean and (b) the mapback; the max, the winner
+        # and the splats exactly
+        pairs = [
+            (segment.segment_reduce(sv, starts, counts, 'sum'),
+             segment.segment_reduce_plain(sv, starts, counts, 'sum'), 1e-5),
+            (segment.segment_reduce(sv, starts, counts, 'max'),
+             segment.segment_reduce_plain(sv, starts, counts, 'max'), 0.0),
+            (segment.segment_reduce_mapback(sv, ids, starts, counts, 'sum'),
+             segment.segment_reduce_mapback_plain(sv, ids, starts, counts,
+                                                  'sum'), 1e-4),
+        ]
+        got_w = segment.segment_max_winner(sv, ids, starts, counts)
+        want_w = segment.segment_max_winner_plain(sv, ids, starts, counts)
+        pairs.append((got_w[0], want_w[0], 0.0))
+        check(torch.equal(got_w[1], want_w[1]),
+              f'(wf) K1 winner mask differs from plain ({what})')
+        feats = torch.randn((cap, c), generator=gen, device='cuda')
+        vc = sc.voxel_coords
+        canvas = voxelize.bev_scatter(feats, vc, 2, 40, 40)
+        b, ix, iy = vc[:, 0], vc[:, 1], vc[:, 2]
+        lin = torch.where(b >= 0, (b * 40 + iy) * 40 + ix, 2 * 1600)
+        pairs.append((canvas.reshape(-1, c),
+                      voxelize.bev_splat_plain(feats, lin.to(torch.int32),
+                                               2 * 1600), 0.0))
+        par = torch.zeros_like(lin, dtype=torch.int32)
+        lin2 = torch.where(b >= 0, lin, 2 * 1600).to(torch.int32)
+        pairs.append((voxelize.bev_splat_pairs(feats, lin2, par, 2 * 1600),
+                      voxelize.bev_splat_pairs_plain(feats, lin2, par,
+                                                     2 * 1600), 0.0))
+        errs = [float((g - w).abs().max()) if g.numel() else 0.0
+                for g, w, _ in pairs]
+        worst = max([worst] + errs)
+        print(f'(wf) K1 (sum, max, mapback, winner), K2 and K7 on a table '
+              f'of capacity {cap} with {int(sc.num_voxels)} live rows '
+              f'({what}): differences from the plain versions '
+              f'{[float(f"{e:.3g}") for e in errs]} (tolerances '
+              f'{[t for _, _, t in pairs]}) [{card}]')
+        check(all(e <= t for e, (_, _, t) in zip(errs, pairs)),
+              f'(wf) a kernel differs from its plain version on a table '
+              f'where {what}')
+    return worst
+
+
+def wf_families(repo, card):
+    """Phase (wf): the four families' 2-rank steps against one rank.
+    -> (summary, launches by family)."""
+    import tempfile
+    t0 = time.perf_counter()
+    trash_err = wf_trash_tables(card)
+    summary, launches, one = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_wf_') as tmp:
+        for name in WF_CASES:
+            det = wf_detector(name) if name == 'pvrcnn' else None
+            torch.save(wf_batch(name, det), os.path.join(
+                tmp, f'{name}_batch.pt'))
+            del det
+        t1 = time.perf_counter()
+        ranks = spawn_ranks(wf_rank, repo, tmp, 2, WF_TIMEOUT_S, '(wf)')
+        spawn_s = time.perf_counter() - t1
+        for name in WF_CASES:
+            batch = torch.load(os.path.join(tmp, f'{name}_batch.pt'),
+                               weights_only=True)
+            a, b = ranks[0][name], ranks[1][name]
+            start = a['states'][0]
+            plain = [wf_steps(wf_detector(name), batch, 1),
+                     wf_steps(wf_detector(name), batch, 1, start=start)]
+            joined = _sums_to(wf_joined_sums(a, b), 'cuda')
+            replayed = [
+                wf_steps(wf_detector(name), batch, 1, replay=joined[:1]),
+                wf_steps(wf_detector(name), batch, 1, start=start,
+                         replay=joined[1:2])]
+            one[name] = dict(plain=plain, replayed=replayed)
+            summary[name] = wf_compare(name, a, b, plain, replayed, card)
+            launches[name] = dict(two_ranks=a['launches'],
+                                  one_rank=plain[0]['launches'])
+    summary['trash_tables_max_abs_err'] = trash_err
+    summary['spawn_s'] = spawn_s
+    summary['phase_s'] = time.perf_counter() - t0
+    print(f'(wf) wall {summary["phase_s"]:.1f} s (the two-rank run '
+          f'{spawn_s:.1f} s; limit {WF_LIMIT_S:.0f} s) [{card}]')
+    check(all(s['agree'] for k, s in summary.items() if k in WF_CASES),
+          '(wf) two ranks disagree with one rank beyond the tolerances')
+    check(summary['phase_s'] <= WF_LIMIT_S,
+          f'(wf) took {summary["phase_s"]:.1f} s')
+    return summary, launches
+
+
+def wf_compare(name, a, b, plain, replayed, card):
+    """One family's checks of (wf); prints them.  -> summary."""
+    for k in a['states'][-1]['trunk']:
+        check(torch.equal(a['states'][-1]['trunk'][k],
+                          b['states'][-1]['trunk'][k]),
+              f'(wf) {name}: the ranks\' state differs after the steps: {k}')
+    check(a['metrics'] == b['metrics'], f'(wf) {name}: rank metrics differ')
+    differs = []
+    for s in range(2):
+        want = plain[s]['kept'][0]
+        got = [a['kept'][s], b['kept'][s]]
+        check(len(got[0]) == len(got[1]) == len(want),
+              f'(wf) {name}: {len(want)} voxelizations on one rank, '
+              f'{len(got[0])} and {len(got[1])} on two')
+        for i, w in enumerate(want):
+            union = wf_rows(torch.cat([g[i]['rows'] for g in got]))
+            check(np.array_equal(union, wf_rows(w['rows'])),
+                  f'(wf) {name} step {s + 1}: voxelization {i} keeps '
+                  f'another set on two ranks than on one')
+            check(all(g[i]['overflow'] == w['overflow'] for g in got),
+                  f'(wf) {name}: the overflow of voxelization {i} is not '
+                  f'the global one')
+            per_rank = [min(g[i]['live'], w['capacity'] // 2) for g in got]
+            if per_rank != [len(g[i]['rows']) for g in got]:
+                differs.append(i)
+    kept_counts = [[len(g['rows']) for g in a['kept'][0]],
+                   [len(g['rows']) for g in b['kept'][0]]]
+    check(bool(differs), f'(wf) {name}: the batch does not overflow its '
+          f'capacity unevenly (a per-rank capacity keeps the same set)')
+    worst = {}
+    for s in range(2):
+        w_metrics = {k: v for k, v in plain[s]['metrics'][0].items()
+                     if k != 'grad_norm'}
+        worst[f'step{s + 1}'] = dict(
+            loss=worst_of(a['metrics'][s], w_metrics,
+                          lambda g, w: abs(g - w) / max(abs(w), 1e-30)),
+            grad=worst_of(a['grads'][s], replayed[s]['grads'][0], rel_max),
+            stat=worst_of(a['stats'][s], plain[s]['stats'][0], rel_max))
+    for step, w in worst.items():
+        print(f'(wf) {name} {step}, two gloo ranks on one card at global B '
+              f'= 4 (2 + 2) against one rank on the 4 samples from the same '
+              f'state: loss terms within {w["loss"][0]:.3g} ({w["loss"][1]}; '
+              f'tol {WD_LOSS_RTOL}), gradients (one rank replaying the '
+              f'ranks\' forward BatchNorm sums) within {w["grad"][0]:.3g} of '
+              f'the leaf\'s largest ({w["grad"][1]}; tol {WD_GRAD_TOL}), '
+              f'running statistics {w["stat"][0]:.3g} ({w["stat"][1]}; tol '
+              f'{WD_STAT_TOL}) [{card}]')
+    if a['sums'][0]['samples'] is not None:
+        joined = wf_joined_sums(a, b)
+        same = [all(torch.equal(x, y) for x, y, f in zip(
+            joined[s]['samples'], plain[s]['sums'][0]['samples'],
+            range(6)) if f in (1, 4, 5)) for s in range(2)]
+        print(f'(wf) {name}: the RoI samples (labels, positives, valid) of '
+              f'one rank on its own equal the ranks\' in steps 1, 2: '
+              f'{same}; the gradient runs replay the ranks\' [{card}]')
+    got = a['launches']
+    missing = [k for k in WF_KERNELS[name] if not got.get(k)]
+    print(f'(wf) {name}: kept voxels and sites a rank per voxelization '
+          f'{kept_counts[0]} and {kept_counts[1]}, the one-rank sets over '
+          f'both ranks; launches of the 2 steps on rank 0 {got} (K4\'s '
+          f'moments all-reduced), on one rank {plain[0]["launches"]} '
+          f'(step 1) [{card}]')
+    check(not missing, f'(wf) {name}: rank 0 launched no {missing}')
+    agree = all(w['loss'][0] <= WD_LOSS_RTOL and w['grad'][0] <= WD_GRAD_TOL
+                and w['stat'][0] <= WD_STAT_TOL for w in worst.values())
+    return dict({f'{step}_{k}': v[0] for step, w in worst.items()
+                 for k, v in w.items()}, kept=kept_counts,
+                per_rank_capacity_keeps_another_set=sorted(set(differs)),
+                launches=got, agree=agree)
+
+
+# --only dp4: the first NCCL job across cards.  One NCCL rank a card, the
+# global batch split a sample a rank (4 cards); the Waymo PointPillars
+# step (hard, 4 x 180,000 points) and the CenterPoint gwd5 step (dynamic,
+# s2d canvas, 4 x 60,000 points) at full width against one rank on the
+# whole batch, step by step from the same state; the step and its
+# BatchNorm all-reduces timed beside one card's step
+DP4_TIMEOUT_S = 600
+DP4_TIMED = 3
+DP4_LOSS_RTOL = 1e-5
+
+
+def dp4_detector(which, repo, group=None):
+    from mmdet3d_gaussian_tpu_torch.engine.detector import CenterPointDetector
+    if which == 'waymo':
+        return waymo_detector(waymo_config(repo), group=group)
+    model, head = cp_configs(repo)[0]
+    return CenterPointDetector(model, dict(head, code_weights=CP_CODE_WEIGHTS),
+                               device='cuda', seed=0, group=group)
+
+
+def dp4_batch(which):
+    """The global batch on the CPU."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import synthetic_nus_batch
+    if which == 'waymo':
+        return waymo_batch(WD_SEED, dev='cpu')
+    return synthetic_nus_batch(CP_BATCH, CP_POINTS, CP_GT, seed=0,
+                               device='cpu')
+
+
+def dp4_timed(det, batch, state, group=None):
+    """DP4_TIMED more steps timed whole, then under a group DP4_TIMED more
+    with each BatchNorm all-reduce synchronized and timed: -> (median ms
+    of a step, median ms of its BatchNorm all-reduces and their count a
+    step), synchronized host clock."""
+    from mmdet3d_gaussian_tpu_torch.ops import bn
+    batch = {k: v.to(det.device) for k, v in batch.items()}
+    original = bn._group_sums
+    spent = [0.0, 0]
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = original(*args)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return res
+    steps, reduces, calls = [], [], 0
+    for _ in range(DP4_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = det.train_step(batch, state)[0]
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    if group is None:
+        return sorted(steps)[DP4_TIMED // 2], 0.0, 0
+    bn._group_sums = timed
+    try:
+        for _ in range(DP4_TIMED):
+            spent[:] = [0.0, 0]
+            state = det.train_step(batch, state)[0]
+            reduces.append(spent[0] * 1e3)
+            calls = spent[1]
+    finally:
+        bn._group_sums = original
+    return (sorted(steps)[DP4_TIMED // 2], sorted(reduces)[DP4_TIMED // 2],
+            calls)
+
+
+def dp4_rank(rank, world, store, repo, tmp, which):
+    """One NCCL rank of --only dp4 on card ``rank``: 2 checked steps on
+    its rows, then DP4_TIMED timed ones."""
+    import datetime
+    import traceback
+    out = os.path.join(tmp, f'rank{rank}.pt')
+    try:
+        os.environ['LOCAL_RANK'] = str(rank)
+        sys.path.insert(0, repo)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import torch.distributed as dist
+        from mmdet3d_gaussian_tpu_torch.parallel.mesh import (
+            init_distributed, shard_batch)
+        group = init_distributed(
+            backend='nccl', init_method='file://' + store, rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=DP4_TIMEOUT_S))
+        det = dp4_detector(which, repo, group)
+        batch = shard_batch(torch.load(os.path.join(tmp, 'batch.pt'),
+                                       weights_only=True), group)
+        res = wf_steps(det, batch, 2, group=group)
+        state = det.init_train()
+        res['step_ms'], res['all_reduce_ms'], res['all_reduce_calls'] = \
+            dp4_timed(det, batch, state, group)
+        res.update(rank=rank, world=group.world,
+                   device=str(next(det.trunk.parameters()).device))
+        res['kept'] = None
+        torch.save(res, out)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(out + '.err', 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def dp4_phase(repo, card):
+    """--only dp4: the Waymo and CenterPoint steps on one NCCL rank a card
+    against one rank on the whole batch.  -> summary."""
+    import tempfile
+    world = torch.cuda.device_count()
+    if world < 2:
+        raise RuntimeError(f'--only dp4 needs at least 2 CUDA devices, '
+                           f'{world} visible')
+    summary = dict(cards=world)
+    for which, calls in (('waymo', 38), ('centerpoint', 124)):
+        t0 = time.perf_counter()
+        batch = dp4_batch(which)
+        check(batch['points'].shape[0] % world == 0,
+              f'(dp4) a batch of {batch["points"].shape[0]} over {world} '
+              f'cards')
+        det = dp4_detector(which, repo)
+        first = wf_steps(det, batch, 1)
+        del det
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_dp4_') as tmp:
+            torch.save(batch, os.path.join(tmp, 'batch.pt'))
+            t1 = time.perf_counter()
+            ranks = spawn_ranks(dp4_rank, repo, tmp, world, DP4_TIMEOUT_S,
+                                '(dp4)', extra=(which,))
+            spawn_s = time.perf_counter() - t1
+        a = ranks[0]
+        start = a['states'][0]
+        det = dp4_detector(which, repo)
+        second = wf_steps(det, batch, 1, start=start)
+        replayed = [
+            wf_steps(dp4_detector(which, repo), batch, 1,
+                     replay=_sums_to(a['sums'][:1], 'cuda')),
+            wf_steps(dp4_detector(which, repo), batch, 1, start=start,
+                     replay=_sums_to(a['sums'][1:], 'cuda'))]
+        one_ms, _, _ = dp4_timed(det, batch, det.init_train())
+        del det
+        torch.cuda.empty_cache()
+        check(sorted(r['device'] for r in ranks)
+              == [f'cuda:{r}' for r in range(world)],
+              f'(dp4) ranks ran on {[r["device"] for r in ranks]}')
+        for r in ranks[1:]:
+            for k in a['states'][-1]['trunk']:
+                check(torch.equal(a['states'][-1]['trunk'][k],
+                                  r['states'][-1]['trunk'][k]),
+                      f'(dp4) {which}: rank {r["rank"]}\'s state differs '
+                      f'from rank 0\'s: {k}')
+        plain = [first, second]
+        worst = {}
+        for s in range(2):
+            w_metrics = {k: v for k, v in plain[s]['metrics'][0].items()
+                         if k != 'grad_norm'}
+            worst[f'step{s + 1}'] = dict(
+                loss=worst_of(a['metrics'][s], w_metrics,
+                              lambda g, w: abs(g - w) / max(abs(w), 1e-30)),
+                grad=worst_of(a['grads'][s], replayed[s]['grads'][0],
+                              rel_max),
+                stat=worst_of(a['stats'][s], plain[s]['stats'][0], rel_max))
+        for step, w in worst.items():
+            print(f'(dp4) {which} {step}, {world} NCCL ranks (one a card, '
+                  f'{batch["points"].shape[0] // world} sample a rank) '
+                  f'against one rank on the whole batch from the same '
+                  f'state: loss terms within {w["loss"][0]:.3g} '
+                  f'({w["loss"][1]}; tol {DP4_LOSS_RTOL}), gradients (one '
+                  f'rank replaying the ranks\' forward BatchNorm sums) '
+                  f'within {w["grad"][0]:.3g} of the leaf\'s largest '
+                  f'({w["grad"][1]}; tol {WD_GRAD_TOL}), running statistics '
+                  f'{w["stat"][0]:.3g} ({w["stat"][1]}; tol {WD_STAT_TOL}) '
+                  f'[{card}]')
+        step_ms = [r['step_ms'] for r in ranks]
+        ar_ms = [r['all_reduce_ms'] for r in ranks]
+        print(f'(dp4) {which}: a step on {world} cards {max(step_ms):.3f} ms '
+              f'(slowest rank; ranks {[round(x, 3) for x in step_ms]}), its '
+              f'{a["all_reduce_calls"]} BatchNorm all-reduces over NCCL '
+              f'{max(ar_ms):.3f} ms (ranks {[round(x, 3) for x in ar_ms]}; '
+              f'synchronized host clock, medians of {DP4_TIMED}); one card '
+              f'on the whole batch {one_ms:.3f} ms; launches of 2 steps on '
+              f'rank 0 {a["launches"]}; the {world}-rank run {spawn_s:.1f} '
+              f's wall, the phase {time.perf_counter() - t0:.1f} s [{card}]')
+        check(a['all_reduce_calls'] == calls,
+              f'(dp4) {which}: {a["all_reduce_calls"]} all-reduces a step, '
+              f'want {calls}')
+        check(all(w['loss'][0] <= DP4_LOSS_RTOL
+                  and w['grad'][0] <= WD_GRAD_TOL
+                  and w['stat'][0] <= WD_STAT_TOL for w in worst.values()),
+              f'(dp4) {which}: {world} ranks disagree with one rank beyond '
+              f'the tolerances')
+        summary[which] = dict(
+            {f'{step}_{k}': v[0] for step, w in worst.items()
+             for k, v in w.items()}, step_ms=step_ms, all_reduce_ms=ar_ms,
+            all_reduce_calls=a['all_reduce_calls'], one_card_step_ms=one_ms,
+            launches=a['launches'], spawn_s=spawn_s)
+    return summary
+
+
 def waymo_phases(repo, card):
     """Phases (w), (wt) and (wd).  -> (kernel numbers by call, launches by
     path, summaries)."""
@@ -5553,6 +6301,18 @@ def waymo_phases(repo, card):
     del batches
     torch.cuda.empty_cache()
     summary['w_wt_s'] = time.perf_counter() - t0
+    dp, dp_launches = dp_phases(repo, card, cfg)
+    summary['phases_s'] = time.perf_counter() - t0
+    print(f'(w), (wt), (wd), (wf) wall {summary["phases_s"]:.1f} s (limit '
+          f'{WAYMO_LIMIT_S + WF_LIMIT_S:.0f} s) [{card}]')
+    check(summary['phases_s'] <= WAYMO_LIMIT_S + WF_LIMIT_S,
+          f'(w)-(wf) took {summary["phases_s"]:.1f} s')
+    return results, launches, summary, dp, dp_launches
+
+
+def dp_phases(repo, card, cfg=None):
+    """Phases (wd) and (wf).  -> (summary, launches by run)."""
+    cfg = cfg or waymo_config(repo)
     dp = dict(two_ranks=wd_two_ranks(repo, cfg, card))
     torch.cuda.empty_cache()
     dp['nccl_all_reduce_ms'] = nccl_all_reduce_ms(card)
@@ -5560,12 +6320,11 @@ def waymo_phases(repo, card):
     # (wd) 1's comparison fails the phase here, after the CLI runs
     check(dp['two_ranks']['agree'], '(wd) two ranks disagree with one rank '
           'beyond the tolerances')
-    summary['phases_s'] = time.perf_counter() - t0
-    print(f'(w), (wt), (wd) wall {summary["phases_s"]:.1f} s (limit '
-          f'{WAYMO_LIMIT_S:.0f} s) [{card}]')
-    check(summary['phases_s'] <= WAYMO_LIMIT_S,
-          f'(w)-(wd) took {summary["phases_s"]:.1f} s')
-    return results, launches, summary, dp, dp_launches
+    torch.cuda.empty_cache()
+    dp['families'], wf_launches = wf_families(repo, card)
+    dp_launches.update({f'wf {name}': runs['two_ranks']
+                        for name, runs in wf_launches.items()})
+    return dp, dp_launches
 
 
 def union_us(intervals):
@@ -5649,6 +6408,17 @@ def main() -> int:
         _, mvx_launches, mvx_e2e = mvx_phases(card)
         print(f'(e) mvx launches {json.dumps(mvx_launches)} [{card}]')
         print(f'(e) mvx summary {json.dumps(mvx_e2e)} [{card}]')
+        return 0
+    if sys.argv[1:] == ['--only', 'dp']:
+        # the data-parallel phases (wd) and (wf) alone (no result line)
+        dp, dp_launches = dp_phases(root, card)
+        print(f'(e) dp launches {json.dumps(dp_launches)} [{card}]')
+        print(f'(e) dp summary {json.dumps(dp)} [{card}]')
+        return 0
+    if sys.argv[1:] == ['--only', 'dp4']:
+        # one NCCL rank a card (needs 2 or more cards; no result line)
+        print(f'(e) dp4 summary {json.dumps(dp4_phase(root, card))} '
+              f'[{card}]')
         return 0
     if sys.argv[1:] == ['--only', 'waymo']:
         # the Waymo and data-parallel phases alone (no result line)

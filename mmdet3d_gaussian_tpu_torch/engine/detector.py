@@ -125,30 +125,20 @@ class _Detector:
     :meth:`init_train`; None: one process) makes the train step data
     parallel: each rank's batch is its rows of the global batch, every
     BatchNorm of the trunk takes the whole batch's statistics, the loss
-    normalizers are global and the gradients are summed over the ranks, so
-    a step on R ranks is the one-process step on all their rows.
-    ``predict`` runs on each rank's own rows."""
+    normalizers are global, the voxel and site capacities are the global
+    batch's (truncated over the ranks in key order, batch first) and the
+    gradients are summed over the ranks, so a step on R ranks is the
+    one-process step on all their rows, as the JAX package's step sharded
+    over ``Mesh(('data',))`` is its unsharded program.  ``predict`` runs
+    on each rank's own rows."""
 
     group = None
 
-    def _data_parallel(self) -> bool:
-        """Whether this family's train step is ported for more than one
-        rank."""
-        return False
-
     def set_group(self, group) -> None:
-        """Train over ``group``'s ranks (see the class docstring): sync the
-        trunk's BatchNorms and broadcast rank 0's weights.  Raises for a
-        family whose data-parallel step is not ported when the group has
-        more than one rank."""
+        """Train over ``group``'s ranks (see the class docstring): hand the
+        group to the trunk's BatchNorms and capacities
+        (``mesh.sync_batchnorms``) and broadcast rank 0's weights."""
         from ..parallel.mesh import replicate, sync_batchnorms
-        if group is not None and group.world > 1 \
-                and not self._data_parallel():
-            mode = getattr(self.trunk, 'voxelize_mode', None)
-            what = type(self).__name__ + (f' ({mode} trunk)' if mode else '')
-            raise NotImplementedError(
-                f'{what}: data-parallel training over {group.world} ranks '
-                f'is not ported yet (ROADMAP section 1, item 7b)')
         self.group = group
         sync_batchnorms(self.trunk, group)
         if group is not None:
@@ -208,8 +198,8 @@ class PointPillarsDetector(_Detector):
     bf16 the parameters, their gradients and AdamW's moments stay f32, and
     there is no loss scaling, as in the JAX package's train step.
     ``apply_train`` and ``apply_eval`` return NHWC (cls_score, bbox_pred,
-    dir_pred, packed).  The hard and dynamic trunks train data parallel
-    over a ``group``; the MVF trunk does not yet."""
+    dir_pred, packed).  Every trunk (hard, dynamic, MVF) trains data
+    parallel over a ``group``."""
 
     def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
                  head_cfg: Optional[Dict[str, Any]] = None,
@@ -232,9 +222,6 @@ class PointPillarsDetector(_Detector):
             self.head.anchors_for(self.featmap_size)).to(self.device)
         if group is not None:
             self.set_group(group)
-
-    def _data_parallel(self) -> bool:
-        return self.trunk.voxelize_mode != 'mvf'
 
     def loss(self, outputs, batch: Dict[str, torch.Tensor]):
         """Head outputs -> (total loss, {loss_cls, loss_bbox, loss_dir});
@@ -329,12 +316,13 @@ class CenterPointDetector(_Detector):
 
     def loss(self, preds, batch: Dict[str, torch.Tensor]):
         """Per-task maps -> (total loss, {task{t}.loss_*}); targets for
-        the whole batch at once."""
+        the whole batch at once (under a group, this rank's share of the
+        global batch's loss)."""
         targets = self.head.get_targets(
             batch['gt_bboxes'].to(self.device),
             batch['gt_labels'].to(self.device),
             batch['gt_valid'].to(self.device), self.featmap_size)
-        losses = self.head.loss(preds, targets)
+        losses = self.head.loss(preds, targets, group=self.group)
         return sum(losses.values()), losses
 
     @torch.inference_mode()

@@ -52,7 +52,10 @@ class MVXDetector(PointPillarsDetector):
     updates :data:`KITTI_MVX_MODEL` (``compute_dtype='bfloat16'`` for the
     mixed precision), ``head_cfg`` :data:`~.detector.KITTI_3CLASS_HEAD`.
     ``apply_train`` and ``apply_eval`` return NHWC (cls_score, bbox_pred,
-    dir_pred, packed)."""
+    dir_pred, packed).  It trains data parallel over a ``group`` as
+    :class:`~.detector.PointPillarsDetector` does: the image branch's
+    BatchNorms are synced with the trunk's, and the point fusion works
+    per point (no batch-wide reduction)."""
 
     def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
                  head_cfg: Optional[Dict[str, Any]] = None,
@@ -75,9 +78,6 @@ class MVXDetector(PointPillarsDetector):
             self.head.anchors_for(self.featmap_size)).to(self.device)
         if group is not None:
             self.set_group(group)
-
-    def _data_parallel(self) -> bool:
-        return False
 
     def _inputs(self, batch: Dict[str, torch.Tensor]):
         return [batch[k].to(self.device)

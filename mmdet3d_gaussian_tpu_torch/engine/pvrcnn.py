@@ -9,6 +9,17 @@ and :class:`PVRCNNBboxHead` -> in training RoI assignment and sampling,
 targets and the four loss groups; in predict the refined boxes with
 their rotated NMS (K5, K6).
 
+Data parallel (a ``group``, ``parallel/mesh.py``): the train step on R
+ranks is the one-process step on all their rows, as the JAX package's step
+sharded over ``Mesh(('data',))`` is its unsharded program.  The voxelize
+and every strided sparse level keep the global batch's capacity
+(``max_voxels`` x the global B, truncated over the ranks in key order,
+batch first), every BatchNorm takes the whole batch's statistics, and the
+RPN's ``num_pos``, the semantic loss's positives and the RoI losses' two
+weight sums are global.  The rest works per sample and needs no
+collective: FPS, the ball queries and grouping, the BEV sample, RoI
+assignment and sampling, the RoI-grid pooling and the targets.
+
 The trunk is one ``nn.Module`` (:class:`PVRCNNNet`) with ``first`` and
 ``second`` children, the JAX package's two flax modules, so the train
 state, checkpoints and the loop work as for the other detectors.  f32
@@ -37,6 +48,7 @@ from ..models.roi_heads import (Batch3DRoIGridExtractor, PointwiseMaskHead,
 from ..ops.nms import nms_bev, top_k
 from ..ops.rotated_iou import iou_3d
 from ..ops.scatter import batch_coords, build_scatter, compute_voxel_coords
+from ..parallel.mesh import all_reduce_sum, world_of
 from ..registry import LOSSES
 from .detector import _Detector, init_weights
 
@@ -225,9 +237,9 @@ class PVRCNNDetector(_Detector):
     """PV-RCNN (reference ``hv_pvrcnn_secfpn_4x4_80e_kitti-3d-3class``):
     ``model_cfg`` updates :data:`KITTI_PVRCNN`, ``rpn_head_cfg``
     :data:`KITTI_PVRCNN_RPN_HEAD`.  ``train_step`` and ``predict`` as the
-    other detectors'; ``dropout_generator`` (a ``torch.Generator`` on the
-    device) turns on the box head's dropout in training, off by
-    default."""
+    other detectors' (data parallel over a ``group``, module docstring);
+    ``dropout_generator`` (a ``torch.Generator`` on the device) turns on
+    the box head's dropout in training, off by default."""
 
     def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
                  rpn_head_cfg: Optional[Dict[str, Any]] = None,
@@ -241,10 +253,9 @@ class PVRCNNDetector(_Detector):
         if c.get('compute_dtype') not in (None, 'float32'):
             raise ValueError('PV-RCNN runs in f32 only, got compute_dtype='
                              f'{c["compute_dtype"]!r}')
-        if c.get('axis_name') is not None:
-            raise NotImplementedError('PV-RCNN with axis_name (cross-device '
-                                      'BatchNorm) is not ported yet (ROADMAP '
-                                      'section 1, item 7b)')
+        # the JAX module's cross-replica BatchNorm: here the group's work
+        # (set_group), with or without it, as PointPillarsNet takes it
+        c.pop('axis_name', None)
         hc = copy.deepcopy(KITTI_PVRCNN_RPN_HEAD)
         hc.update(rpn_head_cfg or {})
         self.rpn_head = GDAnchor3DHead(**hc)
@@ -272,7 +283,9 @@ class PVRCNNDetector(_Detector):
     # ------------------------------------------------------------------
     def scatter(self, batch: Dict[str, torch.Tensor]):
         """Hard voxelize: the points' voxels, ``max_voxels`` x B of them
-        kept in key order (batch first) -> (Scatter, points (B N, C))."""
+        kept in key order (batch first; in training under a group, B is
+        the global batch and the truncation runs over the ranks) ->
+        (Scatter, points (B N, C))."""
         c = self.cfg
         points = batch['points'].to(self.device)
         b, n, cdim = points.shape
@@ -284,8 +297,10 @@ class PVRCNNDetector(_Detector):
         mask = batch['points_mask'].to(self.device).reshape(-1, 1)
         coords3 = torch.where(mask, coords3, -1)
         nz, ny, nx = c['sparse_shape']
+        group = self.group if self.trunk.training else None
         return build_scatter(batch_coords(coords3, bidx), (b, nx, ny, nz),
-                             c['max_voxels'] * b), flat
+                             c['max_voxels'] * b * world_of(group),
+                             group=group), flat
 
     def voxelize(self, batch: Dict[str, torch.Tensor]):
         """:meth:`scatter` and HardSimpleVFE's per-voxel mean through K1 ->
@@ -334,15 +349,20 @@ class PVRCNNDetector(_Detector):
     def rcnn_losses(self, samples: RoISamples, roi_cls, roi_reg):
         """Second-stage losses of the drawn samples: soft-IoU BCE, SmoothL1
         on the RoI-frame deltas and the corner loss, weights normalized
-        over the whole batch."""
+        over the whole batch (under a group, over every rank's
+        samples)."""
         label, label_w, bbox_tgt, reg_w = roi_canonical_targets(
             samples, self.roi_coder)
         one = label_w.new_ones(())
-        label_w = label_w / torch.maximum(label_w.sum(), one)
+        label_sum, reg_sum = label_w.sum(), reg_w.sum()
+        if self.group is not None:
+            label_sum, reg_sum = all_reduce_sum([label_sum, reg_sum],
+                                                self.group)
+        label_w = label_w / torch.maximum(label_sum, one)
         p = roi_cls[..., 0].reshape(-1)
         soft = label.reshape(-1)
         bce = torch.relu(p) - p * soft + torch.log1p(torch.exp(-p.abs()))
-        reg_w_n = reg_w / torch.maximum(reg_w.sum(), one)
+        reg_w_n = reg_w / torch.maximum(reg_sum, one)
         sml1 = self.loss_roi_bbox(roi_reg, bbox_tgt)
         # the corner loss of the positives only, as upstream takes it: the
         # JAX package decodes every RoI and weights the negatives' by 0,
@@ -362,24 +382,27 @@ class PVRCNNDetector(_Detector):
     def loss(self, outputs, batch: Dict[str, torch.Tensor]):
         """-> (total, {rpn.loss_cls, rpn.loss_bbox, rpn.loss_dir,
         loss_semantic, loss_roi_cls, loss_roi_bbox, loss_corner,
-        metric.sparse_overflow}); the metric is not part of the total."""
+        metric.sparse_overflow}); the metric is not part of the total.
+        Under a group the overflow is already the global count and the
+        train step sums every metric over the ranks, so each rank reports
+        its 1 / R share of it."""
         rpn_outs, out2, samples = outputs
         gt = [batch[k].to(self.device)
               for k in ('gt_bboxes', 'gt_labels', 'gt_valid')]
         cls, bbox, dirp, packed = rpn_outs
         targets = self.rpn_head.get_targets(self.anchors, *gt)
         rpn = self.rpn_head.loss(cls, bbox, dirp, self.anchors, targets,
-                                 packed=packed)
+                                 packed=packed, group=self.group)
         losses = {f'rpn.{k}': v for k, v in rpn.items()}
         mask_head = self.trunk.second.semantic_head
         seg_tgt = mask_head.get_targets(out2['keypoints'], *gt)
-        losses['loss_semantic'] = mask_head.loss(out2['seg_logits'],
-                                                 seg_tgt, self.loss_seg)
+        losses['loss_semantic'] = mask_head.loss(
+            out2['seg_logits'], seg_tgt, self.loss_seg, group=self.group)
         losses.update(self.rcnn_losses(samples, out2['roi_cls'],
                                        out2['roi_reg']))
         total = sum(losses.values())
         losses['metric.sparse_overflow'] = \
-            out2['sparse_overflow'].float().detach()
+            out2['sparse_overflow'].float().detach() / world_of(self.group)
         return total, losses
 
     # ------------------------------------------------------------------

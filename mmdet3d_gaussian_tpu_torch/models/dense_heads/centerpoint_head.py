@@ -263,26 +263,34 @@ class CenterHead:
                                 dtype=torch.float32, device=mask.device)
 
     def loss(self, preds: List[Dict[str, torch.Tensor]],
-             targets: List[Dict[str, torch.Tensor]]
+             targets: List[Dict[str, torch.Tensor]], group=None
              ) -> Dict[str, torch.Tensor]:
         """preds: per-task dicts of (B, H, W, C) maps; targets from
         :meth:`get_targets`.  -> {task{t}.loss_heatmap, task{t}.loss_bbox}
         or in ``yaw_mode`` with ``loss_gd`` {..loss_heatmap, ..loss_gd,
-        ..loss_l1}."""
+        ..loss_l1}.  Each task's heatmap normalizer ``num_pos`` and box
+        normalizer ``npos`` are clamped at 1; under ``group`` (a
+        ``parallel.mesh.Group``) they are summed over the ranks first (no
+        gradient), so each rank's terms are its share of the whole
+        batch's."""
         losses = {}
         for t, pred in enumerate(preds):
             tgt = targets[t]
             heat_pred = torch.sigmoid(pred['heatmap'].float()).clamp(
                 1e-4, 1 - 1e-4)
             heat_tgt = tgt['heatmap'].permute(0, 2, 3, 1)
-            num_pos = (heat_tgt == 1.0).sum().float().clamp(min=1.0)
+            num_pos = (heat_tgt == 1.0).sum().float()
+            mask = tgt['mask']
+            npos = mask.float().sum()
+            if group is not None:
+                from ...parallel.mesh import all_reduce_sum
+                num_pos, npos = all_reduce_sum([num_pos, npos], group)
+            num_pos, npos = num_pos.clamp(min=1.0), npos.clamp(min=1.0)
             losses[f'task{t}.loss_heatmap'] = self.loss_cls(
                 heat_pred, heat_tgt, avg_factor=num_pos)
 
             gathered = self._gather_cells(self._reconstruct(pred),
                                           tgt['inds'])
-            mask = tgt['mask']
-            npos = mask.float().sum().clamp(min=1.0)
             ix, iy = tgt['inds'][..., 0], tgt['inds'][..., 1]
             if self.yaw_mode and self.loss_gd is not None:
                 # the reference's z quirk, kept: it hands GDLoss the raw

@@ -42,6 +42,7 @@ from torch import nn
 from ...ops.scatter import batch_coords, build_scatter, compute_voxel_coords
 from ...ops.voxelize import (CANVAS_KEY_ORDER, bev_scatter, bev_scatter_s2d,
                              hard_kept_rows, hard_voxelize)
+from ...parallel.mesh import world_of
 from ...registry import MODELS
 from ..backbones import SECOND, SECONDFPN, compute_dtype as _compute_dtype
 from ..dense_heads.anchor3d_head import Anchor3DHeadConvs
@@ -71,7 +72,18 @@ class PointPillarsNet(nn.Module):
     BatchNorm) is accepted and means what a data-parallel step does anyway:
     the detector's group (``parallel/mesh.py``) syncs every BatchNorm of
     the trunk, as GSPMD makes the JAX step's statistics global with or
-    without it."""
+    without it.
+
+    ``group`` (set with the BatchNorms' by ``mesh.sync_batchnorms``; None
+    by default): in training the ranks' points are rows of one global
+    batch, and the voxel capacity is the global batch's,
+    ``max_voxels_per_sample`` x the global B (or the MVF config's own
+    ``max_voxels``), truncated in key order with the batch index first
+    over all ranks (``build_scatter``'s ``group``), as the JAX package's
+    sharded step, one program over the whole batch.  Eval mode (predict)
+    works on each rank's own rows with its own capacity."""
+
+    global_capacity = True
 
     def __init__(self, voxel_size: Sequence[float] = (0.16, 0.16, 4.0),
                  point_cloud_range: Sequence[float] = (
@@ -90,6 +102,7 @@ class PointPillarsNet(nn.Module):
                  hard_encoder: str = 'packed',
                  axis_name: Optional[str] = None):
         super().__init__()
+        self.group = None
         if voxelize_mode not in ('hard', 'dynamic', 'mvf'):
             raise ValueError(f'voxelize_mode must be hard, dynamic or mvf, '
                              f'got {voxelize_mode!r}')
@@ -169,12 +182,15 @@ class PointPillarsNet(nn.Module):
         ix // 2, (iy & 1) * 2 + (ix & 1)) on the s2d canvas, voxels
         compacted in that canvas's raster order.  The features are f32, or
         bf16 from a hard encoder computing in bf16.  For MVF the Scatter is
-        view 0's and the points stay in their order."""
+        view 0's and the points stay in their order.  In training under
+        a group the capacity is the global batch's (class docstring)."""
         b, n, cdim = points.shape
-        max_voxels = self.max_voxels_per_sample * b
+        group = self.group if self.training else None
+        max_voxels = self.max_voxels_per_sample * b * world_of(group)
         if self.voxelize_mode == 'mvf':
             return self.voxel_encoder(points, points_mask,
-                                      self.mvf_max_voxels or max_voxels)
+                                      self.mvf_max_voxels or max_voxels,
+                                      group)
         flat = points.reshape(b * n, cdim)
         batch_idx = torch.arange(b, dtype=torch.int32,
                                  device=points.device).repeat_interleave(n)
@@ -183,7 +199,7 @@ class PointPillarsNet(nn.Module):
         coords3 = torch.where(points_mask.reshape(-1, 1), coords3, -1)
         coords4 = batch_coords(coords3, batch_idx)
         if self.voxelize_mode == 'hard':
-            return self._hard_pillars(flat, coords4, b, max_voxels)
+            return self._hard_pillars(flat, coords4, b, max_voxels, group)
         if self.s2d:
             # s2d cell raster order, parity minor: the pair splat's ids are
             # then non-decreasing; the key is bijective with the pillars
@@ -193,24 +209,25 @@ class PointPillarsNet(nn.Module):
             coords4 = torch.where((coords4 < 0).any(-1, keepdim=True), -1,
                                   s2d_cols)
             scatter = build_scatter(coords4, (b, self.ny // 2, self.nx // 2,
-                                              4), max_voxels)
+                                              4), max_voxels, group=group)
         else:
             scatter = build_scatter(coords4, (b, self.nx, self.ny, 1),
-                                    max_voxels, key_order=CANVAS_KEY_ORDER)
+                                    max_voxels, key_order=CANVAS_KEY_ORDER,
+                                    group=group)
         # permute points into voxel-sorted order once; every reduction in
         # the encoder then runs over contiguous segments
         flat_sorted = flat[scatter.sort_order]
         feats = self.voxel_encoder(flat_sorted, scatter.sorted_view())
         return feats, scatter.voxel_coords, scatter
 
-    def _hard_pillars(self, flat, coords4, b, max_voxels):
+    def _hard_pillars(self, flat, coords4, b, max_voxels, group):
         """The hard branch of :meth:`pillars`, pillars compacted in canvas
         raster order."""
         spatial = (b, self.nx, self.ny, 1)
         max_points = self.max_points_per_voxel
         if self.hard_encoder == 'sorted':
             scatter = build_scatter(coords4, spatial, max_voxels,
-                                    key_order=CANVAS_KEY_ORDER)
+                                    key_order=CANVAS_KEY_ORDER, group=group)
             sv = scatter.sorted_view()
             kept = hard_kept_rows(sv.point_voxel_ids, max_voxels, max_points)
             kept_cnt = scatter.voxel_counts.clamp(max=max_points)
@@ -220,7 +237,8 @@ class PointPillarsNet(nn.Module):
         # mask_slots=False: the encoder multiplies its input by the slot
         # mask, so what the table holds past num_points never counts
         hv = hard_voxelize(flat, coords4, spatial, max_points, max_voxels,
-                           key_order=CANVAS_KEY_ORDER, mask_slots=False)
+                           key_order=CANVAS_KEY_ORDER, mask_slots=False,
+                           group=group)
         feats = self.voxel_encoder(hv.voxels, hv.coords, hv.num_points)
         return feats, hv.coords, hv.scatter
 

@@ -242,7 +242,10 @@ class PointFusion(nn.Module):
     the levels summed, ReLU, Dense ``fuse``, ReLU, and zero for a point
     off the image.  ``img_levels``: each level's stride against the
     original image that ``lidar2img`` targets.  The Dense layers compute in
-    f32."""
+    f32.  Every output row depends on its own point and its own sample's
+    maps only: the fusion has no batch-wide reduction, so a data-parallel
+    step needs no collective here (the image branch's BatchNorms are
+    synced with the trunk's, ``mesh.sync_batchnorms``)."""
 
     def __init__(self, in_channels: int = 64, out_channels: int = 64,
                  img_levels: Sequence[int] = (4, 8, 16, 32)):

@@ -39,6 +39,7 @@ from ..ops.sparse_conv import (SparseTensor, make_sparse_tensor,
                                sparse_conv3d, sparse_to_dense,
                                submanifold_conv3d)
 from ..ops.vsa import furthest_point_sample, query_and_group
+from ..parallel.mesh import world_of
 from ..registry import MODELS
 from .voxel_encoders import MaskedBatchNorm
 
@@ -59,15 +60,17 @@ class SparseConvBlock(nn.Module):
             int(np.prod(kernel)), in_channels, out_channels))
         self.bn = MaskedBatchNorm(out_channels)
 
-    def forward(self, st: SparseTensor,
-                out_capacity: Optional[int] = None) -> SparseTensor:
+    def forward(self, st: SparseTensor, out_capacity: Optional[int] = None,
+                group=None) -> SparseTensor:
+        """``group``: a strided conv's ``out_capacity`` is the global
+        batch's (``ops/sparse_conv.py::sparse_conv3d``)."""
         if self.stride == 1 and self.kernel == (3, 3, 3):
             out = submanifold_conv3d(st, self.weight)
         else:
             out = sparse_conv3d(st, self.weight, self.stride,
                                 out_capacity or st.feats.shape[0],
                                 kernel_size=self.kernel,
-                                padding=self.padding)
+                                padding=self.padding, group=group)
         valid = out.valid
         feats = torch.relu(self.bn(out.feats, valid)) * valid[:, None]
         return out._replace(feats=feats)
@@ -80,7 +83,15 @@ def _conv_out_dim(n: int, k: int = 3, s: int = 2, p: int = 1) -> int:
 @MODELS.register_module()
 class MlvlSparseEncoder(nn.Module):
     """``max_voxels``: sites a sample; each strided level holds
-    ``max_voxels`` x B (the JAX package's ``capacity`` for its batch)."""
+    ``max_voxels`` x B (the JAX package's ``capacity`` for its batch).
+
+    ``group`` (set with the BatchNorms' by ``mesh.sync_batchnorms``; None
+    by default): in training, B is the global batch and each strided
+    level truncates over the ranks in key order, batch first (one offset
+    all-reduce a level), as the JAX package's sharded step; each level's
+    ``overflow`` is then global.  Eval mode works on each rank's rows."""
+
+    global_capacity = True
 
     def __init__(self, in_channels: int = 4,
                  sparse_shape: Sequence[int] = (41, 1600, 1408),
@@ -89,6 +100,7 @@ class MlvlSparseEncoder(nn.Module):
                      (16,), (32, 32, 32), (64, 64, 64), (64, 64, 64)),
                  out_channels: int = 128, max_voxels: int = 16000):
         super().__init__()
+        self.group = None
         self.sparse_shape = tuple(int(s) for s in sparse_shape)
         self.max_voxels = max_voxels
         self.names: List[List[str]] = []
@@ -127,15 +139,16 @@ class MlvlSparseEncoder(nn.Module):
         """voxel_feats (V, C); voxel_coords (V, 4) (b, z, y, x), -1 rows.
         -> (levels: a SparseTensor per stage, bev (B, Y/8, X/8, Z' C))."""
         nz, ny, nx = self.sparse_shape
-        cap = self.max_voxels * batch_size
+        group = self.group if self.training else None
+        cap = self.max_voxels * batch_size * world_of(group)
         st = self.conv_input(make_sparse_tensor(
             voxel_feats, voxel_coords, (batch_size, nz, ny, nx)))
         levels = []
         for names in self.names:
             for name in names:
-                st = getattr(self, name)(st, cap)
+                st = getattr(self, name)(st, cap, group)
             levels.append(st)
-        dense = sparse_to_dense(self.conv_out(st, cap))   # (B, Z, Y, X, C)
+        dense = sparse_to_dense(self.conv_out(st, cap, group))
         b, zo, yo, xo, c = dense.shape
         bev = dense.permute(0, 2, 3, 1, 4).reshape(b, yo, xo, zo * c)
         return levels, bev

@@ -197,7 +197,11 @@ class PillarMVFFeatureNet(nn.Module):
     0's pillars.  Parameters follow the JAX module's names: ``pointnet{1,2,
     3}`` (``linear``, ``norm``) and ``views.{view}`` (:class:`SingleViewNet`).
     ``max_voxels`` is each view's capacity for the batch; the trunk passes
-    ``max_voxels_per_sample * B`` unless the config names one."""
+    ``max_voxels_per_sample * B`` unless the config names one.  Under a
+    ``group`` (the trunk's, in training) the batch is the global one: each
+    view keeps the voxels one process keeps on the whole batch, every
+    view truncating with its own rank offset (both sort batch first), as
+    the JAX package's sharded step."""
 
     def __init__(self, in_channels: int = 4, feat_channels: int = 64,
                  views: Sequence[str] = ('cartesian', 'cylindrical'),
@@ -240,10 +244,10 @@ class PillarMVFFeatureNet(nn.Module):
         return view_grid(self.point_cloud_range[0], self.voxel_size[0])[:2]
 
     def scatters(self, points: torch.Tensor, points_mask: torch.Tensor,
-                 max_voxels: Optional[int] = None):
+                 max_voxels: Optional[int] = None, group=None):
         """-> (each view's (N, C) points, each view's Scatter, the (N,)
         cross-view valid mask, the (N,) batch index) of the flattened
-        (B * N) points."""
+        (B * N) points; ``group`` as ``build_scatter``'s."""
         b, n, cdim = points.shape
         flat = points.reshape(b * n, cdim)
         bidx = torch.arange(b, dtype=torch.int32,
@@ -263,16 +267,17 @@ class PillarMVFFeatureNet(nn.Module):
         cap = max_voxels or self.max_voxels
         scatters = [build_scatter(batch_coords(
             torch.where(invalid[:, None], -1, c3), bidx),
-            (b,) + view_grid(pcr, vs), cap, key_order=VIEW_KEY_ORDER)
+            (b,) + view_grid(pcr, vs), cap, key_order=VIEW_KEY_ORDER,
+            group=group)
             for c3, vs, pcr in zip(view_coords, self.voxel_size,
                                    self.point_cloud_range)]
         return view_pts, scatters, ~invalid, bidx
 
     def forward(self, points: torch.Tensor, points_mask: torch.Tensor,
-                max_voxels: Optional[int] = None):
+                max_voxels: Optional[int] = None, group=None):
         b = points.shape[0]
         view_pts, scatters, valid, bidx = self.scatters(points, points_mask,
-                                                        max_voxels)
+                                                        max_voxels, group)
         feats = [stats(vp[:, :3], sc)
                  for stats, vp, sc in zip(self.stats, view_pts, scatters)]
         feats.append(points.reshape(-1, points.shape[-1])[:, 3:])

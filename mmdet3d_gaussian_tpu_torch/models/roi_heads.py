@@ -88,15 +88,20 @@ class PointwiseMaskHead(nn.Module):
             out.append(torch.where(ring, -1, tgt).to(torch.int32))
         return torch.stack(out)
 
-    def loss(self, seg_logits, seg_targets, loss_seg):
-        """Focal loss, weights normalized by the positives."""
+    def loss(self, seg_logits, seg_targets, loss_seg, group=None):
+        """Focal loss, weights normalized by the positives (under
+        ``group``, a ``parallel.mesh.Group``, the positives of every
+        rank's keypoints)."""
         flat = seg_logits.reshape(-1, seg_logits.shape[-1])
         tgt = seg_targets.reshape(-1)
         pos = (tgt > -1) & (tgt < self.num_classes)
         neg = tgt == self.num_classes
         weights = (pos | neg).float()
-        weights = weights / torch.maximum(pos.sum().float(),
-                                          weights.new_ones(()))
+        num_pos = pos.sum().float()
+        if group is not None:
+            from ..parallel.mesh import all_reduce_sum
+            num_pos, = all_reduce_sum([num_pos], group)
+        weights = weights / torch.maximum(num_pos, weights.new_ones(()))
         if self.class_agnostic:
             cls_tgt = torch.where(pos, 0, 1)     # 1 = bg of the 1-ch sigmoid
         else:

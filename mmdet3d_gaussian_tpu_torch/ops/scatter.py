@@ -207,7 +207,8 @@ class Scatter(NamedTuple):
 
 def build_scatter(coords: torch.Tensor, spatial_shape: Sequence[int],
                   max_voxels: int,
-                  key_order: Optional[Sequence[int]] = None) -> Scatter:
+                  key_order: Optional[Sequence[int]] = None,
+                  group=None) -> Scatter:
     """Build the compact point -> voxel mapping from integer coords.
 
     Args:
@@ -217,6 +218,17 @@ def build_scatter(coords: torch.Tensor, spatial_shape: Sequence[int],
         key_order: optional permutation of the coord columns used only for
             the sort key; it sets the order in which voxels are compacted
             (``CANVAS_KEY_ORDER`` gives canvas raster order).
+        group: a ``parallel.mesh.Group`` whose ranks hold contiguous
+            samples of one global batch (batch index first in the key):
+            ``max_voxels`` is then the global batch's capacity C, as in the
+            JAX package's sharded step (one program over the whole batch).
+            With ``o`` the live voxels of the ranks before this one
+            (``mesh.rank_offset``), this rank keeps its voxels of local id
+            below ``C - o`` and sends the rest to the trash id; the table
+            keeps its static capacity C, nothing is read back to the host,
+            and ``num_overflow`` is the global count of dropped voxels.
+            The kept set over the ranks is the set one process keeps on
+            the whole batch.  None: this function as without a group.
     """
     coords = coords.to(torch.int32)
     n, c = coords.shape
@@ -248,10 +260,18 @@ def build_scatter(coords: torch.Tensor, spatial_shape: Sequence[int],
     seg_sorted = cumsum_i32(first) - 1
     num_live = (seg_sorted[-1] + 1).clamp(min=0) if n else \
         torch.zeros((), dtype=torch.int32, device=dev)
-    num_voxels = num_live.clamp(0, max_voxels)
-    num_overflow = (num_live - max_voxels).clamp(min=0)
+    if group is None:
+        keep = max_voxels
+        num_voxels = num_live.clamp(0, max_voxels)
+        num_overflow = (num_live - max_voxels).clamp(min=0)
+    else:
+        from ..parallel.mesh import rank_offset
+        before, total = rank_offset(num_live, group)
+        keep = (max_voxels - before).clamp(min=0)
+        num_voxels = torch.minimum(num_live.long(), keep)
+        num_overflow = (total - max_voxels).clamp(min=0)
     seg_sorted = torch.where(
-        (sorted_key == _INT32_MAX) | (seg_sorted >= max_voxels),
+        (sorted_key == _INT32_MAX) | (seg_sorted >= keep),
         max_voxels, seg_sorted).to(torch.int32)
 
     point_voxel_ids = torch.empty_like(seg_sorted)

@@ -14,7 +14,13 @@ carry key ``INT_MAX``, sort last and hold zero features.
   ``ops/scatter.py::build_scatter`` (its capacity truncates in key order,
   so the last samples of a batch lose their sites first; the count of
   sites dropped accumulates in ``overflow``); each output gathers its K
-  inputs and runs the same matmul.
+  inputs and runs the same matmul.  Under a data-parallel ``group`` the
+  capacity is the global batch's and the truncation runs over the ranks
+  in key order (one offset all-reduce a level, ``build_scatter``'s
+  ``group``), so the sites kept over the ranks are the ones one process
+  keeps on the whole batch and ``overflow`` counts the global drops; a
+  rank whose samples keep no site runs the level on an all-invalid
+  table.
 
 Weights are ``(K, Cin, Cout)`` with K in (z, y, x) raster order.  Plain
 PyTorch: the JAX package computes all of it outside Pallas.
@@ -166,12 +172,14 @@ def submanifold_conv3d(st: SparseTensor, weight: torch.Tensor,
 def sparse_conv3d(st: SparseTensor, weight: torch.Tensor, stride,
                   out_capacity: int, bias: Optional[torch.Tensor] = None,
                   kernel_size: Optional[Sequence[int]] = None,
-                  padding: Optional[Sequence[int]] = None) -> SparseTensor:
+                  padding: Optional[Sequence[int]] = None,
+                  group=None) -> SparseTensor:
     """Strided sparse conv: output sites ``(in + pad - k) / stride`` where
     the remainder is zero, deduplicated into ``out_capacity`` rows.
     weight (K, Cin, Cout) in (z, y, x) raster order of ``kernel_size``
     (the cube root of K when not given); ``padding`` defaults to half the
-    kernel."""
+    kernel.  ``group``: ``out_capacity`` is the global batch's (module
+    docstring)."""
     ks = _kernel_size(weight, kernel_size)
     kz, ky, kx = ks
     if padding is None:
@@ -195,7 +203,8 @@ def sparse_conv3d(st: SparseTensor, weight: torch.Tensor, stride,
     b = st.coords[:, None, 0:1].expand(-1, kid.shape[0], 1)
     cand = torch.where(ok[..., None], torch.cat([b, div], -1), -1)
 
-    sc = build_scatter(cand.reshape(-1, 4), out_shape, out_capacity)
+    sc = build_scatter(cand.reshape(-1, 4), out_shape, out_capacity,
+                       group=group)
     out_st = make_sparse_tensor(
         st.feats.new_zeros((out_capacity, weight.shape[2])),
         sc.voxel_coords, out_shape, overflow=st.overflow + sc.num_overflow)

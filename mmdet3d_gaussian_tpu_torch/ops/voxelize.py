@@ -44,7 +44,7 @@ def hard_voxelize(points: torch.Tensor, coords: torch.Tensor,
                   spatial_shape: Sequence[int], max_points: int,
                   max_voxels: int,
                   key_order: Optional[Sequence[int]] = None,
-                  mask_slots: bool = True) -> HardVoxels:
+                  mask_slots: bool = True, group=None) -> HardVoxels:
     """Pack points into ``(max_voxels, max_points, C)`` slots.
 
     points (N, C) float; coords (N, K) int voxel coords (-1 rows invalid;
@@ -59,9 +59,12 @@ def hard_voxelize(points: torch.Tensor, coords: torch.Tensor,
     before it (``cummax(starts + counts) - 1``), so the flattened gather
     indices are non-decreasing.  ``mask_slots=False`` leaves the slots at
     and past ``num_points`` holding a neighbouring row instead of zeros,
-    for a consumer that masks by ``num_points`` itself."""
+    for a consumer that masks by ``num_points`` itself.  ``group``: the
+    ranks of one global batch, ``max_voxels`` its capacity
+    (:func:`~.scatter.build_scatter`); the voxels this rank drops are
+    empty slots."""
     scatter = build_scatter(coords, spatial_shape, max_voxels,
-                            key_order=key_order)
+                            key_order=key_order, group=group)
     n, c = points.shape
     counts = scatter.voxel_counts
     num_points = counts.clamp(max=max_points)
@@ -88,7 +91,9 @@ def hard_kept_rows(sorted_ids: torch.Tensor, max_voxels: int,
     """(N,) bool over voxel-sorted point rows (``sorted_ids`` ascending, the
     trash id ``max_voxels`` last): true where the row is live and among the
     first ``max_points`` rows of its voxel, the points hard voxelize
-    keeps."""
+    keeps.  Under a group the voxels past the global capacity already
+    carry the trash id in ``sorted_ids``, so the rows kept over the ranks
+    are the ones kept on the whole batch."""
     pos = torch.arange(sorted_ids.shape[0], dtype=torch.int32,
                        device=sorted_ids.device)
     first = torch.ones_like(sorted_ids, dtype=torch.bool)

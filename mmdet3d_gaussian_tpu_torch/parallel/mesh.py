@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
@@ -131,6 +132,24 @@ def replicate(module: nn.Module, group: Group) -> None:
                 pos += t.numel()
 
 
+def rank_offset(count: torch.Tensor, group: Group
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's place in the global order of a batch-wide count: ->
+    (the sum of ``count`` over the ranks before this one, the sum over all
+    ranks), 0-d int64 tensors on ``count``'s device, by one ``all_reduce``
+    of a world-length int64 vector that holds ``count`` at this rank's
+    index (exact; nothing is read back to the host).
+
+    Ranks hold contiguous samples (:func:`shard_batch`) and the voxel and
+    site keys sort with the batch index first, so the global key order is
+    rank order: a rank's live ids ``i`` are the global ids ``before +
+    i``."""
+    vec = torch.zeros(group.world, dtype=torch.int64, device=count.device)
+    vec[group.rank] = count.reshape(()).to(torch.int64)
+    dist.all_reduce(vec)
+    return vec[:group.rank].sum(), vec.sum()
+
+
 def barrier(group: Group) -> None:
     """Wait until every rank is here (an ``all_reduce`` of one value, read
     back)."""
@@ -142,9 +161,18 @@ def barrier(group: Group) -> None:
 def sync_batchnorms(module: nn.Module, group: Optional[Group]) -> None:
     """Make every BatchNorm of ``module`` (``BatchNorm2d`` and
     ``MaskedBatchNorm``) take its training statistics over ``group``'s
-    ranks (None: this rank's rows alone)."""
+    ranks (None: this rank's rows alone), and hand ``group`` to every
+    submodule whose capacity belongs to the global batch (one that sets
+    ``global_capacity``: the voxelizing trunks and the sparse encoder)."""
     from ..models.backbones import BatchNorm2d
     from ..models.voxel_encoders import MaskedBatchNorm
     for m in module.modules():
-        if isinstance(m, (BatchNorm2d, MaskedBatchNorm)):
+        if isinstance(m, (BatchNorm2d, MaskedBatchNorm)) \
+                or getattr(m, 'global_capacity', False):
             m.group = group
+
+
+def world_of(group: Optional[Group]) -> int:
+    """The number of ranks that share a global batch (1 without a
+    group)."""
+    return 1 if group is None else group.world

@@ -12,7 +12,9 @@ checkpoints ``ckpt_{step}.pt`` and the JSON-lines log in ``--work-dir``.
 ``--distributed`` trains data parallel over the job torchrun started (the
 reference's ``tools/dist_train.sh``): one rank a card over NCCL, or gloo
 ranks on the CPU with ``--device cpu``; ``samples_per_gpu`` is the global
-batch, split over the ranks (``engine/loop.py``).  In a job of more than
+batch, split over the ranks (``engine/loop.py``), and the voxel and site
+capacities are the global batch's.  Every family a config builds trains
+so: PointPillars (hard, dynamic, MVF), CenterPoint and PV-RCNN.  In a job of more than
 one process the CLI refuses to run without ``--distributed``: it would
 train that many independent copies.
 """

@@ -285,13 +285,16 @@ def test_clis_on_cpu(runs):
 def test_unported_paths_raise(tmp_path, monkeypatch):
     """``--show-dir`` names what is missing instead of running; the train
     CLI in a job of several processes refuses to run without
-    ``--distributed`` (it would train independent copies); and the
-    families whose data-parallel step is not ported (PV-RCNN here, the MVX
-    detector) raise under a group of more than one rank.  (``--distributed``
-    itself runs: ``tests/test_torch_dist.py``.)"""
+    ``--distributed`` (it would train independent copies).  PV-RCNN and
+    the MVX detector, whose data-parallel step is now ported, take a group
+    of more than one rank into their capacities (``mesh.sync_batchnorms``)
+    instead of raising.  (``--distributed`` itself runs:
+    ``tests/test_torch_dist.py``; every family's step under 2 ranks:
+    ``tests/test_torch_dist_families.py`` and its siblings.)"""
     from mmdet3d_gaussian_tpu_torch.engine.mvx import MVXDetector
     from mmdet3d_gaussian_tpu_torch.engine.pvrcnn import PVRCNNDetector
-    from mmdet3d_gaussian_tpu_torch.parallel.mesh import Group
+    from mmdet3d_gaussian_tpu_torch.parallel.mesh import (Group,
+                                                          sync_batchnorms)
     from mmdet3d_gaussian_tpu_torch.tools import test, train
     from tests.test_mvx_fusion import TINY_MVX, TINY_MVX_HEAD
     from tests.test_pvrcnn import TINY_PVRCNN, TINY_RPN
@@ -304,10 +307,12 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match='--distributed'):
         train.main([str(cfg_path), '--device', 'cpu'])
     two = Group(rank=1, world=2, device=torch.device('cpu'))
-    with pytest.raises(NotImplementedError, match='item 7b'):
-        PVRCNNDetector(TINY_PVRCNN, TINY_RPN, device='cpu', group=two)
-    with pytest.raises(NotImplementedError, match='item 7b'):
-        MVXDetector(TINY_MVX, TINY_MVX_HEAD, device='cpu', group=two)
+    pv = PVRCNNDetector(TINY_PVRCNN, TINY_RPN, device='cpu')
+    sync_batchnorms(pv.trunk, two)
+    assert pv.trunk.first.middle_encoder.group is two
+    mvx = MVXDetector(TINY_MVX, TINY_MVX_HEAD, device='cpu')
+    sync_batchnorms(mvx.trunk, two)
+    assert mvx.trunk.group is two
 
 
 def _eval_boxes(maps, decode):

@@ -330,24 +330,24 @@ def test_voxelize_mode_defaults_to_hard():
 
 def test_unported_fields_raise():
     """``axis_name`` builds (the detector's data-parallel group syncs the
-    trunk's BatchNorms); what still raises: a data-parallel group of more
-    than one rank on a family whose step is not ported (the MVF trunk,
-    CenterPoint), before any collective, and unknown fields."""
-    from mmdet3d_gaussian_tpu_torch.parallel.mesh import Group
+    trunk's BatchNorms); the MVF trunk and CenterPoint, whose data-parallel
+    step is now ported, take a group of more than one rank into their
+    BatchNorms and capacity (``mesh.sync_batchnorms``) instead of raising;
+    unknown fields still raise."""
+    from mmdet3d_gaussian_tpu_torch.models.backbones import BatchNorm2d
+    from mmdet3d_gaussian_tpu_torch.parallel.mesh import (Group,
+                                                          sync_batchnorms)
     from tests.test_centerpoint import TINY_CP_MODEL
     from tests.test_torch_mvf import TINY_MVF
     cfg = dict(TINY_MODEL, s2d_canvas='off')
     assert PointPillarsNet(**cfg, axis_name='x').voxelize_mode == 'dynamic'
     two = Group(rank=0, world=2, device=torch.device('cpu'))
-    for make in (lambda g: tdet.PointPillarsDetector(TINY_MVF, TINY_HEAD,
-                                                     device='cpu', group=g),
-                 lambda g: tdet.CenterPointDetector(TINY_CP_MODEL,
-                                                    device='cpu', group=g)):
-        with pytest.raises(NotImplementedError, match='item 7b'):
-            make(two)
-        det = make(None)
-        with pytest.raises(NotImplementedError, match='item 7b'):
-            det.init_train(group=two)
+    for det in (tdet.PointPillarsDetector(TINY_MVF, TINY_HEAD, device='cpu'),
+                tdet.CenterPointDetector(TINY_CP_MODEL, device='cpu')):
+        sync_batchnorms(det.trunk, two)
+        assert det.trunk.group is two
+        assert all(m.group is two for m in det.trunk.modules()
+                   if isinstance(m, BatchNorm2d))
     with pytest.raises(ValueError, match='hard_encoder'):
         PointPillarsNet(**cfg, hard_encoder='dense')
     with pytest.raises(ValueError, match='deconv_impl'):

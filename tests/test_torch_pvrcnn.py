@@ -562,8 +562,15 @@ def test_dropout_only_with_a_generator(tiny):
 
 
 def test_pvrcnn_refuses_bf16_and_axis_name():
+    """bf16 raises; ``axis_name`` (the JAX modules' cross-replica
+    BatchNorm) is accepted and changes nothing, as PointPillarsNet takes
+    it: a data-parallel step syncs every BatchNorm through its group."""
     with pytest.raises(ValueError, match='f32 only'):
         TDet(dict(TINY_PVRCNN, compute_dtype='bfloat16'), TINY_RPN,
              device='cpu')
-    with pytest.raises(NotImplementedError, match='axis_name'):
-        TDet(dict(TINY_PVRCNN, axis_name='batch'), TINY_RPN, device='cpu')
+    a = TDet(dict(TINY_PVRCNN, axis_name='batch'), TINY_RPN, device='cpu')
+    b = TDet(TINY_PVRCNN, TINY_RPN, device='cpu')
+    assert 'axis_name' not in a.cfg
+    sa, sb = a.trunk.state_dict(), b.trunk.state_dict()
+    assert set(sa) == set(sb)
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)

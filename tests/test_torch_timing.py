@@ -25,17 +25,28 @@ def _work(n):
     return f, a
 
 
+ROUNDS = 5
+
+
 def test_chain_time_matches_wall_clock():
+    """The chain's slope and a plain wall-clock mean, measured in turns
+    over :data:`ROUNDS` rounds (so that a burst of load from other
+    processes lands on both clocks), their medians compared."""
     fn, a = _work(600)
-    t_chain = chain_time(make_probe(fn, a), n_lo=2, n_hi=10)
+    probe = make_probe(fn, a)
     fn(a)
-    t0 = time.perf_counter()
+    chains, walls = [], []
     reps = 10
-    for _ in range(reps):
-        float(fn(a))
-    t_wall = (time.perf_counter() - t0) / reps
+    for _ in range(ROUNDS):
+        chains.append(chain_time(probe, n_lo=2, n_hi=10))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            float(fn(a))
+        walls.append((time.perf_counter() - t0) / reps)
+    t_chain = sorted(chains)[ROUNDS // 2]
+    t_wall = sorted(walls)[ROUNDS // 2]
     # CPU matmul timing is noisy; agree within 3x both ways
-    assert t_chain < 3 * t_wall and t_wall < 3 * t_chain, (t_chain, t_wall)
+    assert t_chain < 3 * t_wall and t_wall < 3 * t_chain, (chains, walls)
 
 
 def test_chain_time_scales_with_work():

@@ -1,14 +1,16 @@
-"""What the ranks of ``tests/test_torch_dist.py`` run (no JAX here: the
-ranks are spawned processes that import this module, not the test file).
+"""What the ranks of ``tests/test_torch_dist*.py`` run (no JAX here: the
+ranks are spawned processes that import this module, not a test file).
 
 :func:`spawn` starts ``world`` gloo ranks on the CPU that meet through a
 ``file://`` store (no TCP port to race for between test workers), with a
 60 s timeout on every collective, and joins them within a hard limit:
 past it the ranks are killed and the test fails.  Each rank runs
-:func:`rank_main`: the BatchNorm checks on its rows (:func:`bn_checks`),
-the TINY PointPillars train steps on its rows of a global batch
-(:func:`step_run`), the train CLI with ``--distributed`` and a CenterPoint
-config under the group, and saves what it got to ``rank{r}.pt``.
+:func:`rank_main` on a plan: the BatchNorm checks on its rows
+(:func:`bn_checks`), the offset checks (:func:`offset_checks`), the TINY
+train steps of any family on its rows of a global batch
+(:func:`step_run`, with the voxels and sites each voxelization and sparse
+level kept), the train CLI with ``--distributed`` on each config of the
+plan, and saves what it got to ``rank{r}.pt``.
 """
 import datetime
 import multiprocessing
@@ -66,11 +68,15 @@ def rank_main(rank, world, store, out_dir, plan):
                                  init_method='file://' + store,
                                  device='cpu', rank=rank, world_size=world,
                                  timeout=DIST_TIMEOUT)
-        out = dict(rank=rank, world=group.world,
-                   bn=bn_checks(bn_inputs(), group))
+        out = dict(rank=rank, world=group.world)
+        if plan.get('bn', True):
+            out['bn'] = bn_checks(bn_inputs(), group)
+        if plan.get('offsets'):
+            out['offsets'] = offset_checks(plan['offsets'], group)
         out['steps'] = {name: step_run(case, group)
                         for name, case in plan['steps'].items()}
-        out['cli'] = cli_run(plan['cli'], group)
+        if 'cli' in plan:
+            out['cli'] = cli_run(plan['cli'], group)
         torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
         import torch.distributed as dist
         dist.destroy_process_group()
@@ -195,29 +201,88 @@ def bn_checks(inp, group):
     return out
 
 
+# ------------------------------------------------------------------ offsets
+def offset_checks(counts, group):
+    """``mesh.rank_offset`` on each row of ``counts`` (one count a rank):
+    -> [(before, total), ...] as ints."""
+    from mmdet3d_gaussian_tpu_torch.parallel.mesh import rank_offset
+    out = []
+    for row in counts:
+        before, total = rank_offset(torch.tensor(row[group.rank],
+                                                 dtype=torch.int32), group)
+        assert before.dtype == total.dtype == torch.int64
+        out.append((int(before), int(total)))
+    return out
+
+
 # --------------------------------------------------------------- train steps
+# the modules that voxelize through build_scatter (the voxelize of every
+# family, MVF's views, the strided sparse levels)
+SCATTER_USERS = ('ops.voxelize', 'models.detectors.voxelnet',
+                 'models.mvf_encoder', 'ops.sparse_conv', 'engine.pvrcnn')
+
+
+def build_detector(case, group=None):
+    """The TINY detector of ``case['family']`` (``'pointpillars'`` by
+    default, which covers the hard, dynamic and MVF trunks;
+    ``'centerpoint'``, ``'mvx'``, ``'pvrcnn'``) on the CPU."""
+    from mmdet3d_gaussian_tpu_torch.engine import detector, mvx, pvrcnn
+    cls = dict(pointpillars=detector.PointPillarsDetector,
+               centerpoint=detector.CenterPointDetector,
+               mvx=mvx.MVXDetector, pvrcnn=pvrcnn.PVRCNNDetector)[
+                   case.get('family', 'pointpillars')]
+    return cls(case['model'], case['head'], device='cpu', group=group)
+
+
+def kept_recorder(offset, active):
+    """-> (records, wrap): ``wrap(build_scatter)`` records each call's
+    kept voxel or site coords (batch column moved to the global sample
+    index by ``offset``), this rank's live count, the capacity and the
+    overflow into ``records[-1]`` while ``active[0]`` is set."""
+    records = []
+
+    def wrap(original):
+        def build_scatter(coords, spatial_shape, max_voxels,
+                          key_order=None, group=None):
+            sc = original(coords, spatial_shape, max_voxels,
+                          key_order=key_order, group=group)
+            if active[0]:
+                c = coords.to(torch.int32)
+                live = torch.unique(c[(c >= 0).all(-1)], dim=0).shape[0]
+                kept = sc.voxel_coords[sc.voxel_counts > 0].clone()
+                kept[:, 0] += offset
+                records[-1].append(dict(
+                    kept=kept, live=live, capacity=max_voxels,
+                    num_voxels=int(sc.num_voxels),
+                    overflow=int(sc.num_overflow)))
+            return sc
+        return build_scatter
+    return records, wrap
+
+
 def step_run(case, group=None, steps=2, replay=None, start=None):
-    """``steps`` TINY PointPillars train steps from the weights in
-    ``case['weights']`` (or from ``start``, a state this function
-    returned) on this rank's rows of the global batch in ``case['batch']``
-    (all of them without a group): each step's metrics, the summed
-    gradients AdamW was given, the running statistics after each step, the
-    state (parameters, buffers, AdamW's) after each step, the parameters
-    after the last, and (under a group) each step's forward BatchNorms'
-    summed statistics in call order: K4's (su, sq, count) and the pillar
-    encoder's masked (count, s1, s2).  ``replay``: such statistics of as
-    many steps, which then stand in for a one-process run's own (the
-    masked sums keep their gradient), so that a bf16 run does not carry
-    their other f32 summation order through every later bf16 rounding."""
-    from mmdet3d_gaussian_tpu_torch.engine.detector import \
-        PointPillarsDetector
+    """``steps`` TINY train steps of ``case``'s family
+    (:func:`build_detector`) from the weights in ``case['weights']`` (or
+    from ``start``, a state this function returned) on this rank's rows of
+    the global batch in ``case['batch']`` (all of them without a group):
+    each step's metrics, the summed gradients AdamW was given, the running
+    statistics after each step, the state (parameters, buffers, AdamW's)
+    after each step, the parameters after the last, each step's kept
+    voxels and sites (:func:`kept_recorder`, in call order), and (under a
+    group) each step's forward BatchNorms' summed statistics in call
+    order: K4's (su, sq, count) and the masked (count, s1, s2).
+    ``replay``: such statistics of as many steps, which then stand in for
+    a one-process run's own (the masked sums keep their gradient), so that
+    a bf16 run does not carry their other f32 summation order through
+    every later bf16 rounding, nor an f32 run an activation at a ReLU's
+    kink to its other side."""
+    import importlib
     from mmdet3d_gaussian_tpu_torch.models import voxel_encoders
     from mmdet3d_gaussian_tpu_torch.ops import bn
     from mmdet3d_gaussian_tpu_torch.parallel.mesh import shard_batch
     from mmdet3d_gaussian_tpu_torch.parallel.train_state import (
         OptState, make_optimizer)
-    det = PointPillarsDetector(case['model'], case['head'], device='cpu',
-                               group=group)
+    det = build_detector(case, group)
     det.trunk.load_state_dict(torch.load(case['weights'], weights_only=True),
                               strict=True)
     opt = make_optimizer(case['lr'], case['total_steps'])
@@ -232,9 +297,16 @@ def step_run(case, group=None, steps=2, replay=None, start=None):
     sums = []
     forward = [False]
     apply_train = det.apply_train
+    batch = torch.load(case['batch'], weights_only=True)
+    offset = 0
+    if group is not None:
+        batch = shard_batch(batch, group)
+        offset = group.rank * batch['points'].shape[0]
+    kept, wrap = kept_recorder(offset, forward)
 
     def apply(batch):
         sums.append(dict(bn=[], masked=[]))
+        kept.append([])
         forward[0] = True
         try:
             return apply_train(batch)
@@ -275,15 +347,17 @@ def step_run(case, group=None, steps=2, replay=None, start=None):
     if replay is not None:
         bn.batch_stats = batch_stats
         voxel_encoders.masked_sums = masked_sums
+    users = [importlib.import_module('mmdet3d_gaussian_tpu_torch.' + m)
+             for m in SCATTER_USERS]
+    scatters = [u.build_scatter for u in users]
+    for u, f in zip(users, scatters):
+        u.build_scatter = wrap(f)
     try:
         state = det.init_train(optimizer=opt)
         if start is not None:
             det.trunk.load_state_dict(start['trunk'], strict=True)
             state = state._replace(step=start['step'], opt_state=OptState(
                 start['count'], dict(start['mu']), dict(start['nu'])))
-        batch = torch.load(case['batch'], weights_only=True)
-        if group is not None:
-            batch = shard_batch(batch, group)
         metrics, stats, states = [], [], []
         for _ in range(steps):
             state, m = det.train_step(batch, state)
@@ -298,6 +372,8 @@ def step_run(case, group=None, steps=2, replay=None, start=None):
                 mu={k: v.clone() for k, v in opt_state.mu.items()},
                 nu={k: v.clone() for k, v in opt_state.nu.items()}))
     finally:
+        for u, f in zip(users, scatters):
+            u.build_scatter = f
         bn._group_sums = originals['group_sums']
         bn.batch_stats = originals['batch_stats']
         voxel_encoders.all_reduce_with_grad = originals['all_reduce']
@@ -306,7 +382,7 @@ def step_run(case, group=None, steps=2, replay=None, start=None):
         assert next(replayed['bn'], None) is None
         assert next(replayed['masked'], None) is None
     return dict(metrics=metrics, grads=seen, stats=stats, sums=sums,
-                states=states,
+                states=states, kept=kept,
                 params={k: v.detach().clone()
                         for k, v in det.trunk.named_parameters()})
 
@@ -314,15 +390,11 @@ def step_run(case, group=None, steps=2, replay=None, start=None):
 # ------------------------------------------------------------------ the CLI
 def cli_run(plan, group):
     """The train CLI with ``--distributed --device cpu`` on this group (it
-    joins the job the rank is in), then a CenterPoint config under the
-    same group, which must raise; -> the raise's message."""
+    joins the job the rank is in) on each of ``plan['runs']``' (config,
+    work dir) in turn, ``plan['steps']`` steps each."""
     from mmdet3d_gaussian_tpu_torch.tools import train
-    train.main([plan['config'], '--distributed', '--device', 'cpu',
-                '--work-dir', plan['work_dir'], '--max-steps',
-                str(plan['steps']), '--log-interval', '1'])
-    try:
-        train.main([plan['cp_config'], '--distributed', '--device', 'cpu',
-                    '--work-dir', plan['work_dir'] + '_cp'])
-    except NotImplementedError as e:
-        return dict(raised=str(e))
-    return dict(raised=None)
+    for config, work_dir in plan['runs']:
+        train.main([config, '--distributed', '--device', 'cpu',
+                    '--work-dir', work_dir, '--max-steps',
+                    str(plan['steps']), '--log-interval', '1'])
+    return dict(world=group.world)
