@@ -249,6 +249,26 @@ Phases, each printing its own lines (any failure exits non-zero):
       checkpoint (every value finite in [0, 1]), launches per CLI run;
       (w)-(wd) within 150 s.  ``python3 chip_smoke.py --only waymo`` runs
       (a) and these phases alone and prints no result line;
+  (ps) point-axis sharding (``ShardedPointPillarsDetector``: the dense-
+      canvas pillar encoder, a mean by ``index_add_``, then SECOND,
+      SECONDFPN and the GD anchor head at KITTI 3-class full width, f32),
+      within PS_LIMIT_S: the TINY sharded detector card vs CPU (a predict,
+      a dense-target step); at full width with ``point_axis=None``, B = 4
+      x 16,384, random weights from a seed with the cls bias zeroed: K5
+      and K6 on one predict's inputs, K3 and K4 (19 + 19) on a dense step's
+      held to their plain versions and timed beside their bounds; 6
+      predicts (K5, K6 once, never K1, K2 or K7), 3 warm-up and 10 sparse
+      steps (K4 19 + 19), 3 dense steps (K3 1 + 1), profiles, the dense-
+      canvas sums timed alone; then two gloo ranks on the card as a 1 x 2
+      (data, points) grid, 2 dense-target steps with the dense and with
+      the sparse merge against one rank on the whole batch (loss terms,
+      gradients with the BatchNorm sums replayed, running statistics,
+      the ranks' states bitwise equal), each merge's bytes and time
+      alone, and the pillar reduces of a sample merged over the ranks
+      against one rank (count and max equal, sums to rounding).
+      ``--only ps`` runs (a) and (ps) alone; ``--only dp4`` ends with the
+      same checks on one NCCL rank a card, 2 x 2 and 1 x 4 grids, each
+      step timed beside one card's (``--only dp4 sharded``: these alone);
   (e) one JSON line listing the kernels (with their launches on the hard
       paths and K2's and K1's numbers there, under ``loop`` the launches
       of each CLI run and the numbers on the loop's inputs, under
@@ -257,7 +277,9 @@ Phases, each printing its own lines (any failure exits non-zero):
       call, under ``pvrcnn`` those of the PV-RCNN paths, under ``mvx``
       those of the MVX paths, under ``waymo`` those of the Waymo paths and
       under ``dp`` the launches of the data-parallel CLI runs and K4's
-      all-reduced check), the card's name and power limit from
+      all-reduced check, under ``sharded`` the launches of each point-
+      sharded path and the numbers on its inputs), the card's name and
+      power limit from
       nvidia-smi, and the result line.
 
 f32 runs with TF32 off for matmuls and cuDNN convolutions; the bf16 paths
@@ -662,7 +684,7 @@ def report(results, name, card, err, tol, ok, kernel, plain, library,
 
 def kernel_checks(inputs, card, note=''):
     """Phase (b), predict kernels: each vs its plain version on the
-    captured inputs (K2 where the predict ran it)."""
+    captured inputs (K1 and K2 where the predict ran them)."""
     from mmdet3d_gaussian_tpu_torch.ops import nms, rotated_iou, segment
     from mmdet3d_gaussian_tpu_torch.ops import voxelize
     results = {}
@@ -674,50 +696,53 @@ def kernel_checks(inputs, card, note=''):
                err <= tol and exact is not False, kernel, plain, library,
                iters, plain_iters, bytes_, ops, eq)
 
-    # K1 reduce form (final per-voxel max, 64 channels)
-    data, starts, counts, op = inputs['segment_reduce']
-    out = segment.segment_reduce(data, starts, counts, op)
-    ref = segment.segment_reduce_plain(data, starts, counts, op)
-    n_live = int(torch.count_nonzero(counts))
-    rows = int(counts.sum())
-    lengths = counts[:n_live].long()
-    check(bool((counts[n_live:] == 0).all()), 'live voxels not first')
-    live_rows = data[:rows]
-    record('segment_reduce',
-           lambda: segment.segment_reduce(data, starts, counts, op),
-           lambda: segment.segment_reduce_plain(data, starts, counts, op),
-           lambda: torch.segment_reduce(live_rows, op, lengths=lengths,
-                                        unsafe=True),
-           float((out - ref).abs().max()), 0.0,
-           *k1_work('reduce', data, None, starts, counts), 200, 10)
-    check_k1_path('segment_reduce', data, note)
-    cold_warm(results, 'segment_reduce', segment.segment_reduce,
-              (data, starts, counts, op), card, note, 200)
-    lib_cold, _ = cold_ms(
-        lambda d: torch.segment_reduce(d[:rows], op, lengths=lengths,
-                                       unsafe=True), (data,), 200)
-    r = results['segment_reduce']
-    r['library_cold_ms'] = lib_cold
-    print(f'(b) segment_reduce{note}: torch.segment_reduce cold '
-          f'{lib_cold:.4f} ms, warm {r["library_ms"]:.4f} ms [{card}]')
-    check(r['ms'] < r['library_ms'] and r['cold_ms'] < lib_cold,
-          'K1 reduce is slower than torch.segment_reduce')
+    # K1 reduce form (final per-voxel max, 64 channels) and mapback form,
+    # where the predict ran them (not the point-sharded one)
+    if 'segment_reduce' in inputs:
+        data, starts, counts, op = inputs['segment_reduce']
+        out = segment.segment_reduce(data, starts, counts, op)
+        ref = segment.segment_reduce_plain(data, starts, counts, op)
+        n_live = int(torch.count_nonzero(counts))
+        rows = int(counts.sum())
+        lengths = counts[:n_live].long()
+        check(bool((counts[n_live:] == 0).all()), 'live voxels not first')
+        live_rows = data[:rows]
+        record('segment_reduce',
+               lambda: segment.segment_reduce(data, starts, counts, op),
+               lambda: segment.segment_reduce_plain(data, starts, counts, op),
+               lambda: torch.segment_reduce(live_rows, op, lengths=lengths,
+                                            unsafe=True),
+               float((out - ref).abs().max()), 0.0,
+               *k1_work('reduce', data, None, starts, counts), 200, 10)
+        check_k1_path('segment_reduce', data, note)
+        cold_warm(results, 'segment_reduce', segment.segment_reduce,
+                  (data, starts, counts, op), card, note, 200)
+        lib_cold, _ = cold_ms(
+            lambda d: torch.segment_reduce(d[:rows], op, lengths=lengths,
+                                           unsafe=True), (data,), 200)
+        r = results['segment_reduce']
+        r['library_cold_ms'] = lib_cold
+        print(f'(b) segment_reduce{note}: torch.segment_reduce cold '
+              f'{lib_cold:.4f} ms, warm {r["library_ms"]:.4f} ms [{card}]')
+        check(r['ms'] < r['library_ms'] and r['cold_ms'] < lib_cold,
+              'K1 reduce is slower than torch.segment_reduce')
 
-    # K1 mapback form (cluster mean: xyz + ones column, 4 channels)
-    data, ids, starts, counts, op = inputs['segment_reduce_mapback']
-    out = segment.segment_reduce_mapback(data, ids, starts, counts, op)
-    ref = segment.segment_reduce_mapback_plain(data, ids, starts, counts, op)
-    record('segment_reduce_mapback',
-           lambda: segment.segment_reduce_mapback(data, ids, starts, counts,
-                                                  op),
-           lambda: segment.segment_reduce_mapback_plain(data, ids, starts,
-                                                        counts, op),
-           None, float((out - ref).abs().max()), 1e-4,
-           *k1_work('mapback', data, ids, starts, counts), 200, 10)
-    check_k1_path('segment_reduce_mapback', data, note)
-    cold_warm(results, 'segment_reduce_mapback',
-              segment.segment_reduce_mapback,
-              (data, ids, starts, counts, op), card, note, 200)
+        # K1 mapback form (cluster mean: xyz + ones column, 4 channels)
+        data, ids, starts, counts, op = inputs['segment_reduce_mapback']
+        out = segment.segment_reduce_mapback(data, ids, starts, counts, op)
+        ref = segment.segment_reduce_mapback_plain(data, ids, starts,
+                                                   counts, op)
+        record('segment_reduce_mapback',
+               lambda: segment.segment_reduce_mapback(data, ids, starts,
+                                                      counts, op),
+               lambda: segment.segment_reduce_mapback_plain(data, ids, starts,
+                                                            counts, op),
+               None, float((out - ref).abs().max()), 1e-4,
+               *k1_work('mapback', data, ids, starts, counts), 200, 10)
+        check_k1_path('segment_reduce_mapback', data, note)
+        cold_warm(results, 'segment_reduce_mapback',
+                  segment.segment_reduce_mapback,
+                  (data, ids, starts, counts, op), card, note, 200)
 
     # K2 BEV splat
     if 'bev_splat' in inputs:
@@ -6074,6 +6099,460 @@ def wf_compare(name, a, b, plain, replayed, card):
                 launches=got, agree=agree)
 
 
+# (ps): point-axis sharding (ShardedPointPillarsDetector, the JAX
+# package's north-star scale axis).  The KITTI 3-class model at full
+# width on the dense-canvas pillar encoder (no K1, K2 or K7: the canvas is
+# the pillar table, a mean by index_add_), f32; the (data, points) grids
+# split each sample's points over the ranks of a points group
+PS_LIMIT_S = 90.0
+PS_TIMEOUT_S = 240
+PS_SEED = 0
+# tests/test_sharded_model.py's TINY widths and head
+TINY_SHARDED = dict(
+    voxel_size=(0.4, 0.4, 4.0),
+    point_cloud_range=(0., -12.8, -3., 25.6, 12.8, 1.),
+    encoder_cfg=dict(feat_channels=(16,)),
+    backbone_cfg=dict(in_channels=16, out_channels=(16, 32),
+                      layer_nums=(1, 1), layer_strides=(2, 2)),
+    neck_cfg=dict(in_channels=(16, 32), out_channels=(16, 16),
+                  upsample_strides=(1, 2)),
+    head_cfg=dict(num_classes=3, num_anchors=6, feat_channels=32))
+TINY_SHARDED_HEAD = dict(
+    anchor_generator=dict(
+        ranges=[[0.2, -12.6, -1.0, 25.4, 12.6, -1.0]] * 3,
+        sizes=[[0.8, 0.6, 1.7], [1.8, 0.6, 1.7], [3.9, 1.6, 1.6]],
+        rotations=[0.0, 1.57]),
+    test_cfg=dict(use_rotate_nms=True, nms_thr=0.5, score_thr=0.05,
+                  nms_pre=64, max_num=16))
+NO_SPLAT = {'bev_splat': 0, 'bev_splat_pairs': 0, **NO_K1}
+PS_PREDICT_LAUNCHES = {'rotated_iou': 1, 'nms_sweep': 1, **NO_SPLAT}
+PS_TRAIN_LAUNCHES = {'bn_moments': 19, 'bn_grad_moments': 19, **NO_SPLAT}
+PS_DENSE_LAUNCHES = {**PS_TRAIN_LAUNCHES, **DENSE_LAUNCHES}
+# the kernels of the grid's dense-target steps, on every rank
+PS_GRID_KERNELS = ('bn_moments', 'bn_grad_moments', 'gd_loss_fwd',
+                   'gd_loss_bwd')
+PS_MERGES = ('dense', 'sparse')
+PS_MERGE_ITERS = 5
+
+
+def ps_detector(merge=None, mesh=None, head=None, tiny=False, dev='cuda',
+                seed=PS_SEED):
+    """The point-sharded detector from ``seed`` with a zero cls bias: full
+    width (``tiny``: the TINY widths), one process (``merge`` None) or
+    ``merge`` over ``mesh``; ``head`` overrides of the KITTI head."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import \
+        ShardedPointPillarsDetector
+    model = TINY_SHARDED if tiny else None
+    head = dict(TINY_SHARDED_HEAD if tiny else {}, **(head or {}))
+    if merge is None:
+        det = ShardedPointPillarsDetector(model, head, point_axis=None,
+                                          device=dev, seed=seed)
+    else:
+        det = ShardedPointPillarsDetector(model, head, merge=merge,
+                                          mesh=mesh, device=dev, seed=seed)
+    with torch.no_grad():
+        det.trunk.bbox_head.conv_cls.bias.zero_()
+    return det
+
+
+def ps_geo():
+    """The KITTI canvas of the point-sharded model: (range, pillar size,
+    nx, ny)."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import KITTI_3CLASS_MODEL
+    pcr, vs = (KITTI_3CLASS_MODEL[k] for k in ('point_cloud_range',
+                                               'voxel_size'))
+    return (pcr, vs, round((pcr[3] - pcr[0]) / vs[0]),
+            round((pcr[4] - pcr[1]) / vs[1]))
+
+
+def ps_batch(dev='cuda', seed=PS_SEED):
+    from mmdet3d_gaussian_tpu_torch.engine.detector import synthetic_batch
+    return synthetic_batch(BATCH, POINTS, 16, seed=seed, device=dev)
+
+
+def ps_tiny(card):
+    """(ps) TINY: the TINY sharded detector, ``point_axis=None``, card
+    against CPU: one predict and one dense-target step."""
+    def detector(cfg, head, device, seed):
+        return ps_detector(head=head, tiny=True, dev=device, seed=seed)
+    tiny_card_vs_cpu(card, cfg=None, tag='TINY sharded', detector=detector,
+                     head=None)
+    tiny_train_card_vs_cpu(card, cfg=None, head=dict(pos_cap=0),
+                           tag='TINY sharded dense', detector=detector)
+
+
+def ps_canvas_sums(det, batch):
+    """The dense-canvas sums of ``batch`` (``canvas_sums`` on the
+    encoder's point features, inference) and their bytes: -> (fn, bytes
+    read and written)."""
+    from mmdet3d_gaussian_tpu_torch.parallel.point_sharding import \
+        canvas_sums
+    enc, (nx, ny) = det.trunk.voxel_encoder, det.trunk.grid()
+    with torch.inference_mode():
+        x, lin, valid = enc.point_features(batch['points'],
+                                           batch['points_mask'], nx, ny)
+    b, n, c = x.shape
+    nbytes = b * n * (c * 4 + 8 + 1) + b * ny * nx * (c + 1) * 4
+    return (lambda: canvas_sums(x, lin, valid, nx, ny)), nbytes
+
+
+def ps_one_card(card):
+    """(ps) at full width, one process: 6 predicts, 10 warm sparse-target
+    steps and 3 dense-target steps with launch counts, K3, K4, K5 and K6
+    on this path's inputs against their plain versions, profiles, and the
+    dense-canvas mean (``index_add_``) timed alone.  -> (kernel numbers,
+    launches by path, summary)."""
+    det = ps_detector()
+    batches = [ps_batch(seed=s) for s in SEEDS]
+    nx, ny = det.trunk.grid()
+    print(f'(ps) ShardedPointPillarsDetector(): dense-canvas encoder on '
+          f'{nx} x {ny} cells, SECOND (64, 128, 256) x (3, 5, 5), '
+          f'SECONDFPN (128, 128, 128) concatenated, head 384 channels, '
+          f'f32; B = {BATCH} x {POINTS} points, point_axis=None')
+    with torch.inference_mode():
+        inputs = capture_inputs(det, batches[0], PS_PREDICT_LAUNCHES)
+        results = kernel_checks(inputs, card, ' (sharded predict)')
+    del inputs
+    launches, summary = {}, {}
+    launches['predict'], summary['predict'] = main_path(
+        det, batches, PS_PREDICT_LAUNCHES, '(ps)', card)
+    summary['predict'].update(device_profile(
+        lambda: det.predict(batches[0]), 'predict', '(ps)', card, 5))
+    fn, nbytes = ps_canvas_sums(det, batches[0])
+    mean_ms = device_ms(fn, 20)
+    summary['canvas_mean'] = dict(ms=mean_ms, bytes=nbytes,
+                                  bound_ms=bound(nbytes, 0)[0])
+    print(f'(ps) the dense-canvas sums alone (index_add_ of {BATCH} x '
+          f'{POINTS} rows of 65 lanes into {BATCH} x {ny * nx} cells, '
+          f'zero fill included): {mean_ms:.4f} ms device, bound '
+          f'{summary["canvas_mean"]["bound_ms"]:.4f} ms ({nbytes} bytes) '
+          f'[{card}]')
+    del det
+    torch.cuda.empty_cache()
+
+    tdet, ddet = ps_detector(), ps_detector(head=dict(pos_cap=0))
+    batch = batches[0]
+    tstate = tdet.init_train(LR, total_steps=100)
+    dstate = ddet.init_train(LR, total_steps=100)
+    dstate, _ = ddet.train_step(batch, dstate)          # warm-up
+    train_inputs, dstate = capture_train_inputs(ddet, batch, dstate,
+                                                PS_DENSE_LAUNCHES)
+    with torch.no_grad():
+        results.update(train_kernel_checks(train_inputs, card,
+                                           ' (sharded dense step)'))
+    del train_inputs
+    launches['train'], tstate, summary['train'] = timed_steps(
+        tdet, batch, tstate, PS_TRAIN_LAUNCHES, '(ps)', card)
+    launches['train_dense'], dstate, summary['train']['dense_step_ms'] = \
+        dense_steps(ddet, batch, dstate, PS_DENSE_LAUNCHES, '(ps)', card)
+    holder = [tstate]
+
+    def one_step():
+        holder[0] = tdet.train_step(batch, holder[0])[0]
+    summary['train'].update(device_profile(one_step, 'train step', '(ps)',
+                                           card, 3))
+    del tdet, ddet, holder, tstate, dstate, batches
+    torch.cuda.empty_cache()
+    return results, launches, summary
+
+
+def ps_rank(rank, world, store, repo, tmp, backend, grids, timed=False):
+    """One rank of the (ps) grid (gloo, two ranks on the card) or of
+    ``--only dp4``'s (NCCL, one rank a card): on each (data, points) grid
+    of ``grids`` and each merge, the full-width dense-target detector on
+    its part of the global batch (``mesh.shard_points``): 2 steps
+    (:func:`wf_steps`; each step's merged canvas kept by the first rank
+    of each points group), then (``timed``) DP4_TIMED timed steps; the
+    merge
+    alone on the step's point features, timed; the pillar reduces of
+    sample 0's raw points (sum with a count channel, max, mean) over its
+    points group.  Saves the results by (grid, merge)."""
+    import datetime
+    import traceback
+    out = os.path.join(tmp, f'rank{rank}.pt')
+    try:
+        if backend == 'nccl':
+            os.environ['LOCAL_RANK'] = str(rank)
+        sys.path.insert(0, repo)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import torch.distributed as dist
+        from mmdet3d_gaussian_tpu_torch.parallel import mesh as tmesh
+        from mmdet3d_gaussian_tpu_torch.parallel import point_sharding as ps
+        world_group = tmesh.init_distributed(
+            backend=backend, init_method='file://' + store, rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=PS_TIMEOUT_S))
+        full = torch.load(os.path.join(tmp, 'batch.pt'), weights_only=True)
+        res = dict(rank=rank, device=str(world_group.device))
+        for grid in grids:
+            mesh = tmesh.init_mesh(*grid, world_group)
+            batch = {k: v.to(world_group.device) for k, v in
+                     tmesh.shard_points(full, mesh).items()}
+            for merge in PS_MERGES:
+                det = ps_detector(merge, mesh, dict(pos_cap=0))
+                canvases = []
+                hook = det.trunk.voxel_encoder.register_forward_hook(
+                    lambda m, i, o: canvases.append(o.detach().cpu()))
+                r = wf_steps(det, batch, 2, group=mesh.data)
+                hook.remove()
+                # the merged canvas, the same on every rank of a points
+                # group: kept by its first rank
+                r['canvas'] = canvases if mesh.points.rank == 0 else None
+                r['mesh'] = (mesh.data.rank, mesh.points.rank)
+                if timed:
+                    r['step_ms'] = dp4_timed(det, batch, det.init_train())[0]
+                r['merge_ms'] = ps_merge_ms(det, batch, mesh)
+                del det
+                torch.cuda.empty_cache()
+                res[grid, merge] = r
+            pts = batch['points'][0]
+            pts = torch.cat([pts, torch.ones_like(pts[:, :1])], -1)
+            mask = batch['points_mask'][0]
+            geo = ps_geo()
+            res[grid, 'reduce'] = {
+                (merge, op): fn(pts, mask, *geo, mesh.points, op).cpu()
+                for merge, fn in (('dense', ps.sharded_pillar_reduce),
+                                  ('sparse',
+                                   ps.sharded_pillar_reduce_sparse))
+                for op in ('sum', 'max', 'mean')}
+        torch.save(res, out)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(out + '.err', 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def ps_merge_ms(det, batch, mesh):
+    """The encoder's merge alone on this rank's point features of
+    ``batch``, PS_MERGE_ITERS times after a warm-up, every rank in step:
+    -> (median ms, bytes this rank sends a merge).  Dense: the canvas sums
+    (``index_add_``) and their all-reduce; sparse: the splat, compaction,
+    ``all_to_all`` and gather.  CUDA events on the current stream around
+    each merge (which waits for the collectives; gloo stages CUDA tensors
+    through the host)."""
+    from mmdet3d_gaussian_tpu_torch.parallel import mesh as tmesh
+    from mmdet3d_gaussian_tpu_torch.parallel.point_sharding import (
+        canvas_sums, default_capacity, sharded_feature_splat_sparse)
+    enc, (nx, ny) = det.trunk.voxel_encoder, det.trunk.grid()
+    with torch.inference_mode():
+        x, lin, valid = enc.point_features(batch['points'],
+                                           batch['points_mask'], nx, ny)
+        b, _, c = x.shape
+        p = mesh.points.world
+        if enc.merge == 'dense':
+            def run():
+                return tmesh.all_reduce_replicated(
+                    canvas_sums(x, lin, valid, nx, ny), mesh.points)
+            nbytes = b * ny * nx * (c + 1) * 4
+        else:
+            def run():
+                return sharded_feature_splat_sparse(x, lin, valid, nx, ny,
+                                                    mesh.points)
+            cap = default_capacity(ny // p * nx, None)
+            nbytes = b * (p * cap * (c + 2) * 4 + ny * nx * (c + 1) * 4 // p)
+        times = []
+        for i in range(PS_MERGE_ITERS + 1):
+            tmesh.barrier(mesh.world)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+    return statistics.median(times), nbytes
+
+
+def ps_reduce_checks(tag, rank_reduce, batch, card):
+    """The ranks' pillar reduces of sample 0 (a count channel appended)
+    against ``reference_pillar_reduce`` of all its points on the card:
+    the count lane and the max exactly, the sums within 1e-6 of the
+    cell's sum of magnitudes (``index_add_``'s atomics add in any order),
+    the mean following.  -> the worst sum difference."""
+    from mmdet3d_gaussian_tpu_torch.parallel.point_sharding import \
+        reference_pillar_reduce
+    pts = batch['points'][0].cuda()
+    pts = torch.cat([pts, torch.ones_like(pts[:, :1])], -1)
+    mask = batch['points_mask'][0].cuda()
+    geo = ps_geo()
+    want = {op: reference_pillar_reduce(pts, mask, *geo, op).cpu()
+            for op in ('sum', 'max', 'mean')}
+    c = pts.shape[1]      # the sums of magnitudes in the points' own cells
+    mags = reference_pillar_reduce(torch.cat([pts, pts.abs()], -1), mask,
+                                   *geo, 'sum')[..., c:].cpu()
+    worst = 0.0
+    for (merge, op), got in rank_reduce.items():
+        w = want[op]
+        if op == 'max':
+            check(torch.equal(got, w), f'{tag} {merge} max merge differs')
+            continue
+        check(torch.equal(got[..., -1], w[..., -1]),
+              f'{tag} {merge} {op}: the count lane differs')
+        if op == 'sum':
+            err = float(((got - w).abs() / mags.clamp(min=1e-30)).max())
+            worst = max(worst, err)
+            check(err <= 1e-6, f'{tag} {merge} sums differ ({err:.3g})')
+        else:
+            check(bool(torch.allclose(got, w, rtol=1e-6, atol=1e-6)),
+                  f'{tag} {merge} means differ')
+    print(f'{tag} the pillar reduces of sample 0 ({POINTS} points, a count '
+          f'channel appended) merged over the points group, dense and '
+          f'sparse, against one rank on all its points: max and count '
+          f'equal, sums within {worst:.3g} of the cell\'s sum of magnitudes '
+          f'(tol 1e-6), means within 1e-6 [{card}]')
+    return worst
+
+
+def ps_replayed_steps(batch, sums, canvases, start=None):
+    """One one-rank dense-target step (:func:`wf_steps`) whose forward
+    BatchNorm sums and merged canvas are the grid's (``canvases``: the
+    step's canvas of each data rank, in order), each keeping the
+    gradient of the one rank's own: ``own + (grid - own).detach()``."""
+    det = ps_detector(head=dict(pos_cap=0))
+    canvas = torch.cat(canvases).cuda()
+    hook = det.trunk.voxel_encoder.register_forward_hook(
+        lambda m, i, o: o + (canvas - o).detach())
+    try:
+        return wf_steps(det, batch, 1, start=start,
+                        replay=_sums_to(sums, 'cuda'))
+    finally:
+        hook.remove()
+
+
+def ps_grid_compare(tag, ranks, batch, grid, card, timed=False):
+    """One grid's ranks against one rank on the whole batch, for each
+    merge: loss terms, gradients (the one rank replaying the grid's
+    forward BatchNorm sums and merged canvas: the canvas's other f32
+    order, of ``index_add_``'s atomics, otherwise moves activations at a
+    ReLU's kink to their other side), running statistics, every rank's
+    parameters bitwise equal; the merges' bytes and times.
+    -> summary."""
+    a = ranks[0]
+    check(all(r[grid, PS_MERGES[0]]['mesh'] == divmod(i, grid[1])
+              for i, r in enumerate(ranks)),
+          f'{tag} ranks are not d P + p on the {grid} grid')
+    out = {}
+    one = None
+    for merge in PS_MERGES:
+        ra = a[grid, merge]
+        for r in ranks[1:]:
+            rb = r[grid, merge]
+            for k in ra['states'][-1]['trunk']:
+                check(torch.equal(ra['states'][-1]['trunk'][k],
+                                  rb['states'][-1]['trunk'][k]),
+                      f'{tag} {grid} {merge}: rank {r["rank"]}\'s state '
+                      f'differs from rank 0\'s: {k}')
+            check(ra['metrics'] == rb['metrics'],
+                  f'{tag} {grid} {merge}: rank metrics differ')
+        start = ra['states'][0]
+        if one is None:
+            one = [wf_steps(ps_detector(head=dict(pos_cap=0)), batch, 1)]
+        plain = [one[0], wf_steps(ps_detector(head=dict(pos_cap=0)), batch,
+                                  1, start=start)]
+        firsts = [r[grid, merge] for r in ranks[::grid[1]]]
+        replayed = [ps_replayed_steps(batch, ra['sums'][s:s + 1],
+                                      [f['canvas'][s] for f in firsts],
+                                      start if s else None)
+                    for s in range(2)]
+        torch.cuda.empty_cache()
+        worst = {}
+        for s in range(2):
+            w_metrics = {k: v for k, v in plain[s]['metrics'][0].items()
+                         if k != 'grad_norm'}
+            worst[f'step{s + 1}'] = dict(
+                loss=worst_of(ra['metrics'][s], w_metrics,
+                              lambda g, w: abs(g - w) / max(abs(w), 1e-30)),
+                grad=worst_of(ra['grads'][s], replayed[s]['grads'][0],
+                              rel_max),
+                stat=worst_of(ra['stats'][s], plain[s]['stats'][0],
+                              rel_max))
+        for step, w in worst.items():
+            print(f'{tag} {merge} merge, {grid[0]} x {grid[1]} grid '
+                  f'({len(ranks)} ranks), {step}, dense targets, against '
+                  f'one rank on the whole batch from the same state: loss '
+                  f'terms within {w["loss"][0]:.3g} ({w["loss"][1]}; tol '
+                  f'{WD_LOSS_RTOL}), gradients (one rank replaying the '
+                  f'ranks\' forward BatchNorm sums and merged canvas) '
+                  f'within {w["grad"][0]:.3g} of the leaf\'s largest '
+                  f'({w["grad"][1]}; tol {WD_GRAD_TOL}), running statistics '
+                  f'{w["stat"][0]:.3g} ({w["stat"][1]}; tol {WD_STAT_TOL}) '
+                  f'[{card}]')
+        merge_ms = [r[grid, merge]['merge_ms'][0] for r in ranks]
+        nbytes = ra['merge_ms'][1]
+        got = ra['launches']
+        missing = [k for k in PS_GRID_KERNELS if not got.get(k)]
+        extra = [k for k in ('segment_reduce', 'segment_reduce_mapback',
+                             'segment_max_winner', 'bev_splat',
+                             'bev_splat_pairs') if got.get(k)]
+        print(f'{tag} {merge} merge on the {grid} grid: {nbytes} bytes a '
+              f'rank sends a step\'s forward merge (dense: the all-reduced '
+              f'(B, ny nx, C + 1) f32 sums; sparse: P x capacity x (C + 2) '
+              f'x 4 of the all_to_all and the rank\'s stripe to the '
+              f'gather), the merge alone {max(merge_ms):.3f} ms (slowest '
+              f'rank, ranks {[round(x, 3) for x in merge_ms]}; medians of '
+              f'{PS_MERGE_ITERS}, CUDA events); launches of 2 '
+              f'steps on rank 0 {got} [{card}]')
+        check(not missing and not extra,
+              f'{tag} {merge}: rank 0 launched no {missing}, or {extra}')
+        agree = all(w['loss'][0] <= WD_LOSS_RTOL
+                    and w['grad'][0] <= WD_GRAD_TOL
+                    and w['stat'][0] <= WD_STAT_TOL for w in worst.values())
+        check(agree, f'{tag} {grid} {merge}: the grid disagrees with one '
+              f'rank beyond the tolerances')
+        out[merge] = dict({f'{step}_{k}': v[0] for step, w in worst.items()
+                           for k, v in w.items()},
+                          merge_bytes=nbytes, merge_ms=merge_ms,
+                          launches=got)
+        if timed:
+            out[merge]['step_ms'] = [r[grid, merge]['step_ms']
+                                     for r in ranks]
+    out['reduce_sum_rel'] = ps_reduce_checks(tag, a[grid, 'reduce'], batch,
+                                             card)
+    for r in ranks:     # the same on every rank of a points group
+        mate = ranks[r[grid, PS_MERGES[0]]['mesh'][0] * grid[1]]
+        for key, t in r[grid, 'reduce'].items():
+            check(torch.equal(t, mate[grid, 'reduce'][key]),
+                  f'{tag} the ranks\' merged reduces differ: {key}')
+    return out
+
+
+def ps_two_ranks(repo, card):
+    """(ps) on the card: two gloo ranks as a 1 x 2 points grid against one
+    rank on the whole batch.  -> summary."""
+    import tempfile
+    batch = ps_batch('cpu')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_ps_') as tmp:
+        torch.save(batch, os.path.join(tmp, 'batch.pt'))
+        ranks = spawn_ranks(ps_rank, repo, tmp, 2, PS_TIMEOUT_S, '(ps)',
+                            extra=('gloo', ((1, 2),)))
+    spawn_s = time.perf_counter() - t0
+    check(all(r['device'].startswith('cuda') for r in ranks),
+          f'(ps) ranks ran on {[r["device"] for r in ranks]}')
+    out = ps_grid_compare('(ps)', ranks, batch, (1, 2), card)
+    out['spawn_s'] = spawn_s
+    return out
+
+
+def ps_phase(repo, card):
+    """Phase (ps): the TINY check, the full-width one-card path and the
+    two-rank grid, within PS_LIMIT_S.  -> (kernel numbers, launches by
+    path, summary)."""
+    t0 = time.perf_counter()
+    ps_tiny(card)
+    results, launches, summary = ps_one_card(card)
+    summary['grid_1x2'] = ps_two_ranks(repo, card)
+    summary['phase_s'] = time.perf_counter() - t0
+    print(f'(ps) wall {summary["phase_s"]:.1f} s (limit {PS_LIMIT_S:.0f} s) '
+          f'[{card}]')
+    check(summary['phase_s'] <= PS_LIMIT_S,
+          f'(ps) took {summary["phase_s"]:.1f} s')
+    return results, launches, summary
+
+
 # --only dp4: the first NCCL job across cards.  One NCCL rank a card, the
 # global batch split a sample a rank (4 cards); the Waymo PointPillars
 # step (hard, 4 x 180,000 points) and the CenterPoint gwd5 step (dynamic,
@@ -6270,7 +6749,45 @@ def dp4_phase(repo, card):
              for k, v in w.items()}, step_ms=step_ms, all_reduce_ms=ar_ms,
             all_reduce_calls=a['all_reduce_calls'], one_card_step_ms=one_ms,
             launches=a['launches'], spawn_s=spawn_s)
+    summary['sharded'] = ps_dp4(repo, card, world)
     return summary
+
+
+def ps_dp4(repo, card, world):
+    """--only dp4: the full-width KITTI point-sharded dense-target step on
+    one NCCL rank a card, on a 2 x (world / 2) and a 1 x world grid, with
+    the dense and the sparse merge, against one card on the whole batch
+    (:func:`ps_grid_compare`); the step on the grid against one card's.
+    -> summary."""
+    import tempfile
+    grids = [(1, world)] if world < 4 else [(2, world // 2), (1, world)]
+    batch = ps_batch('cpu')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_dp4_ps_') as tmp:
+        torch.save(batch, os.path.join(tmp, 'batch.pt'))
+        ranks = spawn_ranks(ps_rank, repo, tmp, world, DP4_TIMEOUT_S,
+                            '(dp4)', extra=('nccl', tuple(grids), True))
+    spawn_s = time.perf_counter() - t0
+    check(sorted(r['device'] for r in ranks)
+          == [f'cuda:{r}' for r in range(world)],
+          f'(dp4) ranks ran on {[r["device"] for r in ranks]}')
+    det = ps_detector(head=dict(pos_cap=0))
+    one_ms = dp4_timed(det, batch, det.init_train())[0]
+    del det
+    torch.cuda.empty_cache()
+    out = dict(one_card_step_ms=one_ms, spawn_s=spawn_s)
+    for grid in grids:
+        key = f'{grid[0]}x{grid[1]}'
+        out[key] = ps_grid_compare('(dp4) sharded', ranks, batch, grid,
+                                   card, timed=True)
+        for merge in PS_MERGES:
+            steps = out[key][merge]['step_ms']
+            print(f'(dp4) sharded {key} {merge}: a dense-target step on '
+                  f'{world} cards {max(steps):.3f} ms (slowest rank; ranks '
+                  f'{[round(x, 3) for x in steps]}; medians of {DP4_TIMED},'
+                  f' synchronized host clock) against one card on the '
+                  f'whole batch {one_ms:.3f} ms [{card}]')
+    return out
 
 
 def waymo_phases(repo, card):
@@ -6415,10 +6932,22 @@ def main() -> int:
         print(f'(e) dp launches {json.dumps(dp_launches)} [{card}]')
         print(f'(e) dp summary {json.dumps(dp)} [{card}]')
         return 0
+    if sys.argv[1:] == ['--only', 'dp4', 'sharded']:
+        # dp4's point-sharded grids alone (no result line)
+        print(f'(e) dp4 sharded summary '
+              f'{json.dumps(ps_dp4(root, card, torch.cuda.device_count()))}'
+              f' [{card}]')
+        return 0
     if sys.argv[1:] == ['--only', 'dp4']:
         # one NCCL rank a card (needs 2 or more cards; no result line)
         print(f'(e) dp4 summary {json.dumps(dp4_phase(root, card))} '
               f'[{card}]')
+        return 0
+    if sys.argv[1:] == ['--only', 'ps']:
+        # the point-sharding phase (ps) alone (no result line)
+        _, ps_launches, ps_e2e = ps_phase(root, card)
+        print(f'(e) sharded launches {json.dumps(ps_launches)} [{card}]')
+        print(f'(e) sharded summary {json.dumps(ps_e2e)} [{card}]')
         return 0
     if sys.argv[1:] == ['--only', 'waymo']:
         # the Waymo and data-parallel phases alone (no result line)
@@ -6556,6 +7085,8 @@ def main() -> int:
     w_k, w_launches, w_e2e, dp, dp_launches = waymo_phases(  # (w)-(wd)
         root, card)
     torch.cuda.empty_cache()
+    ps_k, ps_launches, ps_e2e = ps_phase(root, card)          # (ps)
+    torch.cuda.empty_cache()
     loop_k, loop_launches, loop_e2e = loop_phase(root, card)   # (L)
 
     kernels = []                                       # (e)
@@ -6660,6 +7191,11 @@ def main() -> int:
                 gloo_two_ranks_all_reduce_ms=dp['two_ranks'][
                     'all_reduce_ms'],
                 nccl_one_rank_all_reduce_ms=dp['nccl_all_reduce_ms'])
+        # phase (ps): launches per point-sharded path, numbers on its
+        # inputs (K3, K4, K5, K6)
+        entry['sharded'] = dict(ps_k.get(name, {}), launches={
+            path: runs[name] for path, runs in ps_launches.items()
+            if runs.get(name)})
         kernels.append(entry)
     print(f'(e) predict summary {json.dumps(e2e)} [{card}]')
     print(f'(e) bf16 predict summary {json.dumps(e2e16)} [{card}]')
@@ -6674,6 +7210,7 @@ def main() -> int:
     print(f'(e) mvx summary {json.dumps(mvx_e2e)} [{card}]')
     print(f'(e) waymo summary {json.dumps(w_e2e)} [{card}]')
     print(f'(e) dp summary {json.dumps(dp)} [{card}]')
+    print(f'(e) sharded summary {json.dumps(ps_e2e)} [{card}]')
     print(f'(e) profiler misses (timed on CUDA events instead): '
           f'{len(PROFILER_MISSES)}')
     print(json.dumps({'kernels': kernels}))

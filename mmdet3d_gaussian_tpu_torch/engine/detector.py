@@ -1,7 +1,8 @@
 """Detector engines: train step and predict.
 
 Port of ``mmdet3d_gaussian_tpu/engine/detector.py``: the KITTI 3-class
-configuration and :class:`PointPillarsDetector`, the nuScenes CenterPoint
+configuration and :class:`PointPillarsDetector`, the point-sharded
+:class:`ShardedPointPillarsDetector`, the nuScenes CenterPoint
 configuration and :class:`CenterPointDetector` (construction,
 ``apply_train``, ``loss``, ``apply_eval``, ``predict``, and the
 ``train_step`` entry around ``parallel/train_state.py``),
@@ -242,6 +243,96 @@ class PointPillarsDetector(_Detector):
         (B, max_num) int32, valid (B, max_num) bool)."""
         cls, bbox, dirp = self.apply_eval(batch)[:3]
         return self.head.get_bboxes(cls, bbox, dirp, self.anchors)
+
+
+class ShardedPointPillarsDetector(PointPillarsDetector):
+    """PointPillars with the point axis sharded over the ranks of a points
+    group (port of the JAX package's ``ShardedPointPillarsDetector``): the
+    trunk is :class:`~..parallel.sharded_model.ShardedPointPillarsNet`
+    (the dense-canvas pillar encoder, SECOND, SECONDFPN, the anchor head's
+    convolutions, f32) with the GD anchor head of ``KITTI_3CLASS_HEAD``.
+
+    ``mesh`` (``parallel.mesh.init_mesh``; None: one process on the whole
+    batch) with ``point_axis='points'``: each rank's batch is
+    ``mesh.shard_points`` of the global batch.  The encoder's pillars
+    merge over the points group (``merge='dense'``: one all-reduce of the
+    canvas; ``'sparse'``: the stripe exchange, ``bucket_capacity`` rows a
+    rank and stripe, which drops live cells past it with no signal, as
+    JAX), its ``MaskedBatchNorm`` statistics are the world's, the trunk's
+    SyncBN (K4's moments) and the head's ``num_pos`` normalizer are the
+    data group's.  The train step sums the encoder's gradients over the
+    world and the trunk's over the data group (``make_train_step``'s
+    ``replicas``), so a step on the grid is the one-process step on the
+    whole batch, as JAX's sharded step is its ``point_axis=None``
+    program; the metrics are the data group's sums.  ``predict`` returns
+    the data rank's samples, the same on every rank of its points group.
+    ``point_axis=None`` ignores ``mesh``: one process."""
+
+    def __init__(self, model_cfg: Optional[Dict[str, Any]] = None,
+                 head_cfg: Optional[Dict[str, Any]] = None,
+                 point_axis: Optional[str] = 'points',
+                 merge: str = 'dense', mesh=None,
+                 bucket_capacity: Optional[int] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 seed: int = 0):
+        from ..parallel.sharded_model import ShardedPointPillarsNet
+        self.device = resolve_device(device)
+        mc = copy.deepcopy(KITTI_3CLASS_MODEL)
+        mc.update(model_cfg or {})
+        hc = copy.deepcopy(KITTI_3CLASS_HEAD)
+        hc.update(head_cfg or {})
+        for k in ('max_points_per_voxel', 'max_voxels_per_sample',
+                  'voxelize_mode', 'head_type'):
+            mc.pop(k, None)
+        if merge == 'sparse' and mesh is None:
+            raise ValueError("merge='sparse' needs a mesh (the stripe "
+                             "exchange runs over its points group)")
+        self.model_cfg = mc
+        self.trunk = ShardedPointPillarsNet(merge=merge,
+                                            bucket_capacity=bucket_capacity,
+                                            **mc)
+        init_weights(self.trunk, seed)
+        self.trunk.to(self.device).eval()
+        self.head = GDAnchor3DHead(**hc)
+        nx, ny = self.trunk.grid()
+        stride = mc['backbone_cfg']['layer_strides'][0]
+        self.featmap_size = (ny // stride, nx // stride)
+        self.anchors = torch.from_numpy(
+            self.head.anchors_for(self.featmap_size)).to(self.device)
+        self.mesh = mesh if point_axis else None
+        self.trunk.set_mesh(self.mesh)
+        if self.mesh is not None:
+            from ..parallel.mesh import replicate
+            self.group = self.mesh.data
+            replicate(self.trunk, self.mesh.world)
+
+    def set_group(self, group) -> None:
+        raise ValueError('a point-sharded detector takes its groups from '
+                         'its mesh')
+
+    def init_train(self, base_lr: float = 1e-3, total_steps: int = 1000,
+                   optimizer: Optional[AdamW] = None, **optimizer_kw
+                   ) -> TrainState:
+        """As :meth:`PointPillarsDetector.init_train`; under the mesh the
+        gradients of the trunk after the merge (replicas over the points
+        group) are summed over the data group and the encoder's over the
+        world."""
+        self.optimizer = optimizer or make_optimizer(base_lr, total_steps,
+                                                     **optimizer_kw)
+        world = None if self.mesh is None else self.mesh.world
+        self._step_fn = make_train_step(self.apply_train, self.loss,
+                                        self.optimizer, world,
+                                        self.replicas())
+        return init_state(self.trunk, self.optimizer)
+
+    def replicas(self):
+        """``make_train_step``'s ``replicas`` under the mesh (None without
+        it): the points group and the parameters after the merge."""
+        if self.mesh is None:
+            return None
+        return (self.mesh.points, frozenset(
+            k for k, _ in self.trunk.named_parameters()
+            if not k.startswith('voxel_encoder.')))
 
 
 # the CenterPoint pillar model (reference configs/_base_/models/

@@ -1,14 +1,22 @@
-"""Process groups for data-parallel training.
+"""Process groups for data-parallel and point-sharded training.
 
 Port of ``mmdet3d_gaussian_tpu/parallel/mesh.py``.  The JAX package shards
 the global batch over a ``Mesh(('data',))`` and lets GSPMD make every
 reduction global; the port runs one process a card (``torchrun``), each on
 its contiguous rows of the global batch, and makes the same reductions
 global with explicit collectives: the BatchNorm sums, the loss normalizers,
-the logged losses and the gradients.  It uses only ``all_reduce`` (sum)
-and ``broadcast``, which gloo also takes on CUDA tensors, so the same code
-runs under NCCL (one rank a card) and under gloo (the CPU tests, or two
-ranks on one card, which NCCL refuses).  A failed collective raises.
+the logged losses and the gradients.  Data parallel uses only
+``all_reduce`` and ``broadcast``, which gloo also takes on CUDA tensors, so
+the same code runs under NCCL (one rank a card) and under gloo (the CPU
+tests, or two ranks on one card, which NCCL refuses).  A failed collective
+raises.
+
+Point sharding (:func:`init_mesh`, JAX's ``Mesh(('data', 'points'))``)
+splits the world into a data group and a points group a rank, rank =
+d P + p; every collective names the group it runs over (a
+:class:`Group`'s ``pg``; None is the world).  The sparse pillar merge adds
+``all_to_all_single`` and ``all_gather`` (:func:`all_to_all`,
+:func:`all_gather_replicated`).
 """
 from __future__ import annotations
 
@@ -23,12 +31,27 @@ from torch import nn
 
 
 class Group(NamedTuple):
-    """This process's place in a data-parallel job (the default
-    ``torch.distributed`` group): its rank, the number of ranks and its
-    device."""
+    """This process's place in a group of ranks: its rank in the group, the
+    number of ranks, its device and the ``torch.distributed`` process group
+    (None: the default group, every rank of the job)."""
     rank: int
     world: int
     device: torch.device
+    pg: Any = None
+
+    def first(self) -> int:
+        """The global rank of the group's rank 0."""
+        return 0 if self.pg is None else dist.get_global_rank(self.pg, 0)
+
+
+class PointMesh(NamedTuple):
+    """A ``(data, points)`` grid of ranks (JAX's ``Mesh(devices.reshape(
+    data, points), ('data', 'points'))``): this rank's data group (the
+    ranks that hold the same point slice of other samples), its points
+    group (the ranks that hold slices of the same samples) and the world."""
+    data: Group
+    points: Group
+    world: Group
 
 
 def init_distributed(backend: Optional[str] = None,
@@ -66,13 +89,54 @@ def init_distributed(backend: Optional[str] = None,
     return Group(dist.get_rank(), dist.get_world_size(), dev)
 
 
+def init_mesh(data: int, points: int, world: Group) -> PointMesh:
+    """Split the job ``world`` (from :func:`init_distributed`) into a
+    ``data`` x ``points`` grid, rank = d ``points`` + p: a points group is
+    ``points`` consecutive ranks, as JAX's ``reshape(data, points)`` of
+    the device list.  Every rank builds every group, in the same order
+    (``new_group`` is collective)."""
+    if data * points != world.world:
+        raise ValueError(f'a {data} x {points} grid needs {data * points} '
+                         f'ranks, the job has {world.world}')
+    d, p = divmod(world.rank, points)
+    data_pg = points_pg = None
+    for q in range(points):
+        pg = dist.new_group([e * points + q for e in range(data)])
+        if q == p:
+            data_pg = pg
+    for e in range(data):
+        pg = dist.new_group([e * points + q for q in range(points)])
+        if e == d:
+            points_pg = pg
+    return PointMesh(Group(d, data, world.device, data_pg),
+                     Group(p, points, world.device, points_pg), world)
+
+
+def shard_points(batch: Dict[str, Any], mesh: PointMesh) -> Dict[str, Any]:
+    """This rank's part of a global batch, JAX's ``P('data', 'points')``:
+    the data rank's contiguous samples (:func:`shard_batch`), and of
+    ``points`` and ``points_mask`` the points rank's contiguous slice
+    ``[p N / P, (p + 1) N / P)`` of the point axis; the other entries
+    (ground truth) keep ``P('data')``."""
+    out = shard_batch(batch, mesh.data)
+    p, n_ranks = mesh.points.rank, mesh.points.world
+    for k in ('points', 'points_mask'):
+        n = out[k].shape[1]
+        if n % n_ranks:
+            raise ValueError(f'{k}: {n} points do not split over {n_ranks} '
+                             f'points ranks')
+        m = n // n_ranks
+        out[k] = out[k][:, p * m:(p + 1) * m]
+    return out
+
+
 def all_reduce_sum(tensors: Sequence[torch.Tensor], group: Group
                    ) -> List[torch.Tensor]:
-    """The sums over the ranks of ``tensors`` (any shapes, on the group's
-    device), by one ``all_reduce`` of a flat f32 buffer that holds them
-    all; -> new f32 tensors of their shapes (contiguous)."""
+    """The sums over ``group``'s ranks of ``tensors`` (any shapes, on the
+    group's device), by one ``all_reduce`` of a flat f32 buffer that holds
+    them all; -> new f32 tensors of their shapes (contiguous)."""
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group.pg)
     out, pos = [], 0
     for t in tensors:
         out.append(flat[pos:pos + t.numel()].view(t.shape))
@@ -82,24 +146,118 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], group: Group
 
 class _AllReduce(torch.autograd.Function):
     """Sum over the ranks whose gradient is the sum over the ranks of the
-    output's gradients: each rank's input feeds every rank's output."""
+    output's gradients: each rank's input feeds every rank's output, and
+    each rank's output feeds a loss of its own (a BatchNorm's sums)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, pg):
+        ctx.pg = pg
         y = x.detach().clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=pg)
         return y
 
     @staticmethod
     def backward(ctx, gy):
         g = gy.detach().clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.pg)
+        return g, None
 
 
 def all_reduce_with_grad(x: torch.Tensor, group: Group) -> torch.Tensor:
     """The sum of ``x`` over ``group``'s ranks, differentiable."""
-    return _AllReduce.apply(x)
+    return _AllReduce.apply(x, group.pg)
+
+
+class _AllReduceReplicated(_AllReduce):
+    """Sum over the ranks whose consumers are replicas: every rank of the
+    group computes the same function of the sum (the point-sharded trunk
+    on the merged canvas), so each rank's output gradient is already the
+    whole gradient of the one loss, and the backward passes it through.
+    :class:`_AllReduce`'s backward would sum those copies and count the
+    loss once a rank, multiplying the inputs' gradients by the group's
+    size."""
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy, None
+
+
+def all_reduce_replicated(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks, differentiable, for
+    consumers that every rank of the group runs alike
+    (:class:`_AllReduceReplicated`)."""
+    return _AllReduceReplicated.apply(x, group.pg)
+
+
+def all_reduce_max(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group``'s ranks (no
+    gradient)."""
+    y = x.detach().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group.pg)
+    return y
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` in equal blocks of dim 0: block q of this
+    rank's input goes to rank q, which puts it at block r (this rank) of
+    its output.  The transpose is the same exchange of the output's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        y = torch.empty_like(x, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(y, x.contiguous(), group=pg)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        g = torch.empty_like(gy, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(g, gy.contiguous(), group=ctx.pg)
+        return g, None
+
+
+def all_to_all(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """(R, ...) -> (R, ...): block q of ``x`` to rank q, block q of the
+    result from rank q (JAX's ``all_to_all(split_axis=0, concat_axis=0,
+    tiled=False)``); differentiable; integer tensors travel as they
+    are."""
+    if x.shape[0] != group.world:
+        raise ValueError(f'all_to_all: {x.shape[0]} blocks for '
+                         f'{group.world} ranks')
+    return _AllToAll.apply(x, group.pg)
+
+
+class _AllGatherReplicated(torch.autograd.Function):
+    """Every rank's tile concatenated on ``dim`` in rank order.  Its
+    transpose sums each rank's gradient of tile q onto rank q (a reduce
+    scatter); here every rank of the group consumes the gathered tensor
+    alike (the replicated canvas), so each rank's gradient is already the
+    whole one and this rank's tile of it is its input's gradient, as
+    :class:`_AllReduceReplicated` passes its gradient through."""
+
+    @staticmethod
+    def forward(ctx, x, dim, pg, world, rank):
+        ctx.dim, ctx.rank, ctx.world = dim, rank, world
+        x = x.contiguous()
+        tiles = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(tiles, x, group=pg)
+        return torch.cat(tiles, dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        n = gy.shape[ctx.dim] // ctx.world
+        return (gy.narrow(ctx.dim, ctx.rank * n, n), None, None, None,
+                None)
+
+
+def all_gather_replicated(x: torch.Tensor, group: Group, dim: int = 0
+                          ) -> torch.Tensor:
+    """The ranks' ``x`` concatenated on ``dim`` in rank order (JAX's tiled
+    ``all_gather``), differentiable for consumers that every rank of the
+    group runs alike (:class:`_AllGatherReplicated`)."""
+    return _AllGatherReplicated.apply(x, dim, group.pg, group.world,
+                                      group.rank)
 
 
 def shard_batch(batch: Dict[str, Any], group: Group) -> Dict[str, Any]:
@@ -117,15 +275,15 @@ def shard_batch(batch: Dict[str, Any], group: Group) -> Dict[str, Any]:
 
 
 def replicate(module: nn.Module, group: Group) -> None:
-    """Broadcast rank 0's parameters and buffers to every rank, one
-    ``broadcast`` a dtype."""
+    """Broadcast the group's rank 0's parameters and buffers to every rank
+    of ``group``, one ``broadcast`` a dtype."""
     by_type: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in list(module.parameters()) + list(module.buffers()):
         by_type.setdefault(t.dtype, []).append(t)
     with torch.no_grad():
         for tensors in by_type.values():
             flat = torch.cat([t.reshape(-1) for t in tensors])
-            dist.broadcast(flat, 0)
+            dist.broadcast(flat, group.first(), group=group.pg)
             pos = 0
             for t in tensors:
                 t.copy_(flat[pos:pos + t.numel()].view(t.shape))
@@ -146,15 +304,15 @@ def rank_offset(count: torch.Tensor, group: Group
     i``."""
     vec = torch.zeros(group.world, dtype=torch.int64, device=count.device)
     vec[group.rank] = count.reshape(()).to(torch.int64)
-    dist.all_reduce(vec)
+    dist.all_reduce(vec, group=group.pg)
     return vec[:group.rank].sum(), vec.sum()
 
 
 def barrier(group: Group) -> None:
-    """Wait until every rank is here (an ``all_reduce`` of one value, read
-    back)."""
+    """Wait until every rank of ``group`` is here (an ``all_reduce`` of
+    one value, read back)."""
     t = torch.zeros(1, device=group.device)
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group.pg)
     t.item()
 
 

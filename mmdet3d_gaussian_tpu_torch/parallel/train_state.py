@@ -23,8 +23,8 @@ names.
 """
 from __future__ import annotations
 
-from typing import (Any, Callable, Dict, Iterable, NamedTuple, Optional,
-                    Tuple)
+from typing import (Any, Callable, Dict, FrozenSet, Iterable, NamedTuple,
+                    Optional, Tuple)
 
 import torch
 from torch import nn
@@ -208,8 +208,39 @@ def init_state(model: nn.Module, optimizer: AdamW) -> TrainState:
                       opt_state=optimizer.init(params))
 
 
+def reduce_gradients(grads: Tensors, group=None,
+                     replicas: Optional[Tuple[Any, FrozenSet[str]]] = None
+                     ) -> Tensors:
+    """This rank's gradients -> their sums over ``group`` (a
+    ``parallel.mesh.Group``; None: as they are), by one ``all_reduce`` of
+    a flat buffer.
+
+    ``replicas`` (point sharding: ``(points group, names)``): the ranks of
+    the points group run the named parameters (the trunk after the pillar
+    merge) as replicas of one another, on the same canvas of the same
+    samples, while the others (the encoder's) see each rank's own point
+    slice.  A replicated gradient is the data group's sum: the points
+    group's first rank gives it to the sum over ``group`` (the world) and
+    the others give 0, so the one all-reduce that sums the encoder's
+    partial gradients over the world sums these over the data group.
+    With at most two data ranks, the two nonzero terms and exact zeros
+    make that the data group's all-reduce bit for bit
+    (``tests/test_torch_sharded_model.py`` checks it on a 2 x 2 grid); and
+    every rank gets the first replica's sum, where cuDNN's backward need
+    not repeat a replica's sums bitwise."""
+    from .mesh import all_reduce_sum
+    if replicas is not None and replicas[0].rank != 0:
+        grads = {k: torch.zeros_like(g) if k in replicas[1] else g
+                 for k, g in grads.items()}
+    if group is None:
+        return grads
+    return dict(zip(grads, all_reduce_sum(list(grads.values()), group)))
+
+
 def make_train_step(apply_fn: Callable, loss_fn: Callable,
-                    optimizer: AdamW, group=None) -> Callable:
+                    optimizer: AdamW, group=None,
+                    replicas: Optional[Tuple[Any, FrozenSet[str]]] = None
+                    ) -> Callable:
     """Build ``step(state, batch) -> (state, metrics)``.
 
     ``apply_fn(batch) -> outputs`` runs the model that owns
@@ -224,19 +255,22 @@ def make_train_step(apply_fn: Callable, loss_fn: Callable,
     gradients are summed over the ranks, in one ``all_reduce`` of a flat
     buffer, before the norm, the clipping and AdamW; the metrics are
     summed over the ranks in another.  Every rank then applies the same
-    update."""
+    update.
+
+    ``replicas`` (point sharding: ``(points group, names)``): see
+    :func:`reduce_gradients`; the loss terms are replicas too and are
+    summed over ``group`` from the first rank of each points group."""
     from .mesh import all_reduce_sum
+    counts = replicas is None or replicas[0].rank == 0
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Tensors]:
         total, losses = loss_fn(apply_fn(batch), batch)
         names = list(state.params)
         leaves = [state.params[k] for k in names]
         raw = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, raw)]
-        if group is not None:
-            grads = all_reduce_sum(grads, group)
-        grads = dict(zip(names, grads))
+        grads = reduce_gradients(
+            {k: torch.zeros_like(p) if g is None else g
+             for k, p, g in zip(names, leaves, raw)}, group, replicas)
         g_norm = global_norm(grads.values())
         updates, opt_state = optimizer.update(grads, state.opt_state,
                                               state.params, g_norm)
@@ -247,8 +281,9 @@ def make_train_step(apply_fn: Callable, loss_fn: Callable,
                    for k, v in losses.items()}
         metrics['loss'] = total.detach()
         if group is not None:
-            metrics = dict(zip(metrics, all_reduce_sum(
-                [v.reshape(()) for v in metrics.values()], group)))
+            values = [v.reshape(()) if counts else torch.zeros_like(v)
+                      for v in metrics.values()]
+            metrics = dict(zip(metrics, all_reduce_sum(values, group)))
         metrics['grad_norm'] = g_norm
         return state._replace(step=state.step + 1,
                               opt_state=opt_state), metrics

@@ -8,7 +8,8 @@ anchor or center head) or an ``MVXPillarsNet`` as nested dicts of numpy arrays a
 with mmdet3d-style names; ``jax_grads_to_torch`` maps a gradient tree (the
 shape of ``params``) the same way, to one tensor per parameter name:
 
-* ``voxel_encoder/linear_{i}``, ``norm_{i}`` (dynamic) and
+* ``voxel_encoder/linear_{i}``, ``norm_{i}`` (dynamic, and the
+  point-sharded ``DensePillarEncoder``) and
   ``voxel_encoder/pfn_{i}/linear``, ``pfn_{i}/norm`` (hard, both forms) ->
   ``voxel_encoder.pfn_layers.{i}.linear`` / ``.norm``;
 * the MVF encoder: ``voxel_encoder/pointnet{k}_fc``, ``pointnet{k}_bn``

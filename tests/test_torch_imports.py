@@ -52,7 +52,8 @@ def test_port_modules_listed():
                 'ops.sparse_conv', 'ops.vsa', 'models.middle_encoders',
                 'models.roi_heads', 'engine.pvrcnn', 'models.img_fusion',
                 'models.detectors.mvx_faster_rcnn', 'engine.mvx',
-                'parallel.mesh', 'core.evaluation.waymo_metrics'):
+                'parallel.mesh', 'core.evaluation.waymo_metrics',
+                'parallel.point_sharding', 'parallel.sharded_model'):
         assert 'mmdet3d_gaussian_tpu_torch.' + mod in names
 
 
@@ -61,7 +62,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(' ', 1)
-    assert int(count) >= 74
+    assert int(count) >= 76
     assert bad == '[]', bad
 
 

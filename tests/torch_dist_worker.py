@@ -6,11 +6,13 @@ ranks are spawned processes that import this module, not a test file).
 60 s timeout on every collective, and joins them within a hard limit:
 past it the ranks are killed and the test fails.  Each rank runs
 :func:`rank_main` on a plan: the BatchNorm checks on its rows
-(:func:`bn_checks`), the offset checks (:func:`offset_checks`), the TINY
-train steps of any family on its rows of a global batch
+(:func:`bn_checks`), the offset checks (:func:`offset_checks`), the pillar
+merges of point sharding on grids of its ranks (:func:`points_checks`),
+the TINY train steps of any family on its rows of a global batch
 (:func:`step_run`, with the voxels and sites each voxelization and sparse
-level kept), the train CLI with ``--distributed`` on each config of the
-plan, and saves what it got to ``rank{r}.pt``.
+level kept; the point-sharded detector on its part of a grid,
+:func:`sharded_run`), the train CLI with ``--distributed`` on each config
+of the plan, and saves what it got to ``rank{r}.pt``.
 """
 import datetime
 import multiprocessing
@@ -73,8 +75,12 @@ def rank_main(rank, world, store, out_dir, plan):
             out['bn'] = bn_checks(bn_inputs(), group)
         if plan.get('offsets'):
             out['offsets'] = offset_checks(plan['offsets'], group)
+        if plan.get('points'):
+            out['points'] = points_checks(group)
+        if 'sharded' in plan:
+            out['sharded'] = sharded_run(plan['sharded'], group)
         out['steps'] = {name: step_run(case, group)
-                        for name, case in plan['steps'].items()}
+                        for name, case in plan.get('steps', {}).items()}
         if 'cli' in plan:
             out['cli'] = cli_run(plan['cli'], group)
         torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
@@ -225,8 +231,18 @@ SCATTER_USERS = ('ops.voxelize', 'models.detectors.voxelnet',
 def build_detector(case, group=None):
     """The TINY detector of ``case['family']`` (``'pointpillars'`` by
     default, which covers the hard, dynamic and MVF trunks;
-    ``'centerpoint'``, ``'mvx'``, ``'pvrcnn'``) on the CPU."""
+    ``'centerpoint'``, ``'mvx'``, ``'pvrcnn'``; ``'sharded'``, the
+    point-sharded detector, whose ``group`` is a ``mesh.PointMesh``) on
+    the CPU."""
     from mmdet3d_gaussian_tpu_torch.engine import detector, mvx, pvrcnn
+    if case.get('family') == 'sharded':
+        if group is None:       # JAX's point_axis=None: one process
+            return detector.ShardedPointPillarsDetector(
+                case['model'], case['head'], point_axis=None, device='cpu')
+        return detector.ShardedPointPillarsDetector(
+            case['model'], case['head'], merge=case['merge'],
+            mesh=group, bucket_capacity=case.get('capacity'),
+            device='cpu')
     cls = dict(pointpillars=detector.PointPillarsDetector,
                centerpoint=detector.CenterPointDetector,
                mvx=mvx.MVXDetector, pvrcnn=pvrcnn.PVRCNNDetector)[
@@ -279,7 +295,8 @@ def step_run(case, group=None, steps=2, replay=None, start=None):
     import importlib
     from mmdet3d_gaussian_tpu_torch.models import voxel_encoders
     from mmdet3d_gaussian_tpu_torch.ops import bn
-    from mmdet3d_gaussian_tpu_torch.parallel.mesh import shard_batch
+    from mmdet3d_gaussian_tpu_torch.parallel.mesh import (
+        PointMesh, shard_batch, shard_points)
     from mmdet3d_gaussian_tpu_torch.parallel.train_state import (
         OptState, make_optimizer)
     det = build_detector(case, group)
@@ -299,7 +316,9 @@ def step_run(case, group=None, steps=2, replay=None, start=None):
     apply_train = det.apply_train
     batch = torch.load(case['batch'], weights_only=True)
     offset = 0
-    if group is not None:
+    if isinstance(group, PointMesh):
+        batch = shard_points(batch, group)
+    elif group is not None:
         batch = shard_batch(batch, group)
         offset = group.rank * batch['points'].shape[0]
     kept, wrap = kept_recorder(offset, forward)
@@ -385,6 +404,154 @@ def step_run(case, group=None, steps=2, replay=None, start=None):
                 states=states, kept=kept,
                 params={k: v.detach().clone()
                         for k, v in det.trunk.named_parameters()})
+
+
+# ----------------------------------------------------------- point sharding
+# the pillar merges' canvas (tests/test_point_sharding.py's): 32 x 32 cells
+PS_PC_RANGE = (0., -6.4, -3., 12.8, 6.4, 1.)
+PS_VOXEL = (0.4, 0.4, 4.0)
+PS_NX = PS_NY = 32
+PS_GRIDS = ((1, 4), (2, 2))      # (data, points) grids of the 4 ranks
+PS_OPS = ('sum', 'mean', 'max')
+# bucket capacities: a stripe's every cell (none dropped), and 16, which
+# the ~55 (4 stripes) or ~200 (2 stripes) live cells a rank and stripe
+# overflow
+PS_CAPS = (PS_NX * PS_NY, 16)
+# the splat: B samples of N points with C features on PS_SPLAT_CELLS
+# cells (several points a cell), a default capacity and one that
+# overflows
+PS_SPLAT = dict(b=4, n=256, c=3, cells=120)
+PS_SPLAT_CAPS = (None, 8)
+
+
+def ps_inputs():
+    """The global inputs of every pillar-merge check, from seed 0: points
+    and mask (``tests/test_point_sharding.py::make_points``), 64 points of
+    one pillar, and the splat's features, cells, valid mask and the
+    canvas gradient."""
+    rng = np.random.RandomState(0)
+    n = 1024
+    pts = np.c_[rng.uniform(0, 12.8, (n, 1)), rng.uniform(-6.4, 6.4, (n, 1)),
+                rng.uniform(-3, 1, (n, 1)), rng.rand(n, 1)].astype(np.float32)
+    mask = rng.rand(n) > 0.1
+    one = np.zeros((64, 4), np.float32)
+    one[:, 0], one[:, 1], one[:, 3] = 5.03, -1.17, 1.0
+    sp = PS_SPLAT
+    cells = rng.choice(PS_NX * PS_NY, sp['cells'], replace=False)
+    return dict(
+        points=pts, mask=mask, one_pillar=one,
+        feats=rng.normal(0, 1, (sp['b'], sp['n'], sp['c'])).astype(
+            np.float32),
+        lin=cells[rng.randint(0, sp['cells'], (sp['b'], sp['n']))].astype(
+            np.int32),
+        valid=rng.rand(sp['b'], sp['n']) > 0.2,
+        grad=rng.normal(0, 1, (sp['b'], PS_NY, PS_NX, sp['c'] + 1)).astype(
+            np.float32))
+
+
+def _slice(n, group):
+    """This rank's contiguous part of ``n`` rows over ``group``."""
+    m = n // group.world
+    return slice(group.rank * m, (group.rank + 1) * m)
+
+
+def points_checks(world):
+    """Each grid of :data:`PS_GRIDS` over the 4 ranks: the dense and
+    sparse pillar reduces of each op on this rank's slice of the points
+    over its points group (every capacity, ``replicate_out`` both ways),
+    the one pillar split over the points group (sum), and the sparse
+    feature splat of this rank's samples and slice with the gradient of
+    ``sum(out * grad)`` (its rows of ``grad``: the stripe without
+    ``replicate_out``).  -> {grid: {check: tensors}}."""
+    from mmdet3d_gaussian_tpu_torch.parallel import point_sharding as ps
+    from mmdet3d_gaussian_tpu_torch.parallel.mesh import init_mesh
+    inp = {k: torch.from_numpy(v) for k, v in ps_inputs().items()}
+    geo = (PS_PC_RANGE, PS_VOXEL, PS_NX, PS_NY)
+    out = {}
+    for d, p in PS_GRIDS:
+        mesh = init_mesh(d, p, world)
+        grp = mesh.points
+        res = out[(d, p)] = dict(mesh=(mesh.data.rank, mesh.points.rank))
+        sl = _slice(inp['points'].shape[0], grp)
+        pts, mask = inp['points'][sl], inp['mask'][sl]
+        for op in PS_OPS:
+            res['dense', op] = ps.sharded_pillar_reduce(pts, mask, *geo, grp,
+                                                        op)
+            for cap in PS_CAPS:
+                for rep in (True, False):
+                    res['sparse', op, cap, rep] = \
+                        ps.sharded_pillar_reduce_sparse(
+                            pts, mask, *geo, grp, op, bucket_capacity=cap,
+                            replicate_out=rep)
+        one = inp['one_pillar'][_slice(64, grp)]
+        ones = torch.ones(one.shape[0], dtype=torch.bool)
+        res['one_pillar', 'dense'] = ps.sharded_pillar_reduce(
+            one, ones, *geo, grp, 'sum')
+        res['one_pillar', 'sparse'] = ps.sharded_pillar_reduce_sparse(
+            one, ones, *geo, grp, 'sum')
+        rows = _slice(PS_SPLAT['b'], mesh.data)
+        cols = _slice(PS_SPLAT['n'], grp)
+        stripe = _slice(PS_NY, grp)
+        for cap in PS_SPLAT_CAPS:
+            for rep in (True, False):
+                f = inp['feats'][rows, cols].clone().requires_grad_(True)
+                o = ps.sharded_feature_splat_sparse(
+                    f, inp['lin'][rows, cols], inp['valid'][rows, cols],
+                    PS_NX, PS_NY, grp, bucket_capacity=cap,
+                    replicate_out=rep)
+                g = inp['grad'][rows] if rep else inp['grad'][rows, stripe]
+                (o * g).sum().backward()
+                res['splat', cap, rep] = (o.detach(), f.grad)
+    return out
+
+
+def sharded_run(plan, world):
+    """The point-sharded detector's cases (``plan['cases']``,
+    :func:`step_run` cases of family ``'sharded'``) on a ``plan['grid']``
+    grid of the ranks: a predict on this rank's part of the batch and 2
+    steps each; then, with the dense merge, one step
+    whose merge's backward sums its gradient over the points group (the
+    P-times regression), and :func:`~train_state.reduce_gradients` of one
+    forward's gradients beside the grouped reduction (the trunk's by an
+    all-reduce over the data group, the encoder's over the world)."""
+    from mmdet3d_gaussian_tpu_torch.parallel import mesh as tmesh
+    from mmdet3d_gaussian_tpu_torch.parallel.train_state import \
+        reduce_gradients
+    mesh = tmesh.init_mesh(*plan['grid'], world)
+    out = dict(mesh=(mesh.data.rank, mesh.points.rank), predict={})
+    for name, case in plan['cases'].items():
+        det = build_detector(case, mesh)
+        det.trunk.load_state_dict(torch.load(case['weights'],
+                                             weights_only=True))
+        out['predict'][name] = det.predict(tmesh.shard_points(
+            torch.load(case['batch'], weights_only=True), mesh))
+        out[name] = step_run(case, mesh)
+    dense = plan['cases']['dense']
+    replicated = tmesh._AllReduceReplicated.backward
+    tmesh._AllReduceReplicated.backward = tmesh._AllReduce.backward
+    try:
+        out['summing_backward'] = step_run(dense, mesh, steps=1)
+    finally:
+        tmesh._AllReduceReplicated.backward = replicated
+
+    det = build_detector(dense, mesh)
+    det.trunk.load_state_dict(torch.load(dense['weights'],
+                                         weights_only=True))
+    batch = tmesh.shard_points(torch.load(dense['batch'], weights_only=True),
+                               mesh)
+    total, _ = det.loss(det.apply_train(batch), batch)
+    names, leaves = zip(*det.trunk.named_parameters())
+    local = dict(zip(names, torch.autograd.grad(total, leaves)))
+    got = reduce_gradients(local, mesh.world, det.replicas())
+    trunk = sorted(det.replicas()[1])
+    encoder = [k for k in names if k not in det.replicas()[1]]
+    want = dict(zip(trunk, tmesh.all_reduce_sum([local[k] for k in trunk],
+                                                mesh.data)))
+    want.update(zip(encoder, tmesh.all_reduce_sum(
+        [local[k] for k in encoder], mesh.world)))
+    out['grouped'] = dict(got=got, want=want)
+    out['trunk_names'] = trunk
+    return out
 
 
 # ------------------------------------------------------------------ the CLI
