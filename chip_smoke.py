@@ -269,6 +269,21 @@ Phases, each printing its own lines (any failure exits non-zero):
       ``--only ps`` runs (a) and (ps) alone; ``--only dp4`` ends with the
       same checks on one NCCL rank a card, 2 x 2 and 1 x 4 grids, each
       step timed beside one card's (``--only dp4 sharded``: these alone);
+  (ex) the serving export (``engine/export.py``): the KITTI flagship
+      predict (hard, f32), KITTI dynamic bf16 on the s2d canvas and
+      CenterPoint nuScenes (gwd5, f32), B = 4 x 16,384 and 4 x 60,000
+      points, each exported with ``torch.export`` (its seconds), loaded in
+      one fresh python that imports torch and the loader only, run on two
+      batches (one not the example) and held to the eager predict
+      (integers equal, floats within ``EX_TOL``), its launches per call
+      equal to the eager predict's, its median ms on CUDA events beside
+      the eager one's (over the same calls, in this process); last of
+      all phases, after (L); one
+      ``profiling.trace`` of the flagship predict summarized by
+      ``tools/misc/summarize_trace``; each registered op's host dispatch
+      cost against its CUDA implementation called directly.  Phase (b)'s
+      ``call_ms`` goes through the ops.  ``--only export`` runs (a) and
+      (ex) alone;
   (e) one JSON line listing the kernels (with their launches on the hard
       paths and K2's and K1's numbers there, under ``loop`` the launches
       of each CLI run and the numbers on the loop's inputs, under
@@ -301,6 +316,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+# the device-time instruments live in the port (engine/profiling.py); the
+# script runs from the repository root, which is on the path
+from mmdet3d_gaussian_tpu_torch.engine.profiling import (  # noqa: E402
+    EVENTS_KEY, PROFILER_MISSES, cuda_ms, cuda_spans, device_ms,
+    device_ms_by_name)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, 700 W limit): HBM3
 # bytes/s, and f32 operations/s outside the tensor cores. The data sheet's
@@ -486,74 +507,6 @@ def card_line() -> str:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters, warmup=2):
-    """Mean ms per call over ``iters`` back-to-back calls (CUDA events,
-    after ``warmup`` calls)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cuda_spans(prof):
-    """(start us, end us, name) of every activity the profiler saw on the
-    card."""
-    from torch.autograd import DeviceType
-    return [(e.time_range.start, e.time_range.end, e.name)
-            for e in prof.events() if e.device_type == DeviceType.CUDA]
-
-
-# the key under which device_ms_by_name returns a CUDA-event time when the
-# profiler recorded no activity
-EVENTS_KEY = '(no profiler trace: whole calls timed on CUDA events)'
-# calls of device_ms_by_name that the profiler left without activity
-PROFILER_MISSES = []
-
-
-def device_ms_by_name(fn, iters, warmup=2):
-    """{name: mean device ms per call} of the kernels, copies and fills
-    that ``iters`` calls of ``fn`` ran on the card (torch.profiler), so
-    host time between launches is left out.  The tracer now and then
-    records no activity, and once it has, may record none for the rest
-    of the process: after three empty traces (one, once that has
-    happened) the calls are timed back to back on CUDA events instead,
-    host gaps included, and the result is ``{EVENTS_KEY: ms}``."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(1 if PROFILER_MISSES else 3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        spans = cuda_spans(prof)
-        if spans:
-            out = {}
-            for start, end, name in spans:
-                out[name] = out.get(name, 0.0) + (end - start) / 1e3 / iters
-            return out
-    ms = cuda_ms(fn, iters, warmup=0)
-    PROFILER_MISSES.append(ms)
-    print(f'profiler: no device activity recorded (miss {len(PROFILER_MISSES)});'
-          f' {ms:.4f} ms a call on CUDA events, host gaps included')
-    return {EVENTS_KEY: ms}
-
-
-def device_ms(fn, iters, warmup=2):
-    """Mean device ms per call: the summed durations of everything that
-    ``iters`` calls of ``fn`` ran on the card (:func:`device_ms_by_name`)."""
-    return sum(device_ms_by_name(fn, iters, warmup).values())
 
 
 def clone_like(t: torch.Tensor) -> torch.Tensor:
@@ -6844,6 +6797,289 @@ def dp_phases(repo, card, cfg=None):
     return dp, dp_launches
 
 
+# ------------------------------------------------------------ phase (ex)
+# Serving export (engine/export.py): three full-width predicts exported
+# with torch.export, each program saved, loaded in a fresh python process,
+# run on two batches (the example and another), held to the eager predict
+# (integers equal, floats within EX_TOL; expected bitwise), with its
+# launches per call equal to the eager predict's and its median time
+# beside the eager one's; then one profiling.trace of a
+# predict summarized by tools/misc/summarize_trace, and the host cost of
+# dispatching each registered op (the op against its CUDA implementation
+# called directly, in turns, on the predict's inputs).
+EX_DEVICE = 'cuda'
+EX_SEEDS = (0, 1)
+EX_TOL = 1e-5
+# timed calls of each predict, exported in the fresh process and eager
+# here, after one warm call each
+EX_ITERS = 10
+# host calls of each op and of its CUDA implementation, in turns
+EX_DISPATCH_CALLS, EX_DISPATCH_ROUNDS = 200, 5
+# the serving process: for each job (bundle, inputs, outputs) load the
+# bundle (the process imports torch and the loader only), run each batch
+# once with the launch counts read around it, then time EX_ITERS calls on
+# CUDA events
+EX_SERVE = r'''
+import json, statistics, sys, time
+import torch
+from mmdet3d_gaussian_tpu_torch.engine.export import load_exported
+from mmdet3d_gaussian_tpu_torch.ops import _cuda
+iters, reports = int(sys.argv[1]), []
+for bundle, inputs, out in json.loads(sys.argv[2]):
+    t0 = time.perf_counter()
+    served = load_exported(bundle)
+    load_s = time.perf_counter() - t0
+    batches = torch.load(inputs, weights_only=True)
+    outs, launches = [], []
+    for b in batches:
+        _cuda.reset_launches()
+        o = served(b)
+        torch.cuda.synchronize()
+        launches.append({k: v for k, v in _cuda.LAUNCHES.items() if v})
+        outs.append([t.cpu() for t in o])
+    times = []
+    for i in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        served(batches[i % len(batches)])
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    torch.save(outs, out)
+    reports.append(dict(load_s=load_s, launches=launches,
+                        median_ms=statistics.median(times)))
+print(json.dumps(dict(reports=reports, modules=sorted(
+    m for m in sys.modules if m.split('.')[0] in (
+        'jax', 'jaxlib', 'mmdet3d_gaussian_tpu', 'mmdet3d_gaussian_tpu_torch')
+    and not m.startswith('mmdet3d_gaussian_tpu_torch.ops')))))
+'''
+# what the serving process may import of the port besides its ops
+EX_SERVE_MODULES = ['mmdet3d_gaussian_tpu_torch',
+                    'mmdet3d_gaussian_tpu_torch.engine',
+                    'mmdet3d_gaussian_tpu_torch.engine.export']
+
+
+def ex_cases(repo):
+    """(name, detector, two batches, launches per predict) of the three
+    exported predicts: the KITTI flagship (hard, packed encoder, f32), KITTI
+    dynamic bf16 on the s2d canvas, CenterPoint nuScenes (gwd5) f32; zero
+    cls / heatmap biases so that NMS has work."""
+    from mmdet3d_gaussian_tpu_torch.engine.detector import (
+        PointPillarsDetector, synthetic_batch)
+    kitti = [synthetic_batch(BATCH, POINTS, 16, seed=s, device=EX_DEVICE)
+             for s in EX_SEEDS]
+    hard = PointPillarsDetector(None, device=EX_DEVICE, seed=0)
+    dyn16 = PointPillarsDetector(BF16_MODEL, device=EX_DEVICE, seed=0)
+    check(hard.trunk.voxelize_mode == 'hard' and dyn16.trunk.s2d,
+          '(ex) detectors')
+    for det in (hard, dyn16):
+        with torch.no_grad():
+            det.trunk.bbox_head.conv_cls.bias.zero_()
+    cp = cp_detector(*cp_configs(repo)[0])
+    return [('kitti hard f32', hard, kitti, HARD_PREDICT_LAUNCHES),
+            ('kitti dynamic bf16 s2d', dyn16, kitti, PREDICT_S2D_LAUNCHES),
+            ('centerpoint f32', cp, cp_batches(EX_SEEDS),
+             CP_PREDICT_LAUNCHES)]
+
+
+def ex_launches(run):
+    """Launches of one ``run()`` (the nonzero counts)."""
+    from mmdet3d_gaussian_tpu_torch.ops import _cuda
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _cuda.LAUNCHES.items() if v}
+
+
+def ex_event_ms(run):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def ex_compare(got, want, what):
+    """Integers equal, floats within EX_TOL -> (max abs diff, bitwise)."""
+    worst, bitwise = 0.0, True
+    for a, b, name in zip(got, want, ('boxes', 'scores', 'labels', 'valid')):
+        a, b = a.cpu(), b.cpu()
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f'{what} {name}: {a.dtype}{tuple(a.shape)} against '
+              f'{b.dtype}{tuple(b.shape)}')
+        bitwise &= torch.equal(a, b)
+        if a.is_floating_point():
+            err = float((a - b).abs().max()) if a.numel() else 0.0
+            check(err <= EX_TOL, f'{what} {name} off by {err:.3g}')
+            worst = max(worst, err)
+        else:
+            check(torch.equal(a, b), f'{what} {name} differ')
+    return worst, bitwise
+
+
+def ex_export(name, det, batches, per_request, tmp):
+    """The eager predict's outputs and launches on ``batches``, then the
+    export on the first -> dict of them, the bundle and its inputs."""
+    from mmdet3d_gaussian_tpu_torch.engine.export import export_predict
+    eager, eager_launches = [], []
+    for b in batches:
+        out, runs = ex_launches(lambda b=b: det.predict(b))
+        eager.append(out)
+        eager_launches.append(runs)
+    want = {k: v for k, v in per_request.items() if v}
+    check(all(r == want for r in eager_launches),
+          f'(ex) {name}: eager launches {eager_launches}, want {want}')
+    stem = os.path.join(tmp, name.replace(' ', '_'))
+    t0 = time.perf_counter()
+    export_predict(det, batches[0], stem)
+    export_s = time.perf_counter() - t0
+    with open(os.path.join(stem, 'meta.json')) as f:
+        ops = json.load(f)['ops']
+    check(sorted(op.split('::')[1] for op in ops) == sorted(want),
+          f'(ex) {name}: the program calls {ops}, want the ops of {want}')
+    torch.save(batches, stem + '_inputs.pt')
+    return dict(name=name, det=det, batches=batches, eager=eager,
+                eager_launches=eager_launches, export_s=export_s, ops=ops,
+                job=[stem, stem + '_inputs.pt', stem + '_served.pt'])
+
+
+def ex_serve(runs, repo):
+    """Every bundle of ``runs`` served by one fresh python process ->
+    its report for each."""
+    r = subprocess.run([sys.executable, '-c', EX_SERVE, str(EX_ITERS),
+                        json.dumps([run['job'] for run in runs])],
+                       capture_output=True, text=True, cwd=repo,
+                       timeout=900, env=dict(os.environ, PYTHONPATH=repo))
+    check(r.returncode == 0, f'(ex) serving process failed:\n'
+          f'{r.stderr[-3000:]}')
+    served = json.loads(r.stdout.strip().splitlines()[-1])
+    check(served['modules'] == EX_SERVE_MODULES,
+          f'(ex) the serving process imported {served["modules"]}')
+    return served['reports']
+
+
+def ex_check(run, served, card):
+    """One export's fresh-process report against the eager predict: the
+    outputs and launches of both batches, and the eager median over the
+    same calls as the fresh process timed."""
+    name, det, batches = run['name'], run['det'], run['batches']
+    eager, eager_launches = run['eager'], run['eager_launches']
+    check(served['launches'] == eager_launches,
+          f'(ex) {name}: exported launches {served["launches"]} per call, '
+          f'eager {eager_launches}')
+    fresh = torch.load(run['job'][2], weights_only=True)
+    errs = [ex_compare(f, e, f'(ex) {name} fresh process batch {i}')
+            for i, (f, e) in enumerate(zip(fresh, eager))]
+    t_eager = [ex_event_ms(lambda: det.predict(batches[i % len(batches)]))
+               for i in range(EX_ITERS)]
+    worst = max(e for e, _ in errs)
+    bitwise = all(bw for _, bw in errs)
+    res = dict(export_s=run['export_s'], load_s=served['load_s'],
+               exported_median_ms=served['median_ms'],
+               eager_median_ms=statistics.median(t_eager),
+               launches_per_call=eager_launches[0], max_abs_err=worst,
+               bitwise=bitwise, ops=run['ops'])
+    print(f'(ex) {name}: export {run["export_s"]:.2f} s, load in a fresh '
+          f'process {served["load_s"]:.2f} s; 2 batches equal to the eager '
+          f'predict (max abs err {worst:.3g}, bitwise {bitwise}); launches '
+          f'per call {eager_launches[0]} exported = eager; median ms on '
+          f'CUDA events over {EX_ITERS} calls: exported (fresh process) '
+          f'{served["median_ms"]:.3f}, eager (here) '
+          f'{res["eager_median_ms"]:.3f} [{card}]')
+    return res
+
+
+def ex_dispatch(det, batch, card):
+    """Host us per call of each registered op against its CUDA
+    implementation called directly (the same function, without the
+    dispatcher), on the inputs a predict hands it, in turns; the host's
+    enqueue time of ``EX_DISPATCH_CALLS`` back-to-back calls, the card's
+    work left out."""
+    from mmdet3d_gaussian_tpu_torch.ops import (library, nms, rotated_iou,
+                                                segment, voxelize)
+    direct = {'segment_reduce': segment._segment_reduce_cuda,
+              'segment_reduce_mapback': segment._segment_mapback_cuda,
+              'bev_splat': voxelize._bev_splat_cuda,
+              'bev_splat_pairs': voxelize._bev_splat_pairs_cuda,
+              'rotated_iou': rotated_iou._rotated_iou_cuda,
+              'nms_sweep': nms._nms_sweep_cuda}
+    with torch.inference_mode():
+        calls = record_calls(lambda: det.predict(batch), predict_patches())
+    out = {}
+    for name, seen in calls.items():
+        op = library.op(name)
+        args = seen[0]
+        if name == 'nms_sweep':
+            args = (args[0], args[1], float(args[2]))
+        fns = {'op': lambda: op(*args), 'direct': lambda: direct[name](*args)}
+        us = {k: [] for k in fns}
+        for _ in range(EX_DISPATCH_ROUNDS):
+            for k, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(EX_DISPATCH_CALLS):
+                    fn()
+                # the host's time alone: the launches queue behind the
+                # card without waiting for it
+                us[k].append((time.perf_counter() - t0) * 1e6
+                             / EX_DISPATCH_CALLS)
+                torch.cuda.synchronize()
+        med = {k: statistics.median(v) for k, v in us.items()}
+        out[name] = dict(op_us=med['op'], direct_us=med['direct'],
+                         dispatch_us=med['op'] - med['direct'])
+        print(f'(ex) dispatch {name}: {med["op"]:.2f} us a call through the '
+              f'op, {med["direct"]:.2f} us calling its CUDA implementation '
+              f'directly: {med["op"] - med["direct"]:.2f} us of dispatch '
+              f'(host clock, {EX_DISPATCH_CALLS} calls x '
+              f'{EX_DISPATCH_ROUNDS} rounds in turns) [{card}]')
+    return out
+
+
+def ex_trace(det, batch, tmp, card, calls=3):
+    """One profiling.trace of ``calls`` predicts, summarized."""
+    from mmdet3d_gaussian_tpu_torch.engine import profiling
+    from mmdet3d_gaussian_tpu_torch.tools.misc import summarize_trace
+    log_dir = os.path.join(tmp, 'trace')
+    with profiling.trace(log_dir):
+        for _ in range(calls):
+            det.predict(batch)
+    summary = summarize_trace.summarize(
+        os.path.join(log_dir, profiling.TRACE_FILE), steps=calls)
+    print('(ex) profiling.trace of the flagship predict, summarized:\n'
+          + summarize_trace.report(summary, top=12) + f'\n[{card}]')
+    return dict(device=summary['device'], total_ms=summary['total_ms'],
+                by_family=summary['by_family'])
+
+
+def export_phase(repo, card):
+    """Phase (ex) -> {case: numbers}."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(repo, 'build')) as tmp:
+        cases = ex_cases(repo)
+        runs = [ex_export(name, det, batches, per, tmp)
+                for name, det, batches, per in cases]
+        for run, served in zip(runs, ex_serve(runs, repo)):
+            out[run['name']] = ex_check(run, served, card)
+        del runs
+        hard, dyn16 = cases[0][1], cases[1][1]
+        out['dispatch'] = ex_dispatch(dyn16, cases[1][2][0], card)
+        out['dispatch'].update({k: v for k, v in ex_dispatch(
+            hard, cases[0][2][0], card).items() if k == 'bev_splat'})
+        out['trace'] = ex_trace(hard, cases[0][2][0], tmp, card)
+        check(out['trace']['device'] or EX_DEVICE != 'cuda',
+              '(ex) the trace holds no device event')
+        del cases
+    out['phase_s'] = time.perf_counter() - t0
+    print(f'(ex) phase wall {out["phase_s"]:.1f} s [{card}]')
+    return out
+
+
 def union_us(intervals):
     """Length of the union of (start, end) intervals."""
     total, cur_start, cur_end = 0.0, None, None
@@ -6948,6 +7184,11 @@ def main() -> int:
         _, ps_launches, ps_e2e = ps_phase(root, card)
         print(f'(e) sharded launches {json.dumps(ps_launches)} [{card}]')
         print(f'(e) sharded summary {json.dumps(ps_e2e)} [{card}]')
+        return 0
+    if sys.argv[1:] == ['--only', 'export']:
+        # the serving export phase (ex) alone (no result line)
+        print(f'(e) export summary {json.dumps(export_phase(root, card))} '
+              f'[{card}]')
         return 0
     if sys.argv[1:] == ['--only', 'waymo']:
         # the Waymo and data-parallel phases alone (no result line)
@@ -7088,6 +7329,8 @@ def main() -> int:
     ps_k, ps_launches, ps_e2e = ps_phase(root, card)          # (ps)
     torch.cuda.empty_cache()
     loop_k, loop_launches, loop_e2e = loop_phase(root, card)   # (L)
+    torch.cuda.empty_cache()
+    ex_e2e = export_phase(root, card)                          # (ex)
 
     kernels = []                                       # (e)
     n_pred = len(SEEDS) * ROUNDS
@@ -7211,6 +7454,7 @@ def main() -> int:
     print(f'(e) waymo summary {json.dumps(w_e2e)} [{card}]')
     print(f'(e) dp summary {json.dumps(dp)} [{card}]')
     print(f'(e) sharded summary {json.dumps(ps_e2e)} [{card}]')
+    print(f'(e) export summary {json.dumps(ex_e2e)} [{card}]')
     print(f'(e) profiler misses (timed on CUDA events instead): '
           f'{len(PROFILER_MISSES)}')
     print(json.dumps({'kernels': kernels}))

@@ -1,8 +1,9 @@
 """Anchor generator (numpy, built once per detector).
 
-Port of ``mmdet3d_gaussian_tpu/core/anchor.py::Anchor3DRangeGenerator``
-(mmdet3d's ``Anchor3DRangeGenerator``): anchor centres on an inclusive
-linspace over each class range, crossed with the rotations.
+Port of ``mmdet3d_gaussian_tpu/core/anchor.py``:
+:class:`Anchor3DRangeGenerator` (mmdet3d's: anchor centres on an inclusive
+linspace over each class range, crossed with the rotations) and the
+anchor-free :class:`Point3DRangeGenerator`.
 """
 from __future__ import annotations
 
@@ -85,3 +86,27 @@ class Anchor3DRangeGenerator:
         if self.reshape_out:
             out = out.reshape(-1, out.shape[-1])
         return np.ascontiguousarray(out)
+
+
+@ANCHOR_GENERATORS.register_module()
+class Point3DRangeGenerator:
+    """Per-level BEV grids of (cx, cy, stride) priors for anchor-free heads
+    (reference ``point_3d_generator.py:5-47``), f32 numpy ``(H, W, 3)`` a
+    level."""
+
+    def __init__(self, point_cloud_range: Sequence[float],
+                 strides: Sequence[int]):
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.strides = tuple(strides)
+
+    def grid_priors(self, featmap_sizes, base_voxel_size: float):
+        x0, y0 = self.point_cloud_range[0], self.point_cloud_range[1]
+        out = []
+        for (h, w), s in zip(featmap_sizes, self.strides):
+            step = base_voxel_size * s
+            xs = x0 + (np.arange(w, dtype=np.float32) + 0.5) * step
+            ys = y0 + (np.arange(h, dtype=np.float32) + 0.5) * step
+            xg, yg = np.meshgrid(xs, ys)
+            stride = np.full_like(xg, step)
+            out.append(np.stack([xg, yg, stride], axis=-1))
+        return out

@@ -3,8 +3,10 @@
 Port of ``mmdet3d_gaussian_tpu/core/bbox/assigners.py``:
 :func:`bbox_overlaps_nearest_3d`, :class:`MaxIoUAssigner` and
 :func:`assign_per_class_vectorized`, with a leading batch dimension written
-out (the JAX package vmaps one sample at a time).  Codes follow mmdet: per
-anchor ``assigned_gt`` is -1 ignore, 0 negative, g+1 matched to gt g.
+out (the JAX package vmaps one sample at a time), and the anchor-free
+:class:`SimOTABEVAssigner` (one sample, as in JAX; no head calls it).
+Codes follow mmdet: per anchor ``assigned_gt`` is -1 ignore, 0 negative,
+g+1 matched to gt g.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from .structures import iou_aligned_2d, nearest_bev
+from .structures import iou_aligned_2d, nearest_bev, points_in_boxes_bev
 
 
 class AssignResult(NamedTuple):
@@ -123,3 +125,95 @@ def assign_per_class_vectorized(anchors_cls, gt_bboxes, gt_labels, gt_valid,
                                min_thr)
     return AssignResult(assigned_gt=assigned, max_overlaps=max_ov,
                         labels=_labels(assigned, gt_labels))
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` along the last dim: descending, ties to the lower
+    index."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class SimOTABEVAssigner:
+    """SimOTA in BEV (reference ``sim_ota_3d_assigner.py:10-211``), static
+    shapes, as the JAX package's:
+
+    * a prior is a candidate if its centre is inside any gt box
+      (z-extruded) or within ``center_radius`` (metres, max-norm) of any
+      gt centre; candidates may match any gt;
+    * cost per (gt, candidate) = ``cls_weight * BCE(sqrt(score), onehot)
+      + iou_weight * (-log(iou + eps))``, clamped to at most
+      ``match_init`` where the prior is inside that gt's box and centre
+      window;
+    * dynamic k = ``clamp(int(sum(top-10 ious)), min=1)`` per gt, the k
+      lowest-cost candidates matched, a prior matched to several gts kept
+      by its least cost.
+    """
+
+    EPS = 1e-8
+
+    def __init__(self, center_radius: float = 0.5, candidate_topk: int = 10,
+                 iou_weight: float = 3.0, cls_weight: float = 1.0,
+                 match_init: float = 2.0, use_box_gate: bool = True):
+        self.center_radius = center_radius
+        self.candidate_topk = candidate_topk
+        self.iou_weight = iou_weight
+        self.cls_weight = cls_weight
+        self.match_init = match_init
+        self.use_box_gate = use_box_gate
+
+    def assign(self, priors, cls_scores, ious, gt_bboxes, gt_labels,
+               gt_valid) -> AssignResult:
+        """priors (A, >=2) (cx, cy, ...), only the BEV centre used;
+        cls_scores (A, C) sigmoid probabilities; ious (G, A) 3D IoU of the
+        gts and the decoded predictions; gt (G, ...) padded, gt_valid (G,)
+        bool."""
+        num_gt, num_priors = ious.shape
+        dev = ious.device
+        centers = priors[:, 0:2]
+        if self.use_box_gate:
+            in_box = points_in_boxes_bev(centers, gt_bboxes).T      # (G, A)
+        else:
+            in_box = torch.zeros((num_gt, num_priors), dtype=torch.bool,
+                                 device=dev)
+        in_box = in_box & gt_valid[:, None]
+        d = (centers[None, :, :] - gt_bboxes[:, None, 0:2]).abs()
+        in_center = (d.amax(-1) < self.center_radius) & gt_valid[:, None]
+        valid = in_box.any(0) | in_center.any(0)                    # (A,)
+        gate = valid[None, :] & gt_valid[:, None]
+        strong = in_box & in_center
+
+        onehot = torch.nn.functional.one_hot(
+            gt_labels.long(), cls_scores.shape[-1]).to(cls_scores.dtype)
+        p = torch.sqrt(cls_scores.clamp(1e-7, 1 - 1e-7))            # (A, C)
+        bce = -(onehot[:, None, :] * torch.log(p)[None]
+                + (1 - onehot[:, None, :]) * torch.log(1 - p)[None])
+        cls_cost = bce.sum(-1)                                      # (G, A)
+        iou_cost = -torch.log(ious + self.EPS)
+        cost = self.cls_weight * cls_cost + self.iou_weight * iou_cost
+        cost = torch.where(strong, cost.clamp(max=self.match_init), cost)
+        cost = torch.where(gate, cost, 1e18)
+
+        k = min(self.candidate_topk, num_priors)
+        top_ious = _top_k(torch.where(gate, ious, 0.0), k)[0]       # (G, k)
+        dynamic_k = top_ious.sum(-1).to(torch.int32).clamp(min=1)   # (G,)
+        neg_cost, idx = _top_k(-cost, k)                            # (G, k)
+        rank_ok = torch.arange(k, device=dev)[None, :] < dynamic_k[:, None]
+        valid_pick = rank_ok & (-neg_cost < 1e17) & gt_valid[:, None]
+        matching = torch.zeros((num_gt, num_priors), dtype=torch.bool,
+                               device=dev).scatter_(1, idx, valid_pick)
+
+        multi = matching.sum(0) > 1
+        best_gt = torch.where(matching, cost, 1e18).argmin(0)
+        keep = torch.arange(num_gt, device=dev)[:, None] == best_gt[None, :]
+        matching = torch.where(multi[None, :], matching & keep, matching)
+
+        fg = matching.any(0)
+        matched_gt = matching.to(torch.int32).argmax(0)
+        assigned = torch.where(fg, matched_gt + 1, 0).to(torch.int32)
+        labels = torch.where(fg, gt_labels[matched_gt].to(torch.int32), -1)
+        # unmatched priors carry the reference's -INF sentinel (:116-118)
+        max_iou = torch.where(
+            fg, torch.where(matching, ious, 0.0).amax(0), -float(1e8))
+        return AssignResult(assigned_gt=assigned, max_overlaps=max_iou,
+                            labels=labels.to(torch.int32))

@@ -5,7 +5,7 @@ Port of ``mmdet3d_gaussian_tpu/core/bbox/coders.py``:
 BEV diagonal, z by its height with z at the box centre, log dims, raw yaw
 delta), ``add_sin_difference``, ``get_direction_target``, and the
 CenterPoint cell coders ``CenterPointBBoxCoder`` / ``CenterPointBBoxYawCoder``
-with ``snap_yaw_to_direction``.
+with ``snap_yaw_to_direction``, and the anchor-free ``PointBBoxYawCoder``.
 """
 from __future__ import annotations
 
@@ -95,6 +95,39 @@ def snap_yaw_to_direction(yaw, dir_sin, dir_cos, dims):
     w = torch.where(odd, dims[..., 1], dims[..., 0])
     l = torch.where(odd, dims[..., 0], dims[..., 1])  # noqa: E741
     return yaw, torch.stack([w, l, dims[..., 2]], dim=-1)
+
+
+@BBOX_CODERS.register_module()
+class PointBBoxYawCoder:
+    """Anchor-free point-prior coder (reference
+    ``point_bbox_yaw_coders.py``): xy = pred * stride + prior centre, BEV
+    dims scaled by stride (height not scaled), z passed through raw, yaw
+    snapped against the sin/cos direction branch."""
+
+    def __init__(self, code_size: int = 9):
+        self.code_size = code_size
+
+    def encode(self, target_boxes: torch.Tensor) -> torch.Tensor:
+        """(..., 7+) -> (..., 9+): box7 + (sin yaw, cos yaw) + extras."""
+        yaw = target_boxes[..., 6]
+        return torch.cat([target_boxes[..., :7], torch.sin(yaw)[..., None],
+                          torch.cos(yaw)[..., None], target_boxes[..., 7:]],
+                         dim=-1)
+
+    def decode(self, priors: torch.Tensor, pred: torch.Tensor,
+               correct_yaw: bool = True) -> torch.Tensor:
+        """priors (..., 3) = (cx, cy, stride); pred (..., code_size)."""
+        stride = priors[..., 2:3]
+        xy = pred[..., 0:2] * stride + priors[..., 0:2]
+        z = pred[..., 2]
+        dims = torch.exp(pred[..., 3:6])
+        dims = torch.cat([dims[..., :2] * stride, dims[..., 2:]], dim=-1)
+        yaw = pred[..., 6]
+        if correct_yaw:
+            yaw, dims = snap_yaw_to_direction(yaw, pred[..., 7],
+                                              pred[..., 8], dims)
+        return torch.cat([xy, z[..., None], dims, yaw[..., None],
+                          pred[..., 9:]], dim=-1)
 
 
 @BBOX_CODERS.register_module()

@@ -1,11 +1,11 @@
 """Dataset wrappers ``RepeatDataset`` and ``CBGSDataset``,
-``WaymoDataset`` and ``NuScenesDataset``.
+``WaymoDataset``, ``CowaDataset`` and ``NuScenesDataset``.
 
-The part of ``mmdet3d_gaussian_tpu/datasets/other_datasets.py`` that the
-KITTI configs (their train split is a ``RepeatDataset``, times=2), the
-Waymo configs (``WaymoDataset``) and the nuScenes configs
-(``NuScenesDataset`` under ``CBGSDataset``) need; the Cowa dataset comes
-with its model family.
+Port of ``mmdet3d_gaussian_tpu/datasets/other_datasets.py``: the KITTI
+configs' train split is a ``RepeatDataset`` (times=2), the Waymo configs
+read ``WaymoDataset``, the nuScenes configs ``NuScenesDataset`` under
+``CBGSDataset``; ``CowaDataset`` is the 8-class KITTI-format family with
+its range-breakdown report.
 """
 from __future__ import annotations
 
@@ -126,6 +126,47 @@ class WaymoDataset(KittiDataset):
                 ('mAP_L_0.7', lambda k: (k['breakdown'] == 'All'
                                          and k['match_threshold'] == 0.7)),
                 ('mAP', lambda k: k['breakdown'] == 'All'),
+            ])
+
+
+@DATASETS.register_module()
+class CowaDataset(KittiDataset):
+    """8-class in-house KITTI-format dataset (reference
+    ``cowa_dataset.py:10-235``): GT boxes outside
+    ``eval_point_cloud_range`` (x, y) are ignored in evaluation, and the
+    report is the flexible IoU3D mAP at 0.7 / 0.5 / 0.3 with a range
+    breakdown (``mAP``, ``mAP_near`` for 0-30 m)."""
+    CLASSES = ('car', 'truck', 'bus', 'engineering_vehicle', 'pedestrian',
+               'bicycle', 'tricycle', 'cone')
+
+    def __init__(self, *args, eval_point_cloud_range=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.eval_point_cloud_range = eval_point_cloud_range
+
+    def get_ann_info(self, idx):
+        ann = super().get_ann_info(idx)
+        # GTs outside the eval range become ignore (reference :176-180)
+        if self.eval_point_cloud_range is not None and len(
+                ann['gt_bboxes']):
+            pcr = np.asarray(self.eval_point_cloud_range)
+            xy = ann['gt_bboxes'][:, :2]
+            inside = ((xy[:, 0] >= pcr[0]) & (xy[:, 0] < pcr[3])
+                      & (xy[:, 1] >= pcr[1]) & (xy[:, 1] < pcr[4]))
+            ann['gt_attrs']['ignore'] = ~inside
+        return ann
+
+    def evaluate(self, results, metric='cowa', logger=None, **kwargs):
+        annotations = [self.get_ann_info(i) for i in range(len(self))]
+        return eval_map_flexible(
+            results, annotations, match_thrs=[0.7, 0.5, 0.3],
+            affinity_calculator=dict(type='LidarIOU3D', z_offset=0.5),
+            classes=list(self.CLASSES), logger=logger,
+            breakdowns=[dict(type='RangeBreakdown',
+                             ranges=dict(D0_30=(0, 30), D30_50=(30, 50),
+                                         D50_inf=(50, 1e5)))],
+            report_config=[
+                ('mAP', lambda k: k['breakdown'] == 'All'),
+                ('mAP_near', lambda k: k['breakdown'] == 'D0_30'),
             ])
 
 

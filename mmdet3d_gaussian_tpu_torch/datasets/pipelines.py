@@ -423,8 +423,35 @@ class ObjectNoise:
                 & (points[:, 2] >= box[2]) & (points[:, 2] <= box[2]
                                               + box[5]))
 
-    def __call__(self, results):
+    @staticmethod
+    def _first_clear(cand, others):
+        """Index of the first candidate whose BEV rectangle overlaps none
+        of ``others`` (intersection area under 1e-9), or None.  The
+        candidates go in chunks, and only the other boxes whose
+        circumcircle meets a chunk's candidate's are clipped against it:
+        the rest have an area of exactly 0.  The answer is the one that
+        clipping all candidates against all boxes gives."""
         from ..core.evaluation.geometry_np import rotated_intersection_area
+        reach = np.hypot(cand[0, 3], cand[0, 4]) / 2 + np.hypot(
+            others[:, 3], others[:, 4]) / 2
+        for lo in range(0, len(cand), 8):
+            part = cand[lo:lo + 8]
+            gap = np.hypot(part[:, None, 0] - others[None, :, 0],
+                           part[:, None, 1] - others[None, :, 1])
+            near = others[(gap <= reach[None] * (1 + 1e-6) + 1e-6).any(0)]
+            ok = np.ones(len(part), bool)
+            if len(near):
+                bev = np.c_[part[:, 0:2], part[:, 3:5], part[:, 6:7]]
+                obev = np.c_[near[:, 0:2], near[:, 3:5], near[:, 6:7]]
+                inter = rotated_intersection_area(
+                    bev.astype(np.float64), obev.astype(np.float64))
+                ok = (inter < 1e-9).all(axis=1)
+            hits = np.flatnonzero(ok)
+            if len(hits):
+                return lo + int(hits[0])
+        return None
+
+    def __call__(self, results):
         boxes = results['gt_bboxes']
         points = results['points']
         g = len(boxes)
@@ -439,18 +466,9 @@ class ObjectNoise:
             cand = np.tile(boxes[i][None], (self.num_try, 1))
             cand[:, 0:3] += trans[i]
             cand[:, 6] += angles[i]
-            if len(others):
-                bev = np.c_[cand[:, 0:2], cand[:, 3:5], cand[:, 6:7]]
-                obev = np.c_[others[:, 0:2], others[:, 3:5], others[:, 6:7]]
-                inter = rotated_intersection_area(
-                    bev.astype(np.float64), obev.astype(np.float64))
-                ok = (inter < 1e-9).all(axis=1)
-            else:
-                ok = np.ones(self.num_try, bool)
-            hits = np.flatnonzero(ok)
-            if len(hits) == 0:
+            k = self._first_clear(cand, others)
+            if k is None:
                 continue                       # keep the original pose
-            k = hits[0]
             mask = self._in_box(points, boxes[i])
             ctr = boxes[i][0:3].copy()
             a = angles[i, k]

@@ -145,14 +145,17 @@ class _Detector:
         if group is not None:
             replicate(self.trunk, group)
 
+    def _inputs(self, batch: Dict[str, torch.Tensor]):
+        """The trunk's arguments from a batch, on the detector's device."""
+        return [batch[k].to(self.device) for k in ('points', 'points_mask')]
+
     def apply_train(self, batch: Dict[str, torch.Tensor]):
         """-> the trunk's NHWC head outputs, differentiable in its
         parameters.  The trunk runs in training mode: its BatchNorms use
         batch statistics and update their running statistics in place (the
         JAX package returns them as new ``batch_stats``)."""
         self.trunk.train()
-        return self.trunk(batch['points'].to(self.device),
-                          batch['points_mask'].to(self.device))
+        return self.trunk(*self._inputs(batch))
 
     def init_train(self, base_lr: float = 1e-3, total_steps: int = 1000,
                    optimizer: Optional[AdamW] = None, group=None,
@@ -184,8 +187,7 @@ class _Detector:
     def apply_eval(self, batch: Dict[str, torch.Tensor]):
         """-> the trunk's NHWC head outputs in eval mode."""
         self.trunk.eval()
-        return self.trunk(batch['points'].to(self.device),
-                          batch['points_mask'].to(self.device))
+        return self.trunk(*self._inputs(batch))
 
 
 class PointPillarsDetector(_Detector):
@@ -237,12 +239,21 @@ class PointPillarsDetector(_Detector):
                                 packed=packed, group=self.group)
         return sum(losses.values()), losses
 
+    def serve(self, batch: Dict[str, torch.Tensor], anchors=None):
+        """:meth:`predict`'s body with the trunk in whatever mode it is and
+        autograd as the caller has it, on ``anchors`` (default the
+        detector's): what ``engine/export.py`` exports."""
+        cls, bbox, dirp = self.trunk(*self._inputs(batch))[:3]
+        return self.head.get_bboxes(cls, bbox, dirp,
+                                    self.anchors if anchors is None
+                                    else anchors)
+
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]):
         """-> (boxes (B, max_num, 7), scores (B, max_num), labels
         (B, max_num) int32, valid (B, max_num) bool)."""
-        cls, bbox, dirp = self.apply_eval(batch)[:3]
-        return self.head.get_bboxes(cls, bbox, dirp, self.anchors)
+        self.trunk.eval()
+        return self.serve(batch)
 
 
 class ShardedPointPillarsDetector(PointPillarsDetector):
@@ -416,11 +427,16 @@ class CenterPointDetector(_Detector):
         losses = self.head.loss(preds, targets, group=self.group)
         return sum(losses.values()), losses
 
+    def serve(self, batch: Dict[str, torch.Tensor], anchors=None):
+        """:meth:`predict`'s body (the center head has no anchors)."""
+        return self.head.get_bboxes(self.trunk(*self._inputs(batch)))
+
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]):
         """-> (boxes (B, M, 7+), scores (B, M), labels (B, M) int32, valid
         (B, M) bool), M = min(post_max_size, tasks x max_per_img)."""
-        return self.head.get_bboxes(self.apply_eval(batch))
+        self.trunk.eval()
+        return self.serve(batch)
 
 
 def synthetic_batch(batch_size: int = 2, num_points: int = 8192,

@@ -317,15 +317,22 @@ def detections_to_per_class(boxes, scores, labels, valid,
     return out
 
 
-def predict_split(det, cfg, split: str = 'val'):
+def predict_split(det, cfg, split: str = 'val', on_batch=None):
     """Predict over a split in order -> (dataset, per frame per-class
-    detections cut to ``len(dataset)``)."""
+    detections cut to ``len(dataset)``).  ``on_batch(batch, outputs,
+    first, count)``, if given, sees each collated numpy batch, its
+    predict's outputs as numpy arrays, the index of its first frame and
+    how many of its frames are the dataset's (the rest pad the last
+    batch)."""
     ds, make_iter = build_dataloader(cfg, split)
     num_classes = detector_num_classes(det)
     results = []
     for batch in make_iter(0):
         out = det.predict(to_device(batch, det.device))
         boxes, scores, labels, valid = (t.cpu().numpy() for t in out)
+        if on_batch is not None:
+            on_batch(batch, (boxes, scores, labels, valid), len(results),
+                     min(boxes.shape[0], len(ds) - len(results)))
         for i in range(boxes.shape[0]):
             results.append(detections_to_per_class(
                 boxes[i], scores[i], labels[i], valid[i], num_classes))

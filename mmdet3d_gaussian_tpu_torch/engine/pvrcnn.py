@@ -311,13 +311,13 @@ class PVRCNNDetector(_Detector):
         coords = torch.stack([vc[:, 0], vc[:, 3], vc[:, 2], vc[:, 1]], -1)
         return feats, torch.where(vc[:, :1] >= 0, coords, -1)
 
-    def proposals(self, rpn_outs):
+    def proposals(self, rpn_outs, anchors=None):
         """RPN maps -> (boxes (B, R, 7), labels, scores, valid), R =
         ``num_proposals``, class-agnostic (``GDAnchor3DHead.
-        get_proposals``)."""
+        get_proposals``) on ``anchors`` (default the detector's)."""
         cls, bbox, dirp = rpn_outs[:3]
         boxes, scores, labels, valid = self.rpn_head.get_proposals(
-            cls, bbox, dirp, self.anchors,
+            cls, bbox, dirp, self.anchors if anchors is None else anchors,
             max_num=self.cfg['num_proposals'])
         return boxes, labels, scores, valid
 
@@ -411,10 +411,13 @@ class PVRCNNDetector(_Detector):
         """Both stages in eval mode on the proposals -> (second-stage
         outputs, (rois, labels, scores, valid))."""
         self.trunk.eval()
+        return self._eval_outputs(batch)
+
+    def _eval_outputs(self, batch: Dict[str, torch.Tensor], anchors=None):
         b = batch['points'].shape[0]
         feats, coords = self.voxelize(batch)
         levels, bev, _, rpn_outs = self.trunk.first(feats, coords, b)
-        rois = self.proposals(rpn_outs)
+        rois = self.proposals(rpn_outs, anchors)
         out2 = self.trunk.second(levels, bev,
                                  batch['points'].to(self.device),
                                  batch['points_mask'].to(self.device),
@@ -429,7 +432,17 @@ class PVRCNNDetector(_Detector):
         NMS a sample (all in one K5 and one K6 launch) -> (boxes (B, M,
         7), scores (B, M), labels (B, M) int32, valid (B, M)), M =
         min(max_num, num_proposals)."""
-        out2, (rois, labels, _, valid) = self.apply_eval(batch)
+        self.trunk.eval()
+        return self.serve(batch, score_thr=score_thr, nms_thr=nms_thr,
+                          max_num=max_num)
+
+    def serve(self, batch: Dict[str, torch.Tensor], anchors=None,
+              score_thr: float = 0.1, nms_thr: float = 0.1,
+              max_num: int = 64):
+        """:meth:`predict`'s body with the trunk in whatever mode it is
+        and autograd as the caller has it, on ``anchors`` (default the
+        detector's): what ``engine/export.py`` exports."""
+        out2, (rois, labels, _, valid) = self._eval_outputs(batch, anchors)
         refined = decode_roi_boxes(rois, out2['roi_reg'], self.roi_coder)
         score = torch.sigmoid(out2['roi_cls'][..., 0]) * valid.float()
         order = torch.argsort(-torch.where(valid, score, -torch.inf), dim=1,

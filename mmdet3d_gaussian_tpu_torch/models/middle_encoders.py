@@ -17,7 +17,8 @@ Port of ``mmdet3d_gaussian_tpu/models/middle_encoders.py``:
   and a max (or mean) pool; the radii's outputs concatenated.  A support
   table shared by the batch (one flat voxel table, per-sample mask) is
   queried one sample at a time on that sample's rows, which gives the
-  JAX package's indices into the whole table.
+  JAX package's indices into the whole table; under ``torch.export`` every
+  sample queries the whole table under its mask (static shapes).
 * :func:`bilinear_sample_bev` and :class:`VoxelSetAbstraction` — FPS
   keypoints, the BEV sampled at them, set abstraction over the raw points
   and the sparse levels, a fusion linear layer with BatchNorm.
@@ -199,11 +200,34 @@ class GuidedSAModuleMSG(nn.Module):
               query_xyz, support_mask):
         """-> (grouped (B, M, K, C'), idx (B, M, K)).  A shared support
         (N, 3) with a per-sample mask (B, N) is queried a sample at a time
-        on the sample's own rows; idx indexes the whole table."""
+        on the sample's own rows (:meth:`_group_rows`); idx indexes the
+        whole table.  Under ``torch.export``, whose shapes cannot follow a
+        sample's row count, :meth:`_group_static` instead."""
         if support_xyz.dim() == 3:
             return query_and_group(radius, nsample, support_xyz, query_xyz,
                                    support_feats, support_mask,
                                    use_xyz=self.use_xyz)
+        if torch.compiler.is_exporting():
+            return self._group_static(radius, nsample, support_xyz,
+                                      support_feats, query_xyz, support_mask)
+        return self._group_rows(radius, nsample, support_xyz, support_feats,
+                                query_xyz, support_mask)
+
+    def _group_static(self, radius, nsample, support_xyz, support_feats,
+                      query_xyz, support_mask):
+        """Every sample queries the whole shared table under its mask, as
+        the JAX module's vmap does: the same indices and rows as
+        :meth:`_group_rows`, at B times the ball query's work
+        (``pv_group_time.py`` times both forms)."""
+        b = query_xyz.shape[0]
+        return query_and_group(
+            radius, nsample, support_xyz.expand(b, -1, -1), query_xyz,
+            support_feats.expand(b, -1, -1), support_mask,
+            use_xyz=self.use_xyz)
+
+    def _group_rows(self, radius, nsample, support_xyz, support_feats,
+                    query_xyz, support_mask):
+        """Each sample queries its own rows of the shared table."""
         grouped, idx = [], []
         for b, rows in enumerate(_sample_rows(support_mask)):
             if rows.numel() == 0:       # an empty sample: every ball empty

@@ -11,6 +11,10 @@ headers), so a build takes seconds, and is bound with ``ctypes``.
 Every launch goes through :func:`launch`, which raises when the launcher
 reports an error (``cudaGetLastError`` after the launch) and otherwise adds
 one to the kernel's count in :data:`LAUNCHES`.
+
+The predict path's kernels are also registered PyTorch ops under
+:data:`OP_NAMESPACE` (``torch.ops.mmdet3d_torch.*``, see :mod:`.library`),
+so that ``torch.export`` keeps them as calls in the exported program.
 """
 from __future__ import annotations
 
@@ -26,6 +30,9 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
+
+# the namespace of the port's registered ops (ops/library.py)
+OP_NAMESPACE = 'mmdet3d_torch'
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = (Path(__file__).resolve().parents[2] / 'build'
@@ -227,6 +234,27 @@ def query(name: str, device: torch.device, *args) -> None:
     if err:
         msg = lib.kernels_error_string(err).decode()
         raise RuntimeError(f'CUDA query {name} failed: {msg} (error {err})')
+
+
+# the one library of the namespace; every op module defines its ops in it
+LIB = torch.library.Library(OP_NAMESPACE, 'DEF')
+
+
+def register_op(schema: str, cpu, cuda, fake) -> torch._ops.OpOverload:
+    """Define ``OP_NAMESPACE::schema`` (``'name(Tensor x, ...) ->
+    Tensor'``) with ``cpu`` as its CPU kernel (the plain version), ``cuda``
+    as its CUDA kernel (the hand kernel) and ``fake`` for tracing (shapes
+    and types); -> the op's default overload.  The kernels go straight to
+    the dispatcher (``torch.library.Library.impl``): a
+    ``torch.library.custom_op`` runs them under ``torch._disable_dynamo``,
+    whose first call imports ``torch._dynamo``, seconds in every process
+    that calls an op."""
+    name = schema.split('(', 1)[0]
+    LIB.define(schema)
+    LIB.impl(name, cpu, 'CPU')
+    LIB.impl(name, cuda, 'CUDA')
+    torch.library.register_fake(f'{OP_NAMESPACE}::{name}', fake, lib=LIB)
+    return getattr(getattr(torch.ops, OP_NAMESPACE), name).default
 
 
 # element types of the activations the kernels read (f32, or the

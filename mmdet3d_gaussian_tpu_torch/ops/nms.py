@@ -6,7 +6,9 @@ Port of ``mmdet3d_gaussian_tpu/ops/nms.py`` (``nms_bev``,
 kernel ``ops/pallas/nms_kernel.py``.  Candidates arrive sorted by
 descending score; a batch of P independent problems runs as one launch of
 K5 (rotated only) and one of K6 (whose launcher enqueues its pack and its
-sweep kernel).
+sweep kernel).  :func:`suppress_sweep` is the registered op
+``mmdet3d_torch::nms_sweep``: the plain version on the CPU, pack and sweep
+on the card, shapes only under tracing.
 """
 from __future__ import annotations
 
@@ -37,14 +39,7 @@ def suppress_sweep_plain(iou: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
-def suppress_sweep(iou: torch.Tensor, valid: torch.Tensor,
-                   thr: float) -> torch.Tensor:
-    """Greedy score-order suppression of P problems -> keep (P, K) bool.
-
-    iou (P, K, K) f32 contiguous, rows/cols in descending score order;
-    valid (P, K) bool.  keep starts as valid; row i clears every later
-    column with IoU > thr while row i is still kept (invalid rows never
-    suppress)."""
+def _check_sweep(iou, valid):
     _cuda.check_tensor(iou, 'iou', torch.float32, (None, None, None))
     p, k = iou.shape[:2]
     if iou.shape[2] != k:
@@ -52,9 +47,19 @@ def suppress_sweep(iou: torch.Tensor, valid: torch.Tensor,
     _cuda.check_tensor(valid, 'valid', torch.bool, (p, k))
     if k > _MAX_K:
         raise ValueError(f'K={k} exceeds the sweep limit {_MAX_K}')
+
+
+# K6, its pack and its sweep kernel, as one registered op
+def _nms_sweep_cpu(iou, valid, thr):
+    _check_sweep(iou, valid)
+    _cuda.same_device(iou, valid)
+    return suppress_sweep_plain(iou, valid, thr)
+
+
+def _nms_sweep_cuda(iou, valid, thr):
+    _check_sweep(iou, valid)
     dev = _cuda.same_device(iou, valid)
-    if dev.type == 'cpu':
-        return suppress_sweep_plain(iou, valid, thr)
+    p, k = iou.shape[:2]
     keep = torch.empty((p, k), dtype=torch.bool, device=dev)
     if keep.numel():
         words = torch.empty(p * packed_words(k), dtype=torch.int64,
@@ -62,6 +67,27 @@ def suppress_sweep(iou: torch.Tensor, valid: torch.Tensor,
         _cuda.launch('nms_sweep', dev, iou.data_ptr(), valid.data_ptr(),
                      keep.data_ptr(), words.data_ptr(), p, k, float(thr))
     return keep
+
+
+def _nms_sweep_fake(iou, valid, thr):
+    _check_sweep(iou, valid)
+    return valid.new_empty(valid.shape)
+
+
+_NMS_SWEEP = _cuda.register_op(
+    'nms_sweep(Tensor iou, Tensor valid, float thr) -> Tensor',
+    _nms_sweep_cpu, _nms_sweep_cuda, _nms_sweep_fake)
+
+
+def suppress_sweep(iou: torch.Tensor, valid: torch.Tensor,
+                   thr: float) -> torch.Tensor:
+    """Greedy score-order suppression of P problems -> keep (P, K) bool.
+
+    iou (P, K, K) f32 contiguous, rows/cols in descending score order;
+    valid (P, K) bool.  keep starts as valid; row i clears every later
+    column with IoU > thr while row i is still kept (invalid rows never
+    suppress).  Calls the registered op ``mmdet3d_torch::nms_sweep``."""
+    return _NMS_SWEEP(iou, valid, float(thr))
 
 
 def packed_words(k: int) -> int:

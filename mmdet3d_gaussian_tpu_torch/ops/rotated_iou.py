@@ -12,6 +12,10 @@ The kernel skips the polygon for *far* pairs, whose IoU is exactly that of
 an empty intersection (0 for boxes of size >= 0): :func:`near_pairs_plain`
 is its cull predicate, :func:`cull_radius` the radius it gives each box
 (the proof that the cull is exact is in ``csrc/rotated_iou.cu``).
+
+:func:`iou_bev_pairwise` is the registered op ``mmdet3d_torch::
+rotated_iou``: the plain version on the CPU, the kernel on the card, shapes
+only under tracing.
 """
 from __future__ import annotations
 
@@ -168,20 +172,44 @@ def near_pairs_plain(boxes: torch.Tensor) -> torch.Tensor:
     return ~far
 
 
-def iou_bev_pairwise(boxes: torch.Tensor) -> torch.Tensor:
-    """Pairwise rotated BEV IoU within each of P problems.
-
-    boxes (P, K, 5) f32 contiguous (cx, cy, w, h, yaw) -> (P, K, K) f32."""
+def _check_boxes(boxes):
     _cuda.check_tensor(boxes, 'boxes', torch.float32, (None, None, 5))
+
+
+def _rotated_iou_cpu(boxes):
+    _check_boxes(boxes)
+    _cuda.same_device(boxes)
+    return iou_bev_pairwise_plain(boxes)
+
+
+def _rotated_iou_cuda(boxes):
+    _check_boxes(boxes)
     dev = _cuda.same_device(boxes)
-    if dev.type == 'cpu':
-        return iou_bev_pairwise_plain(boxes)
     p, k = boxes.shape[:2]
     out = torch.empty((p, k, k), dtype=torch.float32, device=dev)
     if out.numel():
         _cuda.launch('rotated_iou', dev, boxes.data_ptr(), out.data_ptr(),
                      p, k)
     return out
+
+
+def _rotated_iou_fake(boxes):
+    _check_boxes(boxes)
+    p, k = boxes.shape[:2]
+    return boxes.new_empty((p, k, k))
+
+
+_ROTATED_IOU = _cuda.register_op(
+    'rotated_iou(Tensor boxes) -> Tensor', _rotated_iou_cpu,
+    _rotated_iou_cuda, _rotated_iou_fake)
+
+
+def iou_bev_pairwise(boxes: torch.Tensor) -> torch.Tensor:
+    """Pairwise rotated BEV IoU within each of P problems.
+
+    boxes (P, K, 5) f32 contiguous (cx, cy, w, h, yaw) -> (P, K, K) f32.
+    Calls the registered op ``mmdet3d_torch::rotated_iou``."""
+    return _ROTATED_IOU(boxes)
 
 
 def iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:

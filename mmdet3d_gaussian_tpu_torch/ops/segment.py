@@ -17,7 +17,12 @@ reductions accumulate in f32.
   ``where(mask, gathered gradient, 0)``.
 
 Each wrapper computes its plain PyTorch version for CPU tensors and launches
-the CUDA kernel for CUDA tensors; there is no fallback between the two.  On
+the CUDA kernel for CUDA tensors; there is no fallback between the two.
+The reduce and mapback forms are registered ops (``mmdet3d_torch::
+segment_reduce``, ``::segment_reduce_mapback``: a CPU implementation, the
+plain version; a CUDA one, the kernel; a fake one, shapes only), so an
+exported predict calls them; the winner form, on the train path only, is a
+plain function.  On
 the card the kernel reads 16-byte vectors where :func:`vectorized` says so
 (C a multiple of 4 and ``data`` 16-byte aligned), single floats otherwise.
 """
@@ -108,17 +113,29 @@ def _check_common(data, starts, counts):
     _cuda.check_tensor(counts, 'counts', torch.int32, (starts.shape[0],))
 
 
-def segment_reduce(data: torch.Tensor, starts: torch.Tensor,
-                   counts: torch.Tensor, op: str) -> torch.Tensor:
-    """Per-segment ``op`` ('sum' | 'max') of sorted rows -> ``(V, C)`` f32.
-
-    data (N, C) f32 contiguous; starts, counts (V,) int32 (first sorted row
-    and row count of each segment; empty segments have count 0)."""
+def _check_reduce(data, starts, counts, op):
     is_max = _check_op(op)
     _check_common(data, starts, counts)
+    return is_max
+
+
+def _check_mapback(data, ids, starts, counts, op):
+    is_max = _check_reduce(data, starts, counts, op)
+    _cuda.check_tensor(ids, 'ids', torch.int32, (data.shape[0],))
+    return is_max
+
+
+# K1's reduce and mapback forms as registered ops: the plain version on the
+# CPU, the kernel on the card, shapes only under tracing
+def _segment_reduce_cpu(data, starts, counts, op):
+    _check_reduce(data, starts, counts, op)
+    _cuda.same_device(data, starts, counts)
+    return segment_reduce_plain(data, starts, counts, op)
+
+
+def _segment_reduce_cuda(data, starts, counts, op):
+    is_max = _check_reduce(data, starts, counts, op)
     dev = _cuda.same_device(data, starts, counts)
-    if dev.type == 'cpu':
-        return segment_reduce_plain(data, starts, counts, op)
     v, c = counts.shape[0], data.shape[1]
     out = torch.empty((v, c), dtype=torch.float32, device=dev)
     if out.numel():
@@ -128,20 +145,26 @@ def segment_reduce(data: torch.Tensor, starts: torch.Tensor,
     return out
 
 
-def segment_reduce_mapback(data: torch.Tensor, ids: torch.Tensor,
-                           starts: torch.Tensor, counts: torch.Tensor,
-                           op: str) -> torch.Tensor:
-    """Per-row full-segment ``op`` -> ``(N, C)`` f32; rows with an id
-    outside ``[0, V)`` get 0.
+def _segment_reduce_fake(data, starts, counts, op):
+    _check_reduce(data, starts, counts, op)
+    return data.new_empty((counts.shape[0], data.shape[1]))
 
-    ids (N,) int32 ascending, consistent with starts/counts (row r with
-    id v lies in ``[starts[v], starts[v] + counts[v])``)."""
-    is_max = _check_op(op)
-    _check_common(data, starts, counts)
-    _cuda.check_tensor(ids, 'ids', torch.int32, (data.shape[0],))
+
+_SEGMENT_REDUCE = _cuda.register_op(
+    'segment_reduce(Tensor data, Tensor starts, Tensor counts, str op) '
+    '-> Tensor', _segment_reduce_cpu, _segment_reduce_cuda,
+    _segment_reduce_fake)
+
+
+def _segment_mapback_cpu(data, ids, starts, counts, op):
+    _check_mapback(data, ids, starts, counts, op)
+    _cuda.same_device(data, ids, starts, counts)
+    return segment_reduce_mapback_plain(data, ids, starts, counts, op)
+
+
+def _segment_mapback_cuda(data, ids, starts, counts, op):
+    is_max = _check_mapback(data, ids, starts, counts, op)
     dev = _cuda.same_device(data, ids, starts, counts)
-    if dev.type == 'cpu':
-        return segment_reduce_mapback_plain(data, ids, starts, counts, op)
     n, c = data.shape
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     if out.numel():
@@ -149,6 +172,39 @@ def segment_reduce_mapback(data: torch.Tensor, ids: torch.Tensor,
                      ids.data_ptr(), counts.data_ptr(), out.data_ptr(), n,
                      counts.shape[0], c, is_max, int(vectorized(data)))
     return out
+
+
+def _segment_mapback_fake(data, ids, starts, counts, op):
+    _check_mapback(data, ids, starts, counts, op)
+    return data.new_empty(data.shape)
+
+
+_SEGMENT_MAPBACK = _cuda.register_op(
+    'segment_reduce_mapback(Tensor data, Tensor ids, Tensor starts, '
+    'Tensor counts, str op) -> Tensor', _segment_mapback_cpu,
+    _segment_mapback_cuda, _segment_mapback_fake)
+
+
+def segment_reduce(data: torch.Tensor, starts: torch.Tensor,
+                   counts: torch.Tensor, op: str) -> torch.Tensor:
+    """Per-segment ``op`` ('sum' | 'max') of sorted rows -> ``(V, C)`` f32.
+
+    data (N, C) f32 contiguous; starts, counts (V,) int32 (first sorted row
+    and row count of each segment; empty segments have count 0).  Calls the
+    registered op ``mmdet3d_torch::segment_reduce``."""
+    return _SEGMENT_REDUCE(data, starts, counts, op)
+
+
+def segment_reduce_mapback(data: torch.Tensor, ids: torch.Tensor,
+                           starts: torch.Tensor, counts: torch.Tensor,
+                           op: str) -> torch.Tensor:
+    """Per-row full-segment ``op`` -> ``(N, C)`` f32; rows with an id
+    outside ``[0, V)`` get 0.
+
+    ids (N,) int32 ascending, consistent with starts/counts (row r with
+    id v lies in ``[starts[v], starts[v] + counts[v])``).  Calls the
+    registered op ``mmdet3d_torch::segment_reduce_mapback``."""
+    return _SEGMENT_MAPBACK(data, ids, starts, counts, op)
 
 
 def segment_max_winner(data: torch.Tensor, ids: torch.Tensor,

@@ -11,6 +11,9 @@ voxel-sorted points.  Pillar rows compacted in the canvas's raster order
 with the s2d key for the s2d canvas) have non-decreasing cell ids, so each
 splat is an exact row placement into a zeroed canvas.  Rows and canvas are
 f32, or bf16 in the mixed-precision model; the canvas has the rows' type.
+Both splats are registered ops (``mmdet3d_torch::bev_splat``,
+``::bev_splat_pairs``: the plain version on the CPU, the kernel on the
+card, shapes only under tracing), so an exported predict calls them.
 
 The gradients (``_splat_bwd`` and ``_splat_pairs_bwd`` of the JAX package)
 are fill-gathers of the canvas gradient at each row's cell, rows with an id
@@ -120,23 +123,42 @@ def bev_splat_plain(feats: torch.Tensor, lin: torch.Tensor, ncell: int):
     return canvas[:ncell]
 
 
-def bev_splat(feats: torch.Tensor, lin: torch.Tensor, ncell: int):
-    """Splat sorted unique voxel rows onto a dense ``(ncell, C)`` canvas.
+def _bev_splat_cpu(feats, lin, ncell):
+    _check_rows(feats, lin, ncell)
+    _cuda.same_device(feats, lin)
+    return bev_splat_plain(feats, lin, ncell)
 
-    feats (V, C) f32 or bf16 contiguous; lin (V,) int32 cell ids,
-    ascending, unique below ``ncell``, non-negative; rows with
-    ``lin >= ncell`` are dropped.  Cells without a row are 0; the canvas
-    has feats' type."""
+
+def _bev_splat_cuda(feats, lin, ncell):
     _check_rows(feats, lin, ncell)
     dev = _cuda.same_device(feats, lin)
-    if dev.type == 'cpu':
-        return bev_splat_plain(feats, lin, ncell)
     out = torch.empty((ncell, feats.shape[1]), dtype=feats.dtype, device=dev)
     if out.numel():
         _cuda.launch('bev_splat', dev, feats.data_ptr(), lin.data_ptr(),
                      out.data_ptr(), feats.shape[0], feats.shape[1], ncell,
                      feats.element_size())
     return out
+
+
+def _bev_splat_fake(feats, lin, ncell):
+    _check_rows(feats, lin, ncell)
+    return feats.new_empty((ncell, feats.shape[1]))
+
+
+_BEV_SPLAT = _cuda.register_op(
+    'bev_splat(Tensor feats, Tensor lin, SymInt ncell) -> Tensor',
+    _bev_splat_cpu, _bev_splat_cuda, _bev_splat_fake)
+
+
+def bev_splat(feats: torch.Tensor, lin: torch.Tensor, ncell: int):
+    """Splat sorted unique voxel rows onto a dense ``(ncell, C)`` canvas.
+
+    feats (V, C) f32 or bf16 contiguous; lin (V,) int32 cell ids,
+    ascending, unique below ``ncell``, non-negative; rows with
+    ``lin >= ncell`` are dropped.  Cells without a row are 0; the canvas
+    has feats' type.  Calls the registered op ``mmdet3d_torch::
+    bev_splat``."""
+    return _BEV_SPLAT(feats, lin, ncell)
 
 
 def pair_rows(lin2: torch.Tensor, par: torch.Tensor, ncell2: int):
@@ -156,6 +178,41 @@ def bev_splat_pairs_plain(feats: torch.Tensor, lin2: torch.Tensor,
         ncell2, 2 * feats.shape[1])
 
 
+def _check_pairs(feats, lin2, par, ncell2):
+    _check_rows(feats, lin2, 2 * ncell2)
+    _cuda.check_tensor(par, 'par', torch.int32, (feats.shape[0],))
+
+
+def _bev_splat_pairs_cpu(feats, lin2, par, ncell2):
+    _check_pairs(feats, lin2, par, ncell2)
+    _cuda.same_device(feats, lin2, par)
+    return bev_splat_pairs_plain(feats, lin2, par, ncell2)
+
+
+def _bev_splat_pairs_cuda(feats, lin2, par, ncell2):
+    _check_pairs(feats, lin2, par, ncell2)
+    dev = _cuda.same_device(feats, lin2, par)
+    out = torch.empty((ncell2, 2 * feats.shape[1]), dtype=feats.dtype,
+                      device=dev)
+    if out.numel():
+        _cuda.launch('bev_splat_pairs', dev, feats.data_ptr(),
+                     lin2.data_ptr(), par.data_ptr(), out.data_ptr(),
+                     feats.shape[0], feats.shape[1], ncell2,
+                     feats.element_size())
+    return out
+
+
+def _bev_splat_pairs_fake(feats, lin2, par, ncell2):
+    _check_pairs(feats, lin2, par, ncell2)
+    return feats.new_empty((ncell2, 2 * feats.shape[1]))
+
+
+_BEV_SPLAT_PAIRS = _cuda.register_op(
+    'bev_splat_pairs(Tensor feats, Tensor lin2, Tensor par, SymInt ncell2) '
+    '-> Tensor', _bev_splat_pairs_cpu, _bev_splat_pairs_cuda,
+    _bev_splat_pairs_fake)
+
+
 def bev_splat_pairs(feats: torch.Tensor, lin2: torch.Tensor,
                     par: torch.Tensor, ncell2: int):
     """Splat sorted rows into a ``(ncell2, 2C)`` paired canvas: row i lands
@@ -165,20 +222,9 @@ def bev_splat_pairs(feats: torch.Tensor, lin2: torch.Tensor,
     non-decreasing, non-negative, at most two rows per id below ``ncell2``
     and then of different parities; par (V,) int32 in {0, 1}; rows with
     ``lin2 >= ncell2`` are dropped.  Unfilled halves are 0; the canvas has
-    feats' type."""
-    _check_rows(feats, lin2, 2 * ncell2)
-    _cuda.check_tensor(par, 'par', torch.int32, (feats.shape[0],))
-    dev = _cuda.same_device(feats, lin2, par)
-    if dev.type == 'cpu':
-        return bev_splat_pairs_plain(feats, lin2, par, ncell2)
-    out = torch.empty((ncell2, 2 * feats.shape[1]), dtype=feats.dtype,
-                      device=dev)
-    if out.numel():
-        _cuda.launch('bev_splat_pairs', dev, feats.data_ptr(),
-                     lin2.data_ptr(), par.data_ptr(), out.data_ptr(),
-                     feats.shape[0], feats.shape[1], ncell2,
-                     feats.element_size())
-    return out
+    feats' type.  Calls the registered op ``mmdet3d_torch::
+    bev_splat_pairs``."""
+    return _BEV_SPLAT_PAIRS(feats, lin2, par, ncell2)
 
 
 def splat_plan(feats: torch.Tensor, out: torch.Tensor, halves: int = 1):

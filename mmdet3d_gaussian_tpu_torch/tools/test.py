@@ -3,9 +3,11 @@ counterpart).
 
     python -m mmdet3d_gaussian_tpu_torch.tools.test CONFIG CKPT \
         [--metric kitti|cowa|waymo|nds|iou3d_err] [--bf16] [--device cpu]
+        [--format-only --out r.pkl] [--show-dir DIR --show-score-thr T]
 
 Loads a config and a ``ckpt_{step}.pt`` (its weights), predicts over the
-val split on the card (``--device`` names another device), turns the
+val split on the card (``--device`` names another device; under torchrun,
+``tools/dist_test.sh``, on rank 0 alone), turns the
 padded detections into per-class arrays and calls ``dataset.evaluate``.
 Prints the frame count and the predict and evaluate times, then the report
 as JSON.
@@ -38,7 +40,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help='dump/format results without evaluating (pair '
                         'with --out)')
     p.add_argument('--show-dir', default=None,
-                   help='per-frame overlays (not ported yet)')
+                   help='write each frame\'s points and detections as '
+                        '.obj files here')
     p.add_argument('--show-score-thr', type=float, default=0.3)
     p.add_argument('--cfg-options', nargs='+', default=[])
     p.add_argument('--device', default=None,
@@ -46,12 +49,33 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     return p.parse_args(argv)
 
 
+def show_frames(show_dir: str, score_thr: float):
+    """``predict_split``'s ``on_batch`` for ``--show-dir``: each frame's
+    live points and its valid detections scoring at least ``score_thr`` as
+    ``.obj`` files under ``show_dir/frame{i:06d}``, for the dataset's
+    frames (not the last batch's padding)."""
+    import numpy as np
+    from ..core.visualizer import show_result
+
+    def on_batch(batch, outputs, first, count):
+        boxes, scores, _, valid = outputs
+        for i in range(count):
+            sel = valid[i] & (scores[i] >= score_thr)
+            pts = np.asarray(batch['points'][i])[
+                np.asarray(batch['points_mask'][i])]
+            show_result(pts, None, boxes[i][sel][:, :7], show_dir,
+                        f'frame{first + i:06d}')
+    return on_batch
+
+
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
-    if args.show_dir:
-        raise NotImplementedError('--show-dir needs the visualizer, which '
-                                  'is not ported yet (ROADMAP section 1, '
-                                  'item 8)')
+    import os
+    if int(os.environ.get('RANK', 0)) > 0:
+        # under torchrun (tools/dist_test.sh) rank 0 predicts and
+        # evaluates on its card; the other ranks have nothing to do
+        print(f'rank {os.environ["RANK"]}: the test CLI runs on rank 0')
+        return None
     import torch
     from ..engine.loop import load_checkpoint, predict_split
     from .common import build_detector, load_config
@@ -63,7 +87,10 @@ def main(argv: Optional[Sequence[str]] = None):
         det.trunk.load_state_dict(load_checkpoint(args.checkpoint)
                                   ['state_dict'], strict=True)
     t0 = time.perf_counter()
-    ds, results = predict_split(det, cfg, 'val')
+    ds, results = predict_split(
+        det, cfg, 'val', on_batch=show_frames(args.show_dir,
+                                              args.show_score_thr)
+        if args.show_dir else None)
     if det.device.type == 'cuda':
         torch.cuda.synchronize(det.device)
     predict_s = time.perf_counter() - t0

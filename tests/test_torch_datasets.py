@@ -203,3 +203,38 @@ def test_shared_list_roundtrip():
             lst.cleanup()
     finally:
         owner.cleanup()
+
+
+@pytest.mark.parametrize('span', [4.0, 12.0, 70.0])
+def test_object_noise_matches_crowded(span):
+    """``ObjectNoise`` on scenes from packed (most candidates collide, some
+    boxes keep their pose) to KITTI-sparse: the port tests candidates in
+    chunks against the nearby boxes only, and must draw and move exactly
+    what the JAX package's all-pairs clipping does."""
+    from mmdet3d_gaussian_tpu.datasets.pipelines import ObjectNoise as J
+    from mmdet3d_gaussian_tpu_torch.datasets.pipelines import ObjectNoise as T
+    rng = np.random.RandomState(int(span))
+    for seed in range(4):
+        g = 30
+        boxes = np.zeros((g, 7), np.float32)
+        boxes[:, 0] = rng.uniform(0, span, g)
+        boxes[:, 1] = rng.uniform(-span / 2, span / 2, g)
+        boxes[:, 2] = rng.uniform(-2, 0, g)
+        boxes[:, 3] = rng.uniform(0.5, 4.5, g)
+        boxes[:, 4] = rng.uniform(0.5, 2.0, g)
+        boxes[:, 5] = rng.uniform(1.0, 2.0, g)
+        boxes[:, 6] = rng.uniform(-3, 3, g)
+        points = np.c_[rng.uniform(0, span, (4000, 1)),
+                       rng.uniform(-span / 2, span / 2, (4000, 1)),
+                       rng.uniform(-2, 1, (4000, 2))].astype(np.float32)
+        want = J(seed=seed)(dict(gt_bboxes=boxes.copy(),
+                                 points=points.copy()))
+        got = T(seed=seed)(dict(gt_bboxes=boxes.copy(),
+                                points=points.copy()))
+        assert np.array_equal(got['gt_bboxes'], want['gt_bboxes'])
+        assert np.array_equal(got['points'], want['points'])
+        moved = (got['gt_bboxes'] != boxes).any(1)
+        if span == 70.0:
+            assert moved.all()
+        else:
+            assert moved.any()

@@ -283,7 +283,8 @@ def test_clis_on_cpu(runs):
 
 
 def test_unported_paths_raise(tmp_path, monkeypatch):
-    """``--show-dir`` names what is missing instead of running; the train
+    """``--show-dir`` is ported now: the test CLI takes it and goes on to
+    the config's val split (this config has none); the train
     CLI in a job of several processes refuses to run without
     ``--distributed`` (it would train independent copies).  PV-RCNN and
     the MVX detector, whose data-parallel step is now ported, take a group
@@ -300,7 +301,7 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
     from tests.test_pvrcnn import TINY_PVRCNN, TINY_RPN
     cfg_path = tmp_path / 'cfg.py'
     cfg_path.write_text('model = dict()\n')
-    with pytest.raises(NotImplementedError, match='item 8'):
+    with pytest.raises(KeyError, match='data.val'):
         test.main([str(cfg_path), '--show-dir', str(tmp_path),
                    '--device', 'cpu'])
     monkeypatch.setenv('WORLD_SIZE', '2')
