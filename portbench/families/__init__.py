@@ -1,0 +1,10 @@
+"""The model families the configurations name (``"family"`` in a
+configuration file): each module builds the program (the port's detector)
+and the reference of a configuration and drives both the same way."""
+from __future__ import annotations
+
+import importlib
+
+
+def get(name: str):
+    return importlib.import_module(f'{__name__}.{name}')

@@ -1,0 +1,8 @@
+"""The share of a step's time in the untraced window in which nothing ran
+on the card: 1 - the device's busy time a step in the trace (kernels,
+copies and fills) over the step's time in the window."""
+from portbench.metrics.common import idle
+
+
+def read(ctx):
+    return idle(ctx, 'train')
