@@ -320,8 +320,7 @@ import torch
 # the device-time instruments live in the port (engine/profiling.py); the
 # script runs from the repository root, which is on the path
 from mmdet3d_gaussian_tpu_torch.engine.profiling import (  # noqa: E402
-    EVENTS_KEY, PROFILER_MISSES, cuda_ms, cuda_spans, device_ms,
-    device_ms_by_name)
+    cuda_ms, cuda_spans, device_ms, device_ms_by_name)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, 700 W limit): HBM3
 # bytes/s, and f32 operations/s outside the tensor cores. The data sheet's
@@ -820,10 +819,6 @@ def k6_split(fn, card, what):
     """Phase (b), K6: the device ms of its two kernels, the pack and the
     sweep, by their profiler names.  -> {'pack': ms, 'sweep': ms}."""
     by_name = device_ms_by_name(fn, 50)
-    if EVENTS_KEY in by_name:
-        print(f'(b) nms_sweep ({what}): pack and sweep not measured (no '
-              f'profiler trace) [{card}]')
-        return {'pack': None, 'sweep': None}
     split = {part: sum(ms for name, ms in by_name.items()
                        if f'nms_{part}_kernel' in name)
              for part in ('pack', 'sweep')}
@@ -7455,8 +7450,6 @@ def main() -> int:
     print(f'(e) dp summary {json.dumps(dp)} [{card}]')
     print(f'(e) sharded summary {json.dumps(ps_e2e)} [{card}]')
     print(f'(e) export summary {json.dumps(ex_e2e)} [{card}]')
-    print(f'(e) profiler misses (timed on CUDA events instead): '
-          f'{len(PROFILER_MISSES)}')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

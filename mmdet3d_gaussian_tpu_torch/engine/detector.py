@@ -35,6 +35,7 @@ from ..models.middle_encoders import SparseConvBlock
 from ..models.voxel_encoders import MaskedBatchNorm
 from ..parallel.train_state import (AdamW, TrainState, init_state,
                                     make_optimizer, make_train_step)
+from .profiling import span
 
 
 KITTI_3CLASS_MODEL = dict(
@@ -181,7 +182,8 @@ class _Detector:
         -> (new state, metrics: each loss term, ``loss``, ``grad_norm``)."""
         if state is None:
             state = self.init_train()
-        return self._step_fn(state, batch)
+        with span('train_step'):
+            return self._step_fn(state, batch)
 
     @torch.inference_mode()
     def apply_eval(self, batch: Dict[str, torch.Tensor]):
@@ -231,29 +233,34 @@ class PointPillarsDetector(_Detector):
         targets for the whole batch at once (under a group, this rank's
         share of the global batch's loss)."""
         cls, bbox, dirp, packed = outputs
-        targets = self.head.get_targets(
-            self.anchors, batch['gt_bboxes'].to(self.device),
-            batch['gt_labels'].to(self.device),
-            batch['gt_valid'].to(self.device))
-        losses = self.head.loss(cls, bbox, dirp, self.anchors, targets,
-                                packed=packed, group=self.group)
+        with span('targets'):
+            targets = self.head.get_targets(
+                self.anchors, batch['gt_bboxes'].to(self.device),
+                batch['gt_labels'].to(self.device),
+                batch['gt_valid'].to(self.device))
+        with span('loss'):
+            losses = self.head.loss(cls, bbox, dirp, self.anchors, targets,
+                                    packed=packed, group=self.group)
         return sum(losses.values()), losses
 
     def serve(self, batch: Dict[str, torch.Tensor], anchors=None):
         """:meth:`predict`'s body with the trunk in whatever mode it is and
         autograd as the caller has it, on ``anchors`` (default the
         detector's): what ``engine/export.py`` exports."""
-        cls, bbox, dirp = self.trunk(*self._inputs(batch))[:3]
-        return self.head.get_bboxes(cls, bbox, dirp,
-                                    self.anchors if anchors is None
-                                    else anchors)
+        with span('forward'):
+            cls, bbox, dirp = self.trunk(*self._inputs(batch))[:3]
+        with span('decode'):
+            return self.head.get_bboxes(cls, bbox, dirp,
+                                        self.anchors if anchors is None
+                                        else anchors)
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]):
         """-> (boxes (B, max_num, 7), scores (B, max_num), labels
         (B, max_num) int32, valid (B, max_num) bool)."""
-        self.trunk.eval()
-        return self.serve(batch)
+        with span('predict'):
+            self.trunk.eval()
+            return self.serve(batch)
 
 
 class ShardedPointPillarsDetector(PointPillarsDetector):
@@ -420,23 +427,29 @@ class CenterPointDetector(_Detector):
         """Per-task maps -> (total loss, {task{t}.loss_*}); targets for
         the whole batch at once (under a group, this rank's share of the
         global batch's loss)."""
-        targets = self.head.get_targets(
-            batch['gt_bboxes'].to(self.device),
-            batch['gt_labels'].to(self.device),
-            batch['gt_valid'].to(self.device), self.featmap_size)
-        losses = self.head.loss(preds, targets, group=self.group)
+        with span('targets'):
+            targets = self.head.get_targets(
+                batch['gt_bboxes'].to(self.device),
+                batch['gt_labels'].to(self.device),
+                batch['gt_valid'].to(self.device), self.featmap_size)
+        with span('loss'):
+            losses = self.head.loss(preds, targets, group=self.group)
         return sum(losses.values()), losses
 
     def serve(self, batch: Dict[str, torch.Tensor], anchors=None):
         """:meth:`predict`'s body (the center head has no anchors)."""
-        return self.head.get_bboxes(self.trunk(*self._inputs(batch)))
+        with span('forward'):
+            preds = self.trunk(*self._inputs(batch))
+        with span('decode'):
+            return self.head.get_bboxes(preds)
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]):
         """-> (boxes (B, M, 7+), scores (B, M), labels (B, M) int32, valid
         (B, M) bool), M = min(post_max_size, tasks x max_per_img)."""
-        self.trunk.eval()
-        return self.serve(batch)
+        with span('predict'):
+            self.trunk.eval()
+            return self.serve(batch)
 
 
 def synthetic_batch(batch_size: int = 2, num_points: int = 8192,

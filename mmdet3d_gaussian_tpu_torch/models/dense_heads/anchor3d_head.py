@@ -29,6 +29,7 @@ from ...core.bbox.assigners import (MaxIoUAssigner,
                                     assign_per_class_vectorized)
 from ...core.bbox.coders import DeltaXYZWLHRBBoxCoder, get_direction_target
 from ...core.bbox.structures import limit_period
+from ...engine.profiling import span
 from ...ops.gd_loss import anchor_gd_loss
 from ...ops.nms import nms_bev, nms_normal_bev, top_k
 from ...ops.scan import compact_indices
@@ -429,7 +430,8 @@ class GDAnchor3DHead:
         b, c, k = s_sorted.shape
         bev = b_sorted[..., [0, 1, 3, 4, 6]].reshape(b * c, k, 5)
         nms = nms_bev if cfg.get('use_rotate_nms', True) else nms_normal_bev
-        keep = nms(bev, nms_thr, v_sorted.reshape(b * c, k))
+        with span('nms'):
+            keep = nms(bev, nms_thr, v_sorted.reshape(b * c, k))
         kept = torch.where(keep.reshape(b, c, k), s_sorted, -1.0)
         final_scores, fidx = top_k(kept.reshape(b, c * k), max_num)
         boxes = b_sorted.reshape(b, c * k, 7).gather(

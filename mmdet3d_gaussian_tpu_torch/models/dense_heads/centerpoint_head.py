@@ -28,6 +28,7 @@ from .. import losses as _losses  # noqa: F401  (registers the losses)
 from ..backbones import (BatchNorm2d, Conv2d, compute_dtype, nchw_to_nhwc,
                          nhwc_to_nchw)
 from ...core.bbox.coders import CenterPointBBoxCoder, CenterPointBBoxYawCoder
+from ...engine.profiling import span
 from ...ops.heatmap import gaussian_radius, splat_heatmap
 from ...ops.nms import circle_nms, nms_bev, top_k
 from ...registry import LOSSES, MODELS
@@ -383,14 +384,16 @@ class CenterHead:
             keep = torch.zeros_like(valid)
             for r in sorted(set(float(v) for v in radii)):
                 ts = [t for t in range(n_task) if float(radii[t]) == r]
-                keep[:, ts] = circle_nms(
-                    boxes[:, ts, :, :2].reshape(-1, k, 2), r,
-                    valid[:, ts].reshape(-1, k)).reshape(b, len(ts), k)
+                with span('nms'):
+                    keep[:, ts] = circle_nms(
+                        boxes[:, ts, :, :2].reshape(-1, k, 2), r,
+                        valid[:, ts].reshape(-1, k)).reshape(b, len(ts), k)
         else:
             bev = boxes[..., [0, 1, 3, 4, 6]].reshape(b * n_task, k, 5)
-            keep = nms_bev(bev, float(cfg.get('nms_thr', 0.2)),
-                           valid.reshape(b * n_task, k)).reshape(
-                               b, n_task, k)
+            with span('nms'):
+                keep = nms_bev(bev, float(cfg.get('nms_thr', 0.2)),
+                               valid.reshape(b * n_task, k)).reshape(
+                                   b, n_task, k)
         kept = torch.where(keep, scores, -1.0).reshape(b, n_task * k)
         max_num = min(int(cfg.get('post_max_size', 83)), n_task * k)
         final, idx = top_k(kept, max_num)

@@ -39,6 +39,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ...engine.profiling import count, span
 from ...ops.scatter import batch_coords, build_scatter, compute_voxel_coords
 from ...ops.voxelize import (CANVAS_KEY_ORDER, bev_scatter, bev_scatter_s2d,
                              hard_kept_rows, hard_voxelize)
@@ -183,76 +184,119 @@ class PointPillarsNet(nn.Module):
         compacted in that canvas's raster order.  The features are f32, or
         bf16 from a hard encoder computing in bf16.  For MVF the Scatter is
         view 0's and the points stay in their order.  In training under
-        a group the capacity is the global batch's (class docstring)."""
+        a group the capacity is the global batch's (class docstring).
+        Spans ``voxelize`` and ``encoder`` (MVF's encoder voxelizes too),
+        and counts the Scatter's live and dropped pillars
+        (``pillars.live``, ``pillars.dropped``; ``engine/profiling.py``)."""
         b, n, cdim = points.shape
         group = self.group if self.training else None
         max_voxels = self.max_voxels_per_sample * b * world_of(group)
         if self.voxelize_mode == 'mvf':
-            return self.voxel_encoder(points, points_mask,
-                                      self.mvf_max_voxels or max_voxels,
-                                      group)
+            with span('encoder'):
+                out = self.voxel_encoder(points, points_mask,
+                                         self.mvf_max_voxels or max_voxels,
+                                         group)
+        elif self.voxelize_mode == 'hard':
+            out = self._hard_pillars(points, points_mask, max_voxels, group)
+        else:
+            out = self._dynamic_pillars(points, points_mask, max_voxels,
+                                        group)
+        count('pillars.live', out[2].num_live)
+        count('pillars.dropped', out[2].num_overflow)
+        return out
+
+    def _coords(self, points, points_mask):
+        """-> (the batch's points flattened (B N, C), their (b, ix, iy, iz)
+        coords, -1 rows out of range or masked)."""
+        b, n, cdim = points.shape
         flat = points.reshape(b * n, cdim)
         batch_idx = torch.arange(b, dtype=torch.int32,
                                  device=points.device).repeat_interleave(n)
         coords3, _ = compute_voxel_coords(flat[:, :3], self.point_cloud_range,
                                           self.voxel_size)
         coords3 = torch.where(points_mask.reshape(-1, 1), coords3, -1)
-        coords4 = batch_coords(coords3, batch_idx)
-        if self.voxelize_mode == 'hard':
-            return self._hard_pillars(flat, coords4, b, max_voxels, group)
-        if self.s2d:
-            # s2d cell raster order, parity minor: the pair splat's ids are
-            # then non-decreasing; the key is bijective with the pillars
-            iy, ix = coords4[:, 2], coords4[:, 1]
-            s2d_cols = torch.stack([coords4[:, 0], iy // 2, ix // 2,
-                                    (iy & 1) * 2 + (ix & 1)], dim=1)
-            coords4 = torch.where((coords4 < 0).any(-1, keepdim=True), -1,
-                                  s2d_cols)
-            scatter = build_scatter(coords4, (b, self.ny // 2, self.nx // 2,
-                                              4), max_voxels, group=group)
-        else:
-            scatter = build_scatter(coords4, (b, self.nx, self.ny, 1),
-                                    max_voxels, key_order=CANVAS_KEY_ORDER,
-                                    group=group)
-        # permute points into voxel-sorted order once; every reduction in
-        # the encoder then runs over contiguous segments
-        flat_sorted = flat[scatter.sort_order]
-        feats = self.voxel_encoder(flat_sorted, scatter.sorted_view())
+        return flat, batch_coords(coords3, batch_idx)
+
+    def _dynamic_pillars(self, points, points_mask, max_voxels, group):
+        """The dynamic branch of :meth:`pillars`."""
+        b = points.shape[0]
+        with span('voxelize'):
+            flat, coords4 = self._coords(points, points_mask)
+            if self.s2d:
+                # s2d cell raster order, parity minor: the pair splat's ids
+                # are then non-decreasing; the key is bijective with the
+                # pillars
+                iy, ix = coords4[:, 2], coords4[:, 1]
+                s2d_cols = torch.stack([coords4[:, 0], iy // 2, ix // 2,
+                                        (iy & 1) * 2 + (ix & 1)], dim=1)
+                coords4 = torch.where((coords4 < 0).any(-1, keepdim=True),
+                                      -1, s2d_cols)
+                scatter = build_scatter(coords4, (b, self.ny // 2,
+                                                  self.nx // 2, 4),
+                                        max_voxels, group=group)
+            else:
+                scatter = build_scatter(coords4, (b, self.nx, self.ny, 1),
+                                        max_voxels,
+                                        key_order=CANVAS_KEY_ORDER,
+                                        group=group)
+            # permute points into voxel-sorted order once; every reduction
+            # in the encoder then runs over contiguous segments
+            flat_sorted = flat[scatter.sort_order]
+        with span('encoder'):
+            feats = self.voxel_encoder(flat_sorted, scatter.sorted_view())
         return feats, scatter.voxel_coords, scatter
 
-    def _hard_pillars(self, flat, coords4, b, max_voxels, group):
+    def _hard_pillars(self, points, points_mask, max_voxels, group):
         """The hard branch of :meth:`pillars`, pillars compacted in canvas
         raster order."""
+        b = points.shape[0]
         spatial = (b, self.nx, self.ny, 1)
         max_points = self.max_points_per_voxel
         if self.hard_encoder == 'sorted':
-            scatter = build_scatter(coords4, spatial, max_voxels,
-                                    key_order=CANVAS_KEY_ORDER, group=group)
-            sv = scatter.sorted_view()
-            kept = hard_kept_rows(sv.point_voxel_ids, max_voxels, max_points)
-            kept_cnt = scatter.voxel_counts.clamp(max=max_points)
-            feats = self.voxel_encoder(flat[scatter.sort_order], sv, kept,
-                                       kept_cnt, max_points)
+            with span('voxelize'):
+                flat, coords4 = self._coords(points, points_mask)
+                scatter = build_scatter(coords4, spatial, max_voxels,
+                                        key_order=CANVAS_KEY_ORDER,
+                                        group=group)
+                sv = scatter.sorted_view()
+                kept = hard_kept_rows(sv.point_voxel_ids, max_voxels,
+                                      max_points)
+                kept_cnt = scatter.voxel_counts.clamp(max=max_points)
+                flat_sorted = flat[scatter.sort_order]
+            with span('encoder'):
+                feats = self.voxel_encoder(flat_sorted, sv, kept, kept_cnt,
+                                           max_points)
             return feats, scatter.voxel_coords, scatter
-        # mask_slots=False: the encoder multiplies its input by the slot
-        # mask, so what the table holds past num_points never counts
-        hv = hard_voxelize(flat, coords4, spatial, max_points, max_voxels,
-                           key_order=CANVAS_KEY_ORDER, mask_slots=False,
-                           group=group)
-        feats = self.voxel_encoder(hv.voxels, hv.coords, hv.num_points)
+        with span('voxelize'):
+            flat, coords4 = self._coords(points, points_mask)
+            # mask_slots=False: the encoder multiplies its input by the
+            # slot mask, so what the table holds past num_points never
+            # counts
+            hv = hard_voxelize(flat, coords4, spatial, max_points,
+                               max_voxels, key_order=CANVAS_KEY_ORDER,
+                               mask_slots=False, group=group)
+        with span('encoder'):
+            feats = self.voxel_encoder(hv.voxels, hv.coords, hv.num_points)
         return feats, hv.coords, hv.scatter
 
     def forward(self, points: torch.Tensor, points_mask: torch.Tensor):
         pillar_feats, coords_v, _ = self.pillars(points, points_mask)
-        if self.compute_dtype is not None:
-            # every live cell receives one row, so casting the rows is
-            # casting the canvas (a no-op for a hard encoder's bf16 rows)
-            pillar_feats = pillar_feats.to(self.compute_dtype)
         b = points.shape[0]
-        if self.s2d:
-            canvas = bev_scatter_s2d(pillar_feats, coords_v, b, self.nx // 2,
-                                     self.ny // 2)
-        else:
-            canvas = bev_scatter(pillar_feats, coords_v, b, self.nx, self.ny)
-        feats = self.neck(self.backbone(canvas))
-        return self.bbox_head(feats)
+        with span('canvas'):
+            if self.compute_dtype is not None:
+                # every live cell receives one row, so casting the rows is
+                # casting the canvas (a no-op for a hard encoder's bf16
+                # rows)
+                pillar_feats = pillar_feats.to(self.compute_dtype)
+            if self.s2d:
+                canvas = bev_scatter_s2d(pillar_feats, coords_v, b,
+                                         self.nx // 2, self.ny // 2)
+            else:
+                canvas = bev_scatter(pillar_feats, coords_v, b, self.nx,
+                                     self.ny)
+        with span('backbone'):
+            feats = self.backbone(canvas)
+        with span('neck'):
+            feats = self.neck(feats)
+        with span('head'):
+            return self.bbox_head(feats)

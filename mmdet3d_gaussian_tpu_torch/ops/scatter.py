@@ -128,6 +128,7 @@ class Scatter(NamedTuple):
         sorted_starts: (max_voxels,) int32 first sorted row of each voxel
             (cummax-filled for empty voxels).
         sorted_ids: (N,) int32 compact ids in sorted point order.
+        num_live: () int32 this rank's live voxels before capacity.
     """
     point_voxel_ids: torch.Tensor
     voxel_coords: torch.Tensor
@@ -139,6 +140,7 @@ class Scatter(NamedTuple):
     ids_sorted: bool = False
     sorted_starts: Optional[torch.Tensor] = None
     sorted_ids: Optional[torch.Tensor] = None
+    num_live: Optional[torch.Tensor] = None
 
     def sorted_view(self) -> 'Scatter':
         """Scatter over the voxel-sorted point permutation: callers permute
@@ -306,4 +308,5 @@ def build_scatter(coords: torch.Tensor, spatial_shape: Sequence[int],
                    sort_order=order,
                    num_overflow=num_overflow.to(torch.int32),
                    sorted_starts=starts,
-                   sorted_ids=seg_sorted)
+                   sorted_ids=seg_sorted,
+                   num_live=num_live.to(torch.int32))

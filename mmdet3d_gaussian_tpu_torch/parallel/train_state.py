@@ -31,6 +31,7 @@ from torch import nn
 
 from ..core.schedules import (cyclic_schedule, detailed_linear_warmup,
                               step_schedule)
+from ..engine.profiling import span
 
 Tensors = Dict[str, torch.Tensor]
 EPS = 1e-8          # scale_by_adam's eps (eps_root 0)
@@ -264,19 +265,23 @@ def make_train_step(apply_fn: Callable, loss_fn: Callable,
     counts = replicas is None or replicas[0].rank == 0
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Tensors]:
-        total, losses = loss_fn(apply_fn(batch), batch)
+        with span('forward'):
+            outputs = apply_fn(batch)
+        total, losses = loss_fn(outputs, batch)
         names = list(state.params)
         leaves = [state.params[k] for k in names]
-        raw = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = reduce_gradients(
-            {k: torch.zeros_like(p) if g is None else g
-             for k, p, g in zip(names, leaves, raw)}, group, replicas)
-        g_norm = global_norm(grads.values())
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params, g_norm)
-        with torch.no_grad():
-            for k in names:
-                state.params[k].add_(updates[k])
+        with span('backward'):
+            raw = torch.autograd.grad(total, leaves, allow_unused=True)
+        with span('optimizer'):
+            grads = reduce_gradients(
+                {k: torch.zeros_like(p) if g is None else g
+                 for k, p, g in zip(names, leaves, raw)}, group, replicas)
+            g_norm = global_norm(grads.values())
+            updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                  state.params, g_norm)
+            with torch.no_grad():
+                for k in names:
+                    state.params[k].add_(updates[k])
         metrics = {k: torch.as_tensor(v, device=total.device).detach()
                    for k, v in losses.items()}
         metrics['loss'] = total.detach()

@@ -4,7 +4,7 @@ counterpart of the JAX package's ``tools/misc/profile_train_step.py``).
 
     python -m mmdet3d_gaussian_tpu_torch.tools.misc.profile_train_step \
         [--voxelize hard|dynamic] [--bf16] [--batch 4] [--points 16384] \
-        [--steps 8] [--out-dir DIR] [--device cuda|cpu]
+        [--steps 8] [--out-dir DIR] [--device cuda|cpu] [--spans]
 
 1. ``train_step`` on a batch in host memory (each step copies it to the
    device) against the same batch already on the device, each timed by
@@ -12,10 +12,16 @@ counterpart of the JAX package's ``tools/misc/profile_train_step.py``).
 2. ``engine/profiling.py::trace`` over ``--steps`` steps on the device
    batch, written to ``--out-dir/trace.json`` and summarized per step
    (``summarize_trace``).
+3. With ``--spans``, the step split by the port's spans
+   (``engine/profiling.py::split_by_span``: ``--steps`` steps recorded,
+   then as many recorded under the profiler), printed as ``spans a
+   step:`` and JSON of {span: self device ms, self host ms, launches,
+   synchronizing runtime calls, idle ms} a step, with the counters.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from typing import Optional, Sequence
 
@@ -38,12 +44,13 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     add_model_args(p)
+    p.add_argument('--spans', action='store_true',
+                   help='also print the step split by the port\'s spans')
     return p.parse_args(argv)
 
 
 def build(args, head_cfg=None):
     """(detector, host batch) of the command line."""
-    import json
     from ...engine.detector import PointPillarsDetector, synthetic_batch
     mc = dict(voxelize_mode=args.voxelize)
     if args.bf16:
@@ -58,6 +65,7 @@ def build(args, head_cfg=None):
 
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
+    import torch
     from ...engine import profiling
     from ...engine.timing import chain_time_state
     from . import summarize_trace
@@ -81,7 +89,18 @@ def main(argv: Optional[Sequence[str]] = None):
     print(f'trace ({args.steps} steps) -> {path}', flush=True)
     summary = summarize_trace.main([path, '--steps', str(args.steps),
                                     '--top', str(args.top)])
-    return dict(host_batch_s=t_host, device_batch_s=t_dev, summary=summary)
+    out = dict(host_batch_s=t_host, device_batch_s=t_dev, summary=summary)
+    if args.spans:
+        holder = [state]
+
+        def run():
+            for _ in range(args.steps):
+                holder[0], _m = det.train_step(dbatch, holder[0])
+            if det.device.type == 'cuda':
+                torch.cuda.synchronize(det.device)
+        out['spans'] = profiling.split_by_span(run, args.steps)
+        print(f'spans a step: {json.dumps(out["spans"])}', flush=True)
+    return out
 
 
 if __name__ == '__main__':

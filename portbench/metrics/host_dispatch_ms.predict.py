@@ -1,0 +1,8 @@
+"""Host ms a request spends inside the program's `predict` span, recorder
+on and no profiler (half (a) of `portbench/spans.py`): the host's
+enqueueing, and its waits on the card at each sync."""
+from portbench.spans import host_dispatch_ms
+
+
+def read(ctx):
+    return host_dispatch_ms(ctx, 'predict')

@@ -1,18 +1,15 @@
 """``engine/profiling.py`` and the profiling tools on the CPU: ``trace``
 writes a Chrome trace that ``tools/misc/summarize_trace`` reads; the
 summarizer's device tables on a trace with kernel, copy and fill events;
-``timeit`` and ``stage_breakdown`` on the TINY hard detector;
-``profile_train_step`` and ``profile_loss_phase`` end to end at TINY
-width; ``bench_eval`` at a few frames."""
+``timeit``; ``device_ms_by_name`` on a trace with no device activity;
+``profile_train_step`` (with ``--spans``) and ``profile_loss_phase`` end
+to end at TINY width; ``bench_eval`` at a few frames."""
 import json
-import math
 
 import pytest
 import torch
 
 from mmdet3d_gaussian_tpu_torch.engine import profiling
-from mmdet3d_gaussian_tpu_torch.engine.detector import (PointPillarsDetector,
-                                                        synthetic_batch)
 from mmdet3d_gaussian_tpu_torch.tools.misc import (bench_eval,
                                                    profile_loss_phase,
                                                    profile_train_step,
@@ -83,20 +80,20 @@ def test_summarizer_device_tables(tmp_path, capsys):
     assert 'device time 0.1300 ms per step' in capsys.readouterr().out
 
 
-def test_timeit_and_stage_breakdown():
-    det = PointPillarsDetector(TINY_HARD, TINY_HEAD, device='cpu')
-    batch = synthetic_batch(2, 1024, 8,
-                            pc_range=TINY_MODEL['point_cloud_range'],
-                            device='cpu')
+def test_timeit():
     x = torch.randn(512, 512)
     dt = profiling.timeit(lambda a: a @ a @ a, x, iters=8, name='mm')
     assert 0 < dt < 1
-    out = profiling.stage_breakdown(det, batch)
-    assert set(out) == {'voxelize', 'forward', 'fwd+loss'}
-    # the chained slope clamps at 0 where the host's noise swamps a stage
-    # (the TINY voxelize takes ~2 ms here)
-    assert all(math.isfinite(v) and v >= 0 for v in out.values())
-    assert out['fwd+loss'] > 0
+
+
+def test_device_ms_by_name_raises_without_device_activity(monkeypatch):
+    """A trace with no device activity is a failed trace: no host-clock
+    time stands in for it (here the profiler runs on the CPU, with the
+    card's synchronize stubbed)."""
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda *a: None)
+    x = torch.randn(64, 64)
+    with pytest.raises(RuntimeError, match='no device activity'):
+        profiling.device_ms_by_name(lambda: x @ x, 2)
 
 
 TINY_ARGS = ['--batch', '2', '--points', '1024', '--steps', '2',
@@ -104,12 +101,22 @@ TINY_ARGS = ['--batch', '2', '--points', '1024', '--steps', '2',
              '--model-cfg', json.dumps(TINY_HARD)]
 
 
-def test_profile_train_step(tmp_path):
-    out = profile_train_step.main(TINY_ARGS + ['--out-dir', str(tmp_path)])
+def test_profile_train_step(tmp_path, capsys):
+    out = profile_train_step.main(TINY_ARGS + ['--out-dir', str(tmp_path),
+                                               '--spans'])
     # chained slopes clamp at 0 where a loaded host's noise swamps the work
     assert out['host_batch_s'] >= 0 and out['device_batch_s'] >= 0
     assert (tmp_path / profiling.TRACE_FILE).exists()
     assert out['summary']['total_ms'] > 0
+    table = out['spans']
+    assert {'train_step', 'forward', 'voxelize', 'encoder', 'canvas',
+            'backbone', 'neck', 'head', 'targets', 'loss', 'backward',
+            'optimizer'} <= set(table)
+    assert all(table[k]['host_ms'] > 0 for k in ('forward', 'backward'))
+    assert table['counters']['pillars.live'] > 0
+    line = [x for x in capsys.readouterr().out.splitlines()
+            if x.startswith('spans a step: ')]
+    assert json.loads(line[0][len('spans a step: '):]) == table
 
 
 @pytest.mark.parametrize('dense', [False, True])
