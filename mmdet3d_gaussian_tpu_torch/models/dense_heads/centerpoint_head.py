@@ -14,8 +14,9 @@ Port of ``mmdet3d_gaussian_tpu/models/dense_heads/centerpoint_head.py``:
   package vmaps one sample at a time): targets (heatmap splat and
   ``max_objs`` padded slots a task), the losses (GaussianFocal heatmap and
   L1 on the code, or in ``yaw_mode`` the GD loss on decoded boxes beside
-  L1 on the other channels) and decode with NMS.  Decode runs K5 and K6
-  once over every (sample, task) problem of a batch for rotated NMS.
+  L1 on the other channels) and decode with NMS.  Decode runs each step
+  once over every (sample, task) problem of a batch, K5 and K6 included,
+  and copies nothing from the host, so it never makes the host wait.
 """
 from __future__ import annotations
 
@@ -240,13 +241,18 @@ class CenterHead:
         b = torch.arange(featmap.shape[0], device=featmap.device)[:, None]
         return featmap[b, inds[..., 1].long(), inds[..., 0].long()]
 
-    def _reconstruct(self, pred: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Branch maps -> the coder's code layout, NHWC f32."""
+    def _code_branches(self) -> List[str]:
+        """The branches whose channels make the coder's code, in order."""
         names = ['reg', 'height', 'dim']
         names += ['yaw', 'dir'] if self.yaw_mode else ['rot']
         if self.with_vel:
             names.append('vel')
-        return torch.cat([pred[n].float() for n in names], dim=-1)
+        return names
+
+    def _reconstruct(self, pred: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Branch maps -> the coder's code layout, NHWC f32."""
+        return torch.cat([pred[n].float() for n in self._code_branches()],
+                         dim=-1)
 
     def _weights(self, mask: torch.Tensor, first: int) -> torch.Tensor:
         """(B, K) slot mask -> per-channel L1 weights of code channels
@@ -321,75 +327,114 @@ class CenterHead:
         return losses
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def select_best(heatmap: torch.Tensor, code: torch.Tensor, k: int):
-        """Top-k cells of each class, then the top k of those (``lax.top_k``
-        order), for a batch of NHWC maps.  -> scores (B, k), classes (B, k)
-        int32, cells (B, k, 2) as (x, y), codes (B, k, code)."""
-        b, h, w, c = heatmap.shape
-        flat = heatmap.reshape(b, h * w, c).transpose(1, 2)    # (B, C, HW)
-        top_s, top_i = top_k(flat, k)                          # (B, C, k)
-        s2, i2 = top_k(top_s.reshape(b, -1), k)
-        cls = (i2 // k).to(torch.int32)
-        cell = torch.gather(top_i.reshape(b, -1), 1, i2)
-        codes = torch.gather(code.reshape(b, h * w, -1), 1,
-                             cell[..., None].expand(-1, -1, code.shape[-1]))
-        return s2, cls, torch.stack([cell % w, cell // w], -1), codes
+    def _class_slots(self, device: torch.device):
+        """The tasks' classes in a (T, C_max) grid, a task with fewer
+        classes padded at the end.  -> (labels (T, C_max) int32: each
+        slot's class in the whole head, -1 on padding; the widths C_t).
+        Made on the device from ``arange`` and ``full`` alone: no data
+        crosses from the host."""
+        widths = [task['num_classes'] for task in self.tasks]
+        c_max = max(widths)
+        ids = torch.arange(sum(widths), dtype=torch.int32, device=device)
+        pad = torch.full((c_max,), -1, dtype=torch.int32, device=device)
+        rows, first = [], 0
+        for n in widths:
+            rows += [ids[first:first + n], pad[:c_max - n]]
+            first += n
+        return torch.cat(rows).view(len(widths), c_max), widths
+
+    def select_best(self, preds: List[Dict[str, torch.Tensor]], k: int):
+        """Top k cells of each class, then the top k of those (``lax.top_k``
+        order), of every (sample, task) problem in one pass.  The tasks'
+        sigmoid heatmaps lie side by side in (B, T, C_max, HW), a padded
+        class scoring -1, under any sigmoid output, so it is never among a
+        task's top k; the code channels are gathered at the chosen cells
+        only, one branch of every task at a time.  -> scores (B, T, k),
+        labels (B, T, k) int32 (classes of the whole head), cells
+        (B, T, k) as y * W + x, codes (B, T, k, code) f32."""
+        b, h, w, _ = preds[0]['heatmap'].shape
+        slots, widths = self._class_slots(preds[0]['heatmap'].device)
+        n_task, c_max = slots.shape
+        filler = preds[0]['heatmap'].new_zeros((b, h, w, 1))
+        maps = []
+        for pred, n in zip(preds, widths):
+            maps += [pred['heatmap']] + [filler] * (c_max - n)
+        heat = torch.where(slots.view(-1) >= 0,
+                           torch.sigmoid(torch.cat(maps, -1).float()), -1.0)
+        flat = heat.reshape(b, h * w, n_task, c_max).permute(0, 2, 3, 1)
+        top_s, top_i = top_k(flat, k)                  # (B, T, C_max, k)
+        scores, i2 = top_k(top_s.reshape(b, n_task, -1), k)
+        cls = i2 // k
+        labels = torch.gather(slots.expand(b, -1, -1), 2, cls)
+        cells = torch.gather(top_i.reshape(b, n_task, -1), 2, i2)
+        codes = []
+        for name in self._code_branches():
+            branch = torch.cat([pred[name] for pred in preds], -1)
+            c = branch.shape[-1] // n_task
+            codes.append(torch.gather(
+                branch.reshape(b, h * w, n_task, c), 1,
+                cells.transpose(1, 2)[..., None].expand(-1, -1, -1, c)
+            ).float())
+        codes = torch.cat(codes, -1).transpose(1, 2)
+        return scores, labels, cells, codes
 
     def get_bboxes(self, preds: List[Dict[str, torch.Tensor]]):
         """Batched decode + NMS -> fixed-size merged detections: boxes
         (B, M, 7+), scores (B, M), labels (B, M) int32, valid (B, M) bool,
-        M = min(post_max_size, tasks x max_per_img).  Rotated NMS runs all
-        B x tasks problems in one launch of K5 and one of K6; circle NMS
-        one K6 launch for each distinct per-task radius."""
+        M = min(post_max_size, tasks x max_per_img).  Every step runs once
+        over all B x tasks problems, and nothing crosses from the host to
+        the device, so the host never waits for the card here.  Rotated
+        NMS is one launch of K5 and one of K6; circle NMS one K6 launch
+        for each distinct per-task radius."""
         cfg = self.test_cfg
         k = int(cfg.get('max_per_img', 128))
         score_thr = float(cfg.get('score_threshold', 0.1))
         nms_type = cfg.get('nms_type', 'rotate')
         post_range = cfg.get('post_center_limit_range')
 
-        boxes_t, scores_t, labels_t, valid_t = [], [], [], []
-        flag = 0
-        for t, pred in enumerate(preds):
-            heat = torch.sigmoid(pred['heatmap'].float())
-            scores, cls, inds, codes = self.select_best(
-                heat, self._reconstruct(pred), k)
-            boxes = self.coder.decode_cells(codes, inds[..., 0],
-                                            inds[..., 1])
-            valid = scores >= score_thr
-            if post_range is not None:
-                pr = torch.tensor(post_range, dtype=torch.float32,
-                                  device=boxes.device)
-                valid &= (boxes[..., :3] >= pr[:3]).all(-1)
-                valid &= (boxes[..., :3] <= pr[3:6]).all(-1)
-            order = torch.argsort(-torch.where(valid, scores, -torch.inf),
-                                  dim=-1, stable=True)
-            boxes_t.append(torch.gather(
-                boxes, 1, order[..., None].expand(-1, -1, boxes.shape[-1])))
-            scores_t.append(torch.gather(scores, 1, order))
-            labels_t.append(torch.gather(cls, 1, order) + flag)
-            valid_t.append(torch.gather(valid, 1, order))
-            flag += self.tasks[t]['num_classes']
-
-        boxes = torch.stack(boxes_t, 1)                 # (B, T, k, D)
-        scores = torch.stack(scores_t, 1)
-        valid = torch.stack(valid_t, 1)
+        scores, labels, cells, codes = self.select_best(preds, k)
+        w = preds[0]['heatmap'].shape[2]
+        boxes = self.coder.decode_cells(codes, cells % w, cells // w)
+        valid = scores >= score_thr
+        if post_range is not None:
+            # lo <= x <= hi in f32, as a clamp that leaves x as it is (a
+            # NaN centre fails both)
+            for c in range(3):
+                centre = boxes[..., c]
+                valid &= centre.clamp(float(post_range[c]),
+                                      float(post_range[c + 3])) == centre
+        order = torch.argsort(-torch.where(valid, scores, -torch.inf),
+                              dim=-1, stable=True)
+        boxes = torch.gather(
+            boxes, 2, order[..., None].expand(-1, -1, -1, boxes.shape[-1]))
+        scores = torch.gather(scores, 2, order)
+        labels = torch.gather(labels, 2, order)
+        valid = torch.gather(valid, 2, order)
         b, n_task = scores.shape[:2]
         if nms_type == 'circle':
             # mmdet3d's test_cfg gives min_radius a task (a list); a
-            # scalar applies to every task
+            # scalar applies to every task.  Each distinct radius runs
+            # over every problem; each task keeps its own radius's mask.
             mr = cfg.get('min_radius_task', cfg.get('min_radius', 4.0))
-            radii = (list(mr) if isinstance(mr, (list, tuple))
-                     else [mr] * n_task)
-            keep = torch.zeros_like(valid)
-            for r in sorted(set(float(v) for v in radii)):
-                ts = [t for t in range(n_task) if float(radii[t]) == r]
+            radii = [float(v) for v in (mr if isinstance(mr, (list, tuple))
+                                        else [mr] * n_task)]
+            distinct = sorted(set(radii))
+            keeps = []
+            for r in distinct:
                 with span('nms'):
-                    keep[:, ts] = circle_nms(
-                        boxes[:, ts, :, :2].reshape(-1, k, 2), r,
-                        valid[:, ts].reshape(-1, k)).reshape(b, len(ts), k)
+                    keeps.append(circle_nms(
+                        boxes[..., :2].reshape(-1, k, 2), r,
+                        valid.reshape(-1, k)).view(b, n_task, k))
+            keep = keeps[0]
+            if len(distinct) > 1:
+                ids = torch.arange(len(distinct), device=keep.device)
+                which = torch.cat([ids[i:i + 1] for i in
+                                   map(distinct.index, radii)])
+                keep = torch.gather(torch.stack(keeps), 0, which.view(
+                    1, 1, n_task, 1).expand(1, b, -1, k))[0]
         else:
-            bev = boxes[..., [0, 1, 3, 4, 6]].reshape(b * n_task, k, 5)
+            bev = torch.cat([boxes[..., 0:2], boxes[..., 3:5],
+                             boxes[..., 6:7]], -1).reshape(b * n_task, k, 5)
             with span('nms'):
                 keep = nms_bev(bev, float(cfg.get('nms_thr', 0.2)),
                                valid.reshape(b * n_task, k)).reshape(
@@ -399,8 +444,7 @@ class CenterHead:
         final, idx = top_k(kept, max_num)
         boxes = torch.gather(boxes.reshape(b, n_task * k, -1), 1,
                              idx[..., None].expand(-1, -1, boxes.shape[-1]))
-        labels = torch.gather(torch.stack(labels_t, 1).reshape(b, -1), 1,
-                              idx)
+        labels = torch.gather(labels.reshape(b, -1), 1, idx)
         return boxes, final, labels, final > score_thr
 
 

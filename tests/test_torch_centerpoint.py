@@ -8,7 +8,10 @@ weights carried over by ``weights.jax_variables_to_torch``: the coders,
 equal); SECONDFPN at strides (0.5, 1, 2); the forward maps of both heads
 (CenterHead and CenterGDHead); the targets (integers equal); every loss
 term and every parameter's gradient with ``yaw_mode`` off and on and
-velocity off and on; the predict (rotated and circle NMS).  Losses within
+velocity off and on; the predict (rotated and circle NMS), also of a
+six-task head in the nuScenes layout, and its decode on planted ties,
+bitwise equal to the per-task decode it replaced and one batched pass
+(as many operators for two tasks as for six).  Losses within
 rtol 1e-5, gradients within 1e-4 of each tensor's largest value (and
 1e-7), boxes within 1e-5 of their scale; integer outputs equal.  The TINY
 bf16 predict is held as ``tests/test_torch_bf16.py`` holds the anchor
@@ -578,3 +581,261 @@ def test_bf16_predict(yaw, bf16_ref):
     np.testing.assert_array_equal(dets[2], want[2])
     close(dets[1], want[1], 1e-6, 'scores')
     close(dets[0], want[0], BOX_TOL, 'boxes')
+
+
+# ------------------------------------------------------ the batched decode
+NUS_TASKS = (1, 2, 2, 1, 2, 2)      # nuScenes' six tasks' class counts
+POST_RANGE = [-12.0, -12.2, -4.0, 11.8, 12.4, 2.0]
+RADII = [1.0, 4.0, 4.0, 1.0, 2.0, 4.0]
+
+
+def per_task_get_bboxes(head, preds):
+    """The port's decode as it ran before the batched pass, one task at a
+    time: the oracle the batched decode is held to bitwise."""
+    cfg = head.test_cfg
+    k = int(cfg.get('max_per_img', 128))
+    score_thr = float(cfg.get('score_threshold', 0.1))
+    post_range = cfg.get('post_center_limit_range')
+    boxes_t, scores_t, labels_t, valid_t = [], [], [], []
+    flag = 0
+    for t, pred in enumerate(preds):
+        heat = torch.sigmoid(pred['heatmap'].float())
+        b, h, w, c = heat.shape
+        code = head._reconstruct(pred)
+        flat = heat.reshape(b, h * w, c).transpose(1, 2)
+        top_s, top_i = tnms.top_k(flat, k)
+        scores, i2 = tnms.top_k(top_s.reshape(b, -1), k)
+        cls = (i2 // k).to(torch.int32)
+        cell = torch.gather(top_i.reshape(b, -1), 1, i2)
+        codes = torch.gather(code.reshape(b, h * w, -1), 1,
+                             cell[..., None].expand(-1, -1, code.shape[-1]))
+        boxes = head.coder.decode_cells(codes, cell % w, cell // w)
+        valid = scores >= score_thr
+        if post_range is not None:
+            pr = torch.tensor(post_range, dtype=torch.float32)
+            valid &= (boxes[..., :3] >= pr[:3]).all(-1)
+            valid &= (boxes[..., :3] <= pr[3:6]).all(-1)
+        order = torch.argsort(-torch.where(valid, scores, -torch.inf),
+                              dim=-1, stable=True)
+        boxes_t.append(torch.gather(
+            boxes, 1, order[..., None].expand(-1, -1, boxes.shape[-1])))
+        scores_t.append(torch.gather(scores, 1, order))
+        labels_t.append(torch.gather(cls, 1, order) + flag)
+        valid_t.append(torch.gather(valid, 1, order))
+        flag += head.tasks[t]['num_classes']
+    boxes = torch.stack(boxes_t, 1)
+    scores = torch.stack(scores_t, 1)
+    valid = torch.stack(valid_t, 1)
+    b, n_task = scores.shape[:2]
+    if cfg.get('nms_type', 'rotate') == 'circle':
+        mr = cfg.get('min_radius_task', cfg.get('min_radius', 4.0))
+        radii = (list(mr) if isinstance(mr, (list, tuple))
+                 else [mr] * n_task)
+        keep = torch.zeros_like(valid)
+        for r in sorted(set(float(v) for v in radii)):
+            ts = [t for t in range(n_task) if float(radii[t]) == r]
+            keep[:, ts] = tnms.circle_nms(
+                boxes[:, ts, :, :2].reshape(-1, k, 2), r,
+                valid[:, ts].reshape(-1, k)).reshape(b, len(ts), k)
+    else:
+        bev = boxes[..., [0, 1, 3, 4, 6]].reshape(b * n_task, k, 5)
+        keep = tnms.nms_bev(bev, float(cfg.get('nms_thr', 0.2)),
+                            valid.reshape(b * n_task, k)).reshape(
+                                b, n_task, k)
+    kept = torch.where(keep, scores, -1.0).reshape(b, n_task * k)
+    final, idx = tnms.top_k(kept, min(int(cfg.get('post_max_size', 83)),
+                                      n_task * k))
+    boxes = torch.gather(boxes.reshape(b, n_task * k, -1), 1,
+                         idx[..., None].expand(-1, -1, boxes.shape[-1]))
+    labels = torch.gather(torch.stack(labels_t, 1).reshape(b, -1), 1, idx)
+    return boxes, final, labels, final > score_thr
+
+
+def assert_bitwise(got, want):
+    for name, g, w in zip(('boxes', 'scores', 'labels', 'valid'), got,
+                          want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def six_task_cfg(case, tasks=NUS_TASKS, radii=RADII):
+    """The TINY head in the nuScenes layout (velocity on), every candidate
+    in the output, centres limited to a range that cuts some; circle NMS
+    with a radius a task."""
+    test_cfg = dict(post_max_size=len(tasks) * 32,
+                    post_center_limit_range=POST_RANGE)
+    if case == 'circle':
+        test_cfg.update(nms_type='circle', min_radius=list(radii))
+    hc = head_cfg(case == 'yaw', True, **test_cfg)
+    hc['tasks'] = [dict(num_classes=n) for n in tasks]
+    return hc
+
+
+@pytest.fixture(scope='module')
+def six_task():
+    """JAX's TINY CenterPoint variables with six tasks, BN and biases
+    redrawn, each task's heatmap output conv scaled and its bias set so
+    that every class's median score sits on the threshold (0.05); per
+    head (rot, yaw)."""
+    batch = batch_np(True, seed=2)
+    out = {}
+    for yaw in (False, True):
+        jd = jdet.CenterPointDetector(
+            model_cfg=TINY_CP_MODEL,
+            head_cfg=six_task_cfg('yaw' if yaw else 'rot'))
+        variables = copy.deepcopy(randomize(np_tree(jax.jit(jd.init)(
+            jax.random.PRNGKey(1), batch)), np.random.RandomState(7)))
+        heads = variables['params']['bbox_head']
+        for t in range(len(NUS_TASKS)):
+            heads[f'task{t}']['heatmap_out']['kernel'] *= 4
+            heads[f'task{t}']['heatmap_out']['bias'][:] = 0
+        for t, maps in enumerate(jd.apply_eval(variables, batch)):
+            logits = np.asarray(maps['heatmap'])
+            med = np.median(logits.reshape(-1, logits.shape[-1]), axis=0)
+            heads[f'task{t}']['heatmap_out']['bias'][:] = (
+                -med + np.log(0.05 / 0.95))
+        out[yaw] = variables
+    return batch, out
+
+
+@pytest.mark.parametrize('case', ['rot', 'yaw', 'circle'])
+def test_six_task_predict(case, six_task):
+    """The predict of a six-task head (classes 1, 2, 2, 1, 2, 2, as
+    nuScenes') against JAX's, scores straddling the threshold and centres
+    the range: labels and valid equal, scores and boxes within the
+    tolerances of :func:`test_predict`; the decode on the port's own maps
+    bitwise equal to the per-task decode."""
+    batch, variables = six_task
+    variables = variables[case == 'yaw']
+    hc = six_task_cfg(case)
+    jd = jdet.CenterPointDetector(model_cfg=TINY_CP_MODEL, head_cfg=hc)
+    td = tdet.CenterPointDetector(TINY_CP_MODEL, hc, device='cpu')
+    td.trunk.load_state_dict(jax_variables_to_torch(variables, STRIDES),
+                             strict=True)
+    want = [np.asarray(x) for x in jax.jit(jd.predict)(variables, batch)]
+    got = [x.numpy() for x in td.predict(to_torch(batch))]
+    boxes, scores, labels, valid = got
+    assert boxes.shape == want[0].shape == (2, 192, 9)
+    close(scores, want[1], 1e-6, 'scores')
+    np.testing.assert_array_equal(labels, want[2])
+    np.testing.assert_array_equal(valid, want[3])
+    assert valid.any() and not valid.all()
+    # a detection of every task
+    task_of = np.searchsorted(np.cumsum(NUS_TASKS), labels[valid], 'right')
+    assert set(task_of.tolist()) == set(range(len(NUS_TASKS)))
+    close(boxes, want[0], BOX_TOL, 'boxes')
+    with torch.inference_mode():
+        maps = td.apply_eval(to_torch(batch))
+        assert_bitwise(td.head.get_bboxes(maps),
+                       per_task_get_bboxes(td.head, maps))
+        # the centre range drops candidates that clear the threshold
+        wide = copy.copy(td.head)
+        wide.test_cfg = dict(td.head.test_cfg, post_center_limit_range=None)
+        assert (wide.get_bboxes(maps)[3].sum()
+                > td.head.get_bboxes(maps)[3].sum())
+
+
+def plant_ties(maps, k=32):
+    """Exact ties in every task's heatmap: the first k + 8 cells of every
+    class at one logit above the threshold (more tied cells than a class
+    keeps, and the same score in both classes of a two-class task), and
+    the scores of task 3 (one class, padded) all exactly 0 (a logit of
+    -200), so that its top k are zeros beside the padded class."""
+    out = []
+    for t, task in enumerate(maps):
+        task = {n: np.array(v) for n, v in task.items()}
+        heat = task['heatmap']
+        b, h, w, c = heat.shape
+        heat.reshape(b, h * w, c)[:, :k + 8] = 1.25
+        if t == 3:
+            heat[...] = -200.0
+        out.append(task)
+    return out
+
+
+@pytest.mark.parametrize('case', ['rot', 'yaw', 'circle'])
+def test_six_task_decode_ties(case, six_task):
+    """``get_bboxes`` on JAX's six-task maps with planted ties equals
+    JAX's decode (the lower index wins a tie, across the classes and past
+    the padded class of a one-class task) and, bitwise, the per-task
+    decode."""
+    batch, variables = six_task
+    variables = variables[case == 'yaw']
+    hc = six_task_cfg(case)
+    jd = jdet.CenterPointDetector(model_cfg=TINY_CP_MODEL, head_cfg=hc)
+    maps = plant_ties(np_tree(jd.apply_eval(variables, batch)))
+    want = [np.asarray(x) for x in jax.jit(jax.vmap(
+        jd.head.get_bboxes_single))(maps)]
+    head = tdet.CenterPointDetector(TINY_CP_MODEL, hc, device='cpu').head
+    tmaps = [{n: torch.from_numpy(v) for n, v in task.items()}
+             for task in maps]
+    got = head.get_bboxes(tmaps)
+    assert_bitwise(got, per_task_get_bboxes(head, tmaps))
+    boxes, scores, labels, valid = [x.numpy() for x in got]
+    close(scores, want[1], 1e-6, 'scores')
+    np.testing.assert_array_equal(labels, want[2])
+    np.testing.assert_array_equal(valid, want[3])
+    close(boxes, want[0], BOX_TOL, 'boxes')
+    # task 3 (class 5) keeps k zero scores, none from the padded class
+    assert (labels == 5).sum() == 2 * 32 and not valid[labels == 5].any()
+    top_scores, top_labels = head.select_best(tmaps, 32)[:2]
+    assert (top_scores[:, 3] == 0).all() and (top_labels[:, 3] == 5).all()
+
+
+def random_maps(tasks, yaw, b=2, hw=16, seed=0, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    branches = dict(reg=2, height=1, dim=3, vel=2,
+                    **(dict(yaw=1, dir=2) if yaw else dict(rot=2)))
+    maps = []
+    for n in tasks:
+        task = {name: torch.randn(b, hw, hw, c, generator=g)
+                for name, c in branches.items()}
+        task['heatmap'] = torch.randn(b, hw, hw, n, generator=g) * 2 - 3
+        maps.append({name: v.to(dtype) for name, v in task.items()})
+    return maps
+
+
+def aten_ops(fn):
+    """-> the number of aten operators that compute (views apart) run
+    under the profiler by ``fn()``."""
+    def view(name):
+        ops = getattr(torch.ops.aten, name[len('aten::'):], None)
+        return ops is not None and any(getattr(ops, o).is_view
+                                       for o in ops.overloads())
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(1 for e in prof.events()
+               if e.name.startswith('aten::') and not view(e.name))
+
+
+@pytest.mark.parametrize('case', ['rot', 'yaw', 'circle'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_decode_is_one_batched_pass(case, dtype, monkeypatch):
+    """One ``get_bboxes`` call runs as many aten operators for a two-task
+    head (classes 1, 2) as for the six-task head of the same maps (circle
+    NMS: radii 1, 4 and 1, 4, 4, 1, 4, 1, one sweep a distinct radius),
+    where the per-task decode runs more; the call builds no tensor from Python
+    data (``torch.tensor``, ``as_tensor`` and ``new_tensor`` raise inside
+    it), so no host-to-device copy is made on the card; its detections
+    equal the per-task decode's bitwise (bf16 maps too)."""
+    maps = random_maps(NUS_TASKS, case == 'yaw', dtype=dtype)
+    radii = [1.0, 4.0, 4.0, 1.0, 4.0, 1.0]
+    heads = {n: tdet.CenterPointDetector(
+        TINY_CP_MODEL, six_task_cfg(case, NUS_TASKS[:n], radii[:n]),
+        device='cpu').head for n in (2, 6)}
+    want = {n: per_task_get_bboxes(heads[n], maps[:n]) for n in (2, 6)}
+    old = {n: aten_ops(lambda: per_task_get_bboxes(heads[n], maps[:n]))
+           for n in (2, 6)}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('a tensor built from Python data')
+    monkeypatch.setattr(torch, 'tensor', refuse)
+    monkeypatch.setattr(torch, 'as_tensor', refuse)
+    monkeypatch.setattr(torch.Tensor, 'new_tensor', refuse)
+    new = {}
+    for n in (2, 6):
+        new[n] = aten_ops(lambda: heads[n].get_bboxes(maps[:n]))
+        assert_bitwise(heads[n].get_bboxes(maps[:n]), want[n])
+    assert new[2] == new[6], new
+    assert old[6] > old[2]

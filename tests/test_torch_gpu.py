@@ -1031,6 +1031,56 @@ def test_circle_nms_kernel(cuda, min_radius):
     assert 0 < int(want.sum()) < int(valid.sum())
 
 
+def _nus_head_maps(yaw, seed, b=4, hw=128):
+    """The nuScenes center head and a batch of its maps at the config's
+    full shapes (B = 4, 128 x 128 cells, 6 tasks of 1, 2, 2, 1, 2, 2
+    classes, k = 128): a few cells a class over the score threshold,
+    codes of nuScenes-sized boxes."""
+    mc = detector.NUS_CENTERPOINT_MODEL
+    head = detector.CenterHead(**dict(
+        detector.NUS_CENTERPOINT_HEAD, yaw_mode=yaw,
+        pc_range=mc['point_cloud_range'], voxel_size=mc['voxel_size']))
+    g = torch.Generator().manual_seed(seed)
+    maps = []
+    for task in head.tasks:
+        m = {name: torch.randn(b, hw, hw, c, generator=g)
+             for name, (c, _) in head.common_heads.items()}
+        m['reg'] = torch.rand(b, hw, hw, 2, generator=g)
+        m['dim'] = m['dim'] * 0.5 + 0.5
+        m['heatmap'] = torch.randn(b, hw, hw, task['num_classes'],
+                                   generator=g) - 5.5
+        maps.append(m)
+    return head, maps
+
+
+@pytest.mark.parametrize('yaw', [False, True], ids=['rot', 'yaw'])
+def test_center_decode_syncs_nothing(cuda, yaw):
+    """``CenterHead.get_bboxes`` at the nuScenes config's full shapes runs
+    under ``torch.cuda.set_sync_debug_mode('error')`` without raising (no
+    host-to-device copy, no read of the card's data), launches K5 and K6
+    once each, and equals the CPU decode of the same maps: labels and
+    valid equal, scores within 1e-6, boxes within 1e-5 of their scale."""
+    head, maps = _nus_head_maps(yaw, 11)
+    want = head.get_bboxes(maps)
+    dev_maps = [{n: v.to(cuda) for n, v in m.items()} for m in maps]
+    torch.cuda.synchronize()
+    before = dict(_cuda.LAUNCHES)
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = head.get_bboxes(dev_maps)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = [x.cpu() for x in got]
+    assert _cuda.LAUNCHES['rotated_iou'] == before['rotated_iou'] + 1
+    assert _cuda.LAUNCHES['nms_sweep'] == before['nms_sweep'] + 1
+    assert got[0].shape == want[0].shape == (4, 83, 9)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert 0 < int(want[3].sum()) < want[3].numel()
+    assert float((got[1] - want[1]).abs().max()) <= 1e-6
+    scale = max(float(want[0].abs().max()), 1.0)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5 * scale
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
 def test_bev_splat_more_rows_than_cells(cuda, dtype):
