@@ -1,6 +1,8 @@
 """The model families the configurations name (``"family"`` in a
 configuration file): each module builds the program (the port's detector)
-and the reference of a configuration and drives both the same way."""
+and the reference of a configuration, drives both the same way, and
+counts a forward pass's FLOPs (``forward_flops(cfg, b, points_per_frame)``,
+read by ``flops.step``)."""
 from __future__ import annotations
 
 import importlib

@@ -24,7 +24,8 @@ class Run(SimpleNamespace):
     entries), ``cfg`` and ``traffic`` (their files), ``seed``,
     ``seconds``, ``trace``, ``device``, ``t0`` (process start on the host
     clock), ``wrap`` (a test's fault around the program's step: None on
-    every measured run), ``log`` (a stream for the earlier lines)."""
+    every measured run), ``log`` (a stream for the earlier lines),
+    ``world`` (the ranks, one a card: the cell's ``chips``)."""
 
 
 def sync(device) -> None:
@@ -137,7 +138,8 @@ def device_line(run: Run, memory_peak: int,
                       else 'cpu'),
                 count=1, memory_peak_bytes=int(memory_peak))
     if ctx is not None:
-        line['busy_s'] = tr.busy_us(ctx.kernels + ctx.other) / 1e6
+        line['busy_s'] = tr.busy_us(tr.compute(ctx.kernels)
+                                    + ctx.other) / 1e6
         line['window_s'] = ctx.wall_s
     return line
 

@@ -60,10 +60,30 @@ def idle(ctx, kind: str) -> Optional[float]:
     (kernels, copies and fills; the first traced pass) over the unit's
     time in the untraced window.  The traced pass's own wall time is not
     used: the profiler's per-launch callbacks slow the host that paces
-    the card, and would count as idle."""
+    the card, and would count as idle.  On several cards an NCCL kernel
+    spins until every rank has reached its collective, longer in the
+    traced pass for the same reason, so NCCL kernels count as idle, as in
+    the device line's ``busy_s`` (``trace.compute``; ``allreduce_ms.*``
+    reads the exchange); one card runs none."""
     if ctx.kind != kind or not ctx.step_s:
         return None
-    busy = tr.busy_us(ctx.kernels + ctx.other) / 1e6 / ctx.units
+    busy = tr.busy_us(tr.compute(ctx.kernels) + ctx.other) / 1e6 / ctx.units
     if not busy:
         return None
     return 100.0 * (1.0 - busy / ctx.step_s)
+
+
+def collective_ms(ctx, kind: str) -> Optional[float]:
+    """Device ms a unit of the collectives themselves: each collective's
+    NCCL kernel on the rank that reached it last, which waits for no
+    other, so the ranks' skew is left out.  ``ctx.collectives`` holds
+    each rank's NCCL kernel times of the first traced pass in launch
+    order (every rank launches the same collectives in the same order on
+    one stream); where the profiler lost a record and the ranks' counts
+    differ, the least rank's total stands in.  None on one card."""
+    every = getattr(ctx, 'collectives', None)
+    if ctx.kind != kind or not every or not all(every):
+        return None
+    if len({len(k) for k in every}) > 1:
+        return min(sum(k) for k in every) / 1e3 / ctx.units
+    return sum(min(d) for d in zip(*every)) / 1e3 / ctx.units

@@ -19,6 +19,8 @@ from .layers import SECOND, SECONDFPN, Linear, RowBatchNorm
 from .losses import cross_entropy, focal_sum, gd_distance
 
 PRIOR = 0.01
+# the frames whose anchor targets are assigned at once
+TARGET_FRAMES = 12
 
 
 class PFNLayer(nn.Module):
@@ -159,7 +161,18 @@ class PointPillars(nn.Module):
 
     def targets(self, anchors, gt, labels, valid):
         """MaxIoU per anchor class -> (labels (B, A), label weights,
-        positive mask, matched gt (B, A, 7))."""
+        positive mask, matched gt (B, A, 7)); each frame's alone, so in
+        blocks of at most :data:`TARGET_FRAMES` frames, the (B, G, A)
+        overlaps of one block at a time."""
+        if gt.shape[0] <= TARGET_FRAMES:
+            return self._targets(anchors, gt, labels, valid)
+        parts = [self._targets(anchors, gt[i:i + TARGET_FRAMES],
+                               labels[i:i + TARGET_FRAMES],
+                               valid[i:i + TARGET_FRAMES])
+                 for i in range(0, gt.shape[0], TARGET_FRAMES)]
+        return tuple(torch.cat(t) for t in zip(*parts))
+
+    def _targets(self, anchors, gt, labels, valid):
         h, w, s, r, _ = anchors.shape
         flat = anchors.reshape(-1, 7)
         a_cls = torch.arange(s, device=flat.device)[None, :, None].expand(

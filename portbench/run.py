@@ -43,11 +43,14 @@ def load_limits(name):
 
 
 def run_cell(name, seed, seconds, trace, device, t0=T0, cfg=None,
-             traffic_over=None, wrap=None, limits=None, log=sys.stderr):
-    """Run cell ``name`` once on ``device`` (a torch.device): the whole
-    run without the look for a card, which tests use on the CPU with a
-    smaller ``cfg`` and traffic (``traffic_over`` updates the mix) and a
-    fault ``wrap``ped around the program's step.  -> the result dict."""
+             traffic_over=None, wrap=None, limits=None, log=sys.stderr,
+             world=None):
+    """Run cell ``name`` once on ``device`` (a torch.device; a cell of
+    several cards on as many ranks, ``world`` or else its ``chips``, rank
+    r on card r): the whole run without the look for a card, which tests
+    use on the CPU with a smaller ``cfg`` and traffic (``traffic_over``
+    updates the mix) and a fault ``wrap``ped around the program's step.
+    -> the result dict."""
     import torch
     from . import configs, loops, traffic
     from .loops.common import Run
@@ -63,7 +66,8 @@ def run_cell(name, seed, seconds, trace, device, t0=T0, cfg=None,
     run = Run(name=name, cell=cell, bench=bench, cfg=cfg, traffic=tf,
               seed=int(seed), seconds=float(seconds), trace=bool(trace),
               device=device, t0=t0, wrap=wrap,
-              limits=limits or load_limits(name), log=log)
+              limits=limits or load_limits(name), log=log,
+              world=int(world or cell['chips']))
     return loops.get(tf['loop']).run(run)
 
 

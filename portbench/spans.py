@@ -9,7 +9,9 @@ handed ``ctx`` alone, so the first span reader of a run makes that pass
 itself (:func:`of`): it rebuilds the cell from the run's command line
 (``--workload``, ``--seed``) as the loops build it (the configuration,
 the pool and the weights from the seed, the loop's own unit: a train
-step, or a request answered on the host), runs ``ctx.units`` warm units,
+step, or a request answered on the host); a cell of several ranks, which
+one card cannot rebuild, makes it on every rank with the loop's own
+objects (:func:`loop_pass`).  The pass runs ``ctx.units`` warm units,
 then half (a)'s units with the recorder off, and then two halves of
 ``ctx.units`` units each:
 
@@ -44,6 +46,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .trace import collective
+
 PREFIX = 'mmdet3d::'
 SYNCS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
          'cudaEventSynchronize', 'cudaMemcpy')
@@ -60,7 +64,9 @@ def timeline(prof) -> Tuple[List[Span], List[Call], List[Activity]]:
     """From a profile of a recording, read from the profiler's raw
     events: the program's spans (the ``mmdet3d::`` annotations, prefix
     dropped), the CUDA runtime and driver calls, and the card's kernels,
-    copies and fills (their annotations' device copies left out)."""
+    copies and fills (their annotations' device copies left out, and the
+    collectives, whose time is mostly the wait for the slowest rank:
+    ``trace.collective``; one card runs none)."""
     from torch.autograd import DeviceType
     results = prof.profiler.kineto_results
     origin = results.trace_start_ns()
@@ -72,7 +78,7 @@ def timeline(prof) -> Tuple[List[Span], List[Call], List[Activity]]:
         end = (e.end_ns() - origin) / 1e3
         name = e.name()
         if e.device_type() == DeviceType.CUDA:
-            if not e.is_user_annotation():
+            if not e.is_user_annotation() and not collective(name):
                 device.append((start, end, e.correlation_id(),
                                not name.lower().startswith(('memcpy',
                                                             'memset'))))
@@ -210,6 +216,23 @@ def measure(kind: str, units: int, one: Callable[[int], None],
                            units=dict(a=half_a, b=half_b))
 
 
+def loop_pass(ctx, one: Callable[[int], None], live: Callable[[int], int],
+              device, log=sys.stderr) -> SimpleNamespace:
+    """:func:`measure` the loop's own ``one(i)`` (unit ``i`` from where
+    the traced passes stopped) and keep it on ``ctx`` for the span
+    readers: a cell of several ranks, every rank running it alike, where
+    the cell cannot be rebuilt on one card.  ``live(i)``: the traffic's
+    live pillars of unit ``i``'s rows on this rank."""
+    out = measure(ctx.kind, ctx.units, one, ctx.step_s, device, log)
+    out.expected_live = sum(live(i) for i in out.units['a']) / ctx.units
+    print(f'spans: half (a) ran units {out.units["a"]}, half (b) '
+          f'{out.units["b"]}; live pillars a unit '
+          f'{out.counters.get("pillars.live")} (the traffic\'s '
+          f'{out.expected_live})', file=log)
+    ctx.program_spans = out
+    return out
+
+
 def command_line() -> Tuple[Optional[str], Optional[int]]:
     """(--workload, --seed) of the running ``portbench.run`` command."""
     p = argparse.ArgumentParser(add_help=False)
@@ -267,9 +290,10 @@ def cell_pass(name: str, seed: int, kind: str, units: int, step_s: float,
 
 
 def of(ctx) -> Optional[SimpleNamespace]:
-    """The span pass of this run (made by the first reader that asks,
-    kept on ``ctx``), or None: outside a ``portbench.run`` command, on a
-    program without the recorder, or without a card."""
+    """The span pass of this run (the loop's own, :func:`loop_pass`, or
+    made by the first reader that asks, kept on ``ctx``), or None:
+    outside a ``portbench.run`` command, on a program without the
+    recorder, or without a card."""
     if not hasattr(ctx, 'program_spans'):
         name, seed = command_line()
         ctx.program_spans = None

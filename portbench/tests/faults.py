@@ -54,3 +54,35 @@ def altered_answer(predict):
         boxes[0, 0, 0] += 1.0
         return boxes, scores, labels, valid
     return f
+
+
+def no_exchange(step):
+    """A data-parallel train step whose ranks exchange nothing: every
+    all-reduce left out, so each rank's BatchNorm statistics, loss
+    normalizers, gradients and logged loss are its own rows' alone."""
+    import torch.distributed as dist
+
+    def f(det, batch, state):
+        real = dist.all_reduce
+        dist.all_reduce = lambda *args, **kw: None
+        try:
+            return step(det, batch, state)
+        finally:
+            dist.all_reduce = real
+    return f
+
+
+def rank_killed(step):
+    """A train step that kills its own process on rank 1 at its fifth
+    call (after the checked steps, in the warm steps)."""
+    import os
+    import signal
+    import torch.distributed as dist
+    calls = [0]
+
+    def f(det, batch, state):
+        calls[0] += 1
+        if calls[0] == 5 and dist.get_rank() == 1:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return step(det, batch, state)
+    return f

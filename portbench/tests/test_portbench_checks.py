@@ -74,3 +74,27 @@ def test_a_quarter_turned_rectangle_is_the_same_box():
     moved = box.copy()
     moved[0, 0] += 1.0
     assert pc._dist(moved, box)[0, 0] >= 1.0 / 3.0
+
+
+def test_the_reference_in_blocks_reads_the_same():
+    """The reference with its targets assigned in blocks of frames, as a
+    batch of more than ``TARGET_FRAMES`` frames assigns them, gives the
+    same readings bit for bit."""
+    from portbench import families, weights
+    from portbench.checks import train as tc
+    from portbench.families.common import to_device
+    from portbench.reference import pointpillars
+    cfg = tiny.pp_config()
+    tf = dict(traffic.load('kitti_train_b48'), **dict(tiny.PP_TRAFFIC,
+                                                      frames=4, pool=2))
+    fam = families.get(cfg['family'])
+    w0 = weights.make(fam.reference(cfg, 'meta'), cfg['init'], SEED, CPU)
+    batches = [to_device(b, CPU) for b in traffic.make_pool(tf, SEED)]
+    plain = tc.reference(fam, cfg, w0, batches, CPU)
+    old = pointpillars.TARGET_FRAMES
+    pointpillars.TARGET_FRAMES = 1
+    try:
+        blocks = tc.reference(fam, cfg, w0, batches, CPU)
+    finally:
+        pointpillars.TARGET_FRAMES = old
+    assert blocks == plain

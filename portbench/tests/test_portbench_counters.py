@@ -88,6 +88,17 @@ def test_flops_train_step_is_three_forwards():
     assert fc.get_total_flops() == want
 
 
+@pytest.mark.parametrize('config, frames, points, train, want', [
+    ('pp_kitti_3class_kld', 12, 20000, True, 2484107476992.0),
+    ('centerpoint_nus_gwd5', 4, 60000, False, 538651672576.0)])
+def test_flops_of_the_cells_are_pinned(config, frames, points, train, want):
+    """The cells' step FLOPs, bit for bit as the counter read them when
+    the families came to count their own forward passes: ``mfu.*`` keeps
+    its scale."""
+    from portbench import configs
+    assert flops.step(configs.load(config), frames, points, train) == want
+
+
 def test_k1_work_as_chip_smoke():
     data = torch.randn(100, 64)
     counts = torch.tensor([3, 0, 5, 7], dtype=torch.int32)
@@ -143,3 +154,22 @@ def test_recorded_calls_hold_no_large_tensor():
     args = work.light((big, small, 3))
     assert isinstance(args[0], work.Shape) and args[1] is small
     assert work._moments(args, None) == work._moments((big,), None)
+
+
+def test_collective_ms_takes_each_collective_of_the_last_rank():
+    """Each collective's NCCL kernel on the rank that reached it last (the
+    least time): the ranks' waits are left out; unmatched counts fall
+    back to the least rank's total; one card reads nothing."""
+    from types import SimpleNamespace
+    from portbench.metrics.common import collective_ms
+    ctx = SimpleNamespace(kind='train', units=2,
+                          collectives=[[900.0, 10.0, 30.0],
+                                       [20.0, 400.0, 50.0]])
+    assert collective_ms(ctx, 'train') == (20.0 + 10.0 + 30.0) / 1e3 / 2
+    ctx.collectives = [[900.0, 10.0], [20.0, 400.0, 50.0]]
+    assert collective_ms(ctx, 'train') == 470.0 / 1e3 / 2
+    assert collective_ms(ctx, 'predict') is None
+    ctx.collectives = [[], []]
+    assert collective_ms(ctx, 'train') is None
+    assert collective_ms(SimpleNamespace(kind='train', units=2),
+                         'train') is None

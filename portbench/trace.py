@@ -60,6 +60,19 @@ def busy_us(spans) -> float:
     return sum(e - s for s, e in union(spans))
 
 
+def collective(name: str) -> bool:
+    """An NCCL kernel: it spins on its card until every rank has reached
+    its collective, so its time is the exchange and the wait for the
+    slowest rank together."""
+    return 'nccl' in name.lower()
+
+
+def compute(kernels: List[Span]) -> List[Span]:
+    """The kernels that are not :func:`collective` (one card runs none):
+    the device's busy time, the same in ``busy_s`` and the idle share."""
+    return [k for k in kernels if not collective(k[2])]
+
+
 def base_name(name: str) -> str:
     """A kernel's name without namespaces, template arguments and
     parameters: ``void (anonymous namespace)::rows_kernel<float>(...)``
